@@ -1,0 +1,163 @@
+"""Paged attention: the hand-written CUDA kernel, its wrapper, and its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel
+`src/repro/kernels/paged_attention.py::_paged_kernel` (wrapper
+`paged_attention`).  One QUERY SPAN per sequence (Q=1 decode; Q=chunk for
+chunked prefill) attends a KV cache scattered across fixed-size physical
+pages, chased through a block table; only the live pages ceil(len / ps) are
+read.  Each row r of q (position-major: query position r // G) has its own
+causal, live-tail and sliding-window mask; rows with length 0 give zeros.
+
+The kernel (`csrc/paged_attention.cu`) is bound by the bytes of the live
+K/V pages it reads: decode does ~4*G*hd flops per K/V row of 2*hd elements,
+far below the H100's ops:byte ridge.  Its design: one block per
+(sequence, kv head, tile of up to 64 query rows) loops over the live pages
+itself (the TPU kernel's sequential page grid axis), stages 64 keys of
+whole pages of K and V in shared memory per step with 16-byte loads, and
+runs the fp32 online softmax with m and l in shared memory and the output
+accumulator in registers.  It needs head_dim a multiple of 8 up to 128
+and page_size <= 64.  It is built from source with nvcc at first use
+(`kernels.build`) and loaded with ctypes.
+
+The wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_table: torch.Tensor,
+                          lengths: torch.Tensor, *, window: int = 0,
+                          q_span: int = 1,
+                          q_start: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Gather-then-softmax version (the twin of the JAX package's
+    `kernels/ref.py::paged_attention_ref`): every page the table names is
+    gathered (-1 clamped to the null page), scores and softmax run in fp32
+    with -1e30 masks, and rows with length 0 are zeroed."""
+    B, KV, QG, hd = q.shape
+    G = QG // q_span
+    _, ps, _, _ = k_pages.shape
+    P = block_table.shape[1]
+    lengths = lengths.to(torch.int32)
+    if q_start is None:
+        q_start = lengths - q_span
+    tbl = block_table.clamp_min(0).long()
+    k = k_pages[tbl].reshape(B, P * ps, KV, hd).float()
+    v = v_pages[tbl].reshape(B, P * ps, KV, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), k) * scale
+    pos = torch.arange(P * ps, device=q.device)[None]  # (1, S)
+    rows = torch.arange(QG, device=q.device)[None] // G
+    q_abs = q_start.to(torch.int32)[:, None] + rows  # (B, QG)
+    ok = ((pos < lengths[:, None])[:, None, :]
+          & (pos[:, None, :] <= q_abs[..., None]))  # (B, QG, S)
+    if window:
+        ok &= (q_abs[..., None] - pos[:, None, :]) < window
+    s = torch.where(ok[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v)
+    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
+    return out.to(q.dtype)
+
+
+def _check(q, k_pages, v_pages, block_table, lengths, q_start, q_span):
+    B, KV, QG, hd = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"k/v pages must be (N, ps, KV, hd) of one shape; "
+                         f"got {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)}")
+    if (k_pages.shape[2], k_pages.shape[3]) != (KV, hd):
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q "
+                         f"{tuple(q.shape)} in (KV, hd)")
+    if q_span < 1 or QG % q_span:
+        raise ValueError(f"q rows {QG} not a multiple of q_span {q_span}")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table must be (B={B}, P); got "
+                         f"{tuple(block_table.shape)}")
+    for name, t in (("lengths", lengths), ("q_start", q_start)):
+        if t.shape != (B,):
+            raise ValueError(f"{name} must be ({B},); got {tuple(t.shape)}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16; got "
+                        f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    for name, t in (("block_table", block_table), ("lengths", lengths),
+                    ("q_start", q_start)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32; got {t.dtype}")
+    tensors = (q, k_pages, v_pages, block_table, lengths, q_start)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all paged_attention inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention inputs must be contiguous")
+
+
+def _launch(q, k_pages, v_pages, block_table, lengths, q_start, window,
+            q_span) -> torch.Tensor:
+    from .build import build
+    fn = build("paged_attention")["paged_attention"].paged_attention_launch
+    if fn.argtypes is None:  # ctypes caches the function object
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    B, KV, QG, hd = q.shape
+    ps = k_pages.shape[1]
+    if hd % 8 or hd > 128 or ps > 64 \
+            or (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
+        raise ValueError(f"the CUDA kernel needs head_dim a multiple of 8 "
+                         f"up to 128, page_size <= 64 and 16-byte aligned "
+                         f"pools; got hd={hd}, page_size={ps}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_table.data_ptr(), lengths.data_ptr(), q_start.data_ptr(),
+             out.data_ptr(), B, KV, QG, hd, ps, block_table.shape[1],
+             QG // q_span, int(window),
+             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention launch failed: cudaError {err} "
+                           f"(B={B} KV={KV} QG={QG} hd={hd} ps={ps})")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    lengths: torch.Tensor, *, window: int = 0,
+                    q_span: int = 1,
+                    q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, KV, q_span*G, hd), position-major rows; k_pages/v_pages:
+    (N, page_size, KV, hd); block_table: (B, P) int32 (-1 = absent);
+    lengths: (B,) int32 live tokens INCLUDING the span's writes; q_start:
+    (B,) int32 absolute position of each span's first query (default
+    lengths - q_span); window: sliding window (0 = full causal context).
+
+    Returns (B, KV, q_span*G, hd).  CUDA tensors launch the kernel (and
+    count the launch in `paged_attention.launches`); CPU tensors run
+    `paged_attention_plain`."""
+    if q_start is None:
+        q_start = (lengths - q_span).to(torch.int32)
+    _check(q, k_pages, v_pages, block_table, lengths, q_start, q_span)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_table,
+                                     lengths, window=window, q_span=q_span,
+                                     q_start=q_start)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu tensors; got "
+                         f"{q.device}")
+    return _launch(q, k_pages, v_pages, block_table, lengths, q_start,
+                   window, q_span)
+
+
+paged_attention.launches = 0

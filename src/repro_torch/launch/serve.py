@@ -1,0 +1,192 @@
+"""Serving CLI of the PyTorch port: a thin launcher over
+`repro_torch.serve.ServeEngine` (paged KV layout, synchronous tick).
+
+Runs on the GPU unless `--device cpu` is given; `--paged-impl kernel`
+(default) runs attention through the CUDA paged-attention kernel,
+`--paged-impl gather` through a gather and plain attention.
+
+CLI: PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+         --trace poisson --requests 16
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..configs import get_config, smoke_variant
+from ..core import ElasticScalingPolicy, ScaleEvent
+from ..serve import ServeEngine, poisson_arrivals, synthetic_requests
+
+
+def scale_config(cfg, scale: str):
+    """Reduced real-size variants (the JAX package's training presets)."""
+    presets = {
+        "tiny": dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
+                     head_dim=32, d_ff=256, vocab_size=512),
+        "25m": dict(num_layers=6, d_model=384, num_heads=6, num_kv_heads=2,
+                    head_dim=64, d_ff=1024, vocab_size=8192),
+        "100m": dict(num_layers=12, d_model=640, num_heads=10,
+                     num_kv_heads=2, head_dim=64, d_ff=1792,
+                     vocab_size=32768),
+    }
+    upd = dict(presets[scale])
+    if cfg.num_experts:
+        upd["num_experts"] = min(cfg.num_experts, 4)
+    if cfg.encoder_layers:
+        upd["encoder_layers"] = 2
+        upd["encoder_seq"] = 32
+    if cfg.num_image_tokens:
+        upd["num_image_tokens"] = 32
+    upd["dtype"] = "float32"
+    return dataclasses.replace(cfg, **upd)
+
+
+def parse_scale_events(s: Optional[str]) -> Sequence[ScaleEvent]:
+    """'tick:workers,tick:workers' -> ScaleEvents on the engine tick clock."""
+    if not s:
+        return []
+    events = []
+    for part in s.split(","):
+        try:
+            at, n = part.split(":")
+            events.append(ScaleEvent(float(at), int(n)))
+        except ValueError:
+            raise ValueError(
+                f"--scale-events expects 'tick:workers,...'; got {part!r}")
+    return events
+
+
+def _range_arg(s: str):
+    """'min,max' (or a single value meaning min==max) -> (min, max)."""
+    parts = s.split(",")
+    if len(parts) == 1:
+        parts = parts * 2
+    if len(parts) != 2:
+        raise argparse.ArgumentTypeError(f"expected 'min,max', got {s!r}")
+    lo, hi = int(parts[0]), int(parts[1])
+    if lo > hi or lo <= 0:
+        raise argparse.ArgumentTypeError(f"bad range {s!r}")
+    return lo, hi
+
+
+def default_scale_schedule(n_requests: int, avg_new: float, capacity: int,
+                           workers: int) -> Sequence[ScaleEvent]:
+    """Default: scale out to workers+1 a third of the way through the
+    expected run, back in at two thirds (k: w -> w+1 -> w)."""
+    est_ticks = max(int(np.ceil(n_requests * avg_new / capacity)) + 4, 9)
+    return [ScaleEvent(0, workers),
+            ScaleEvent(est_ticks // 3, workers + 1),
+            ScaleEvent(2 * est_ticks // 3, workers)]
+
+
+def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
+          trace: str = "poisson", rate: float = 20.0, requests: int = 16,
+          capacity: int = 8, cache_len: int = 64, prefill_bucket: int = 16,
+          prompt_len: Tuple[int, int] = (8, 24),
+          max_new_tokens: Tuple[int, int] = (4, 12),
+          workers: int = 1, scale_events: Optional[str] = None,
+          kv_layout: str = "paged", page_size: int = 8,
+          prefix_share: Optional[bool] = None, paged_impl: str = "kernel",
+          device: str = "cuda", seed: int = 0) -> Dict:
+    """Run an open-loop serving workload; returns the metrics summary."""
+    cfg = get_config(arch)
+    cfg = smoke_variant(cfg) if smoke else scale_config(cfg, scale)
+    rng = np.random.default_rng(seed)
+    arrivals = poisson_arrivals(requests, rate if trace == "poisson" else 0.0,
+                                rng=rng)
+    reqs = synthetic_requests(requests, vocab_size=cfg.vocab_size,
+                              arrivals=arrivals, prompt_len=prompt_len,
+                              max_new_tokens=max_new_tokens, rng=rng)
+    if scale_events is None:
+        sched = default_scale_schedule(
+            requests, float(np.mean(max_new_tokens)), capacity, workers)
+    else:
+        sched = parse_scale_events(scale_events)
+    policies = [ElasticScalingPolicy(sched)] if sched else []
+    engine = ServeEngine(cfg, capacity=capacity, cache_len=cache_len,
+                         prefill_bucket=prefill_bucket, n_workers=workers,
+                         policies=policies, kv_layout=kv_layout,
+                         page_size=page_size, prefix_share=prefix_share,
+                         paged_impl=paged_impl, seed=seed, device=device)
+    out = engine.run(reqs).summarize()
+    out.update(arch=arch, capacity=capacity, device=str(engine.device),
+               paged_impl=paged_impl)
+    return out
+
+
+def _fmt_ms(v: Optional[float]) -> str:
+    return f"{v * 1e3:7.1f}ms" if v is not None else "    n/a"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--scale", default="tiny", choices=["tiny", "25m", "100m"])
+    ap.add_argument("--trace", default="poisson", choices=["poisson", "burst"])
+    ap.add_argument("--rate", type=float, default=20.0, help="req/s (poisson)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--capacity", type=int, default=8, help="decode slots")
+    ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--prefill-bucket", type=int, default=16)
+    ap.add_argument("--prompt-len", type=_range_arg, default=(8, 24),
+                    help="min,max (or one value)")
+    ap.add_argument("--max-new", type=_range_arg, default=(4, 12),
+                    help="min,max (or one value)")
+    ap.add_argument("--workers", type=int, default=1)
+    ap.add_argument("--scale-events", default=None,
+                    help="'tick:workers,...'; default = k -> k+1 -> k mid-run")
+    ap.add_argument("--kv-layout", default="paged", choices=["flat", "paged"],
+                    help="paged = block-table KV pool + chunked prefill "
+                         "(flat is not ported yet)")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per KV page")
+    ap.add_argument("--prefix-share", default=None, choices=["on", "off"],
+                    help="map shared prompt prefixes onto existing KV pages "
+                         "(refcounted, copy-on-write; default on)")
+    ap.add_argument("--paged-impl", default="kernel",
+                    choices=["kernel", "gather"],
+                    help="paged attention through the CUDA kernel or through "
+                         "a gather and plain attention")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain "
+                         "versions")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", action="store_true", help="print raw JSON")
+    args = ap.parse_args()
+
+    out = serve(args.arch, smoke=args.smoke, scale=args.scale,
+                trace=args.trace, rate=args.rate, requests=args.requests,
+                capacity=args.capacity, cache_len=args.cache_len,
+                prefill_bucket=args.prefill_bucket,
+                prompt_len=args.prompt_len, max_new_tokens=args.max_new,
+                workers=args.workers, scale_events=args.scale_events,
+                kv_layout=args.kv_layout, page_size=args.page_size,
+                prefix_share=(None if args.prefix_share is None
+                              else args.prefix_share == "on"),
+                paged_impl=args.paged_impl, device=args.device,
+                seed=args.seed)
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return
+    print(f"{out['arch']} on {out['device']} ({out['paged_impl']}): "
+          f"{out['requests_finished']}/{out['requests_total']} requests, "
+          f"{out['tokens_generated']} tokens, "
+          f"{out['tokens_per_s']:.1f} tok/s over {out['wall_s']:.2f}s")
+    print(f"  TTFT p50 {_fmt_ms(out['ttft_p50_s'])}  "
+          f"p99 {_fmt_ms(out['ttft_p99_s'])}")
+    print(f"  TPOT p50 {_fmt_ms(out['tpot_p50_s'])}  "
+          f"p99 {_fmt_ms(out['tpot_p99_s'])}")
+    print(f"  occupancy {out['occupancy_mean']:.2f} over {out['n_ticks']} "
+          f"ticks; scale events {out['scale_events']}")
+    if out["shared_page_hits_total"]:
+        print(f"  kv: {out['shared_page_hits_total']} shared-page hits, "
+              f"{out['cow_breaks_total']} cow breaks")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,257 @@
+"""Top-level model API: parameters, full-sequence forward, prefill, and the
+paged-KV decode / chunked-prefill steps.
+
+The parameters live in a `Transformer` module whose attribute tree is the
+JAX package's parameter pytree (same keys, blocks stacked along a leading
+layer dim, Q heads padded as in JAX), so `params_from_numpy` carries a JAX
+tree across one to one.  The JAX package's `lax.scan` over blocks is a loop
+over layers here.  Paged KV pools are plain tensors that the steps update
+in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import transformer as tfm
+from .layers import ParamDef, init_tree, map_defs, rms_norm
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    nb = tfm.n_blocks(cfg)
+    return {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("tensor", "fsdp"),
+                          init="small"),
+        "final_ln": ParamDef((cfg.d_model,), (None,), init="ones"),
+        "blocks": map_defs(lambda d: d.stacked(nb), tfm.block_defs(cfg)),
+    }
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: dict keys become attribute
+    names, leaves frozen parameters (inference only)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def layer(self, index: int) -> Dict[str, Any]:
+        """Layer `index` of every stacked leaf, as nested dicts of views."""
+        out: Dict[str, Any] = {k: p[index]
+                               for k, p in self._parameters.items()}
+        out.update({k: m.layer(index) for k, m in self._modules.items()})
+        return out
+
+
+class Transformer(ParamTree):
+    """The dense model's parameters: `embed`, `final_ln` and `blocks` (each
+    leaf stacked (n_blocks, ...))."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        super().__init__(tree)
+        self.cfg = cfg
+        self._views = None
+
+    def _apply(self, fn, recurse=True):
+        self._views = None  # per-layer views would point at the old storage
+        return super()._apply(fn, recurse)
+
+    def layers(self):
+        """Per-layer parameter dicts (views into the stacked leaves)."""
+        if self._views is None:
+            self._views = [self.blocks.layer(i)
+                           for i in range(tfm.n_blocks(self.cfg))]
+        return self._views
+
+
+def _check_tree(defs: Any, tree: Any, path: str = "") -> None:
+    if isinstance(defs, ParamDef):
+        if tuple(tree.shape) != defs.shape:
+            raise ValueError(f"param {path}: shape {tuple(tree.shape)}, "
+                             f"expected {defs.shape}")
+        return
+    if not isinstance(tree, dict) or set(tree) != set(defs):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"param tree at {path or '/'}: keys {got}, "
+                         f"expected {sorted(defs)}")
+    for k in defs:
+        _check_tree(defs[k], tree[k], f"{path}/{k}")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Transformer:
+    """Random parameters from `generator` (which must live on `device`)."""
+    tree = init_tree(param_defs(cfg), generator, torch_dtype(cfg),
+                     torch.device(device))
+    return Transformer(cfg, tree)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                      device="cpu") -> Transformer:
+    """The JAX parameter pytree as nested dicts of numpy arrays (same keys,
+    stacked (nb, ...) layout, padded heads) -> the port's module."""
+    defs = param_defs(cfg)
+    _check_tree(defs, tree)
+    dt = torch_dtype(cfg)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        # float32 first: numpy has no bfloat16 that torch can read
+        arr = np.array(node, dtype=np.float32)  # a writable copy
+        return torch.from_numpy(arr).to(device=device, dtype=dt)
+
+    return Transformer(cfg, conv(tree))
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Tied output head: final norm, then the embedding transposed."""
+    return rms_norm(x, params.final_ln) @ params.embed.t()
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+            window: Optional[int] = None, return_cache: bool = False,
+            q_block: int = 512):
+    """Full-sequence causal forward.  tokens: (B, S) int.
+
+    Returns logits (B, S, V), or (logits, {"k", "v": (nb, B, S, KV, hd)})
+    with return_cache."""
+    B, S = tokens.shape
+    win = cfg.sliding_window if window is None else window
+    x = params.embed[tokens.long()]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    ks, vs = [], []
+    for bp in params.layers():
+        x, k, v = tfm.block_apply(cfg, bp, x, positions, window=win,
+                                  q_block=q_block)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    logits = _logits(params, x)
+    if return_cache:
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+            window: Optional[int] = None, q_block: int = 512,
+            cache_len: Optional[int] = None,
+            true_len: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward over the prompt -> (last-token logits (B, 1, V), cache).
+
+    The cache's rows {"blocks": {"k", "v": (nb, B, cache_len, KV, hd)}}
+    are zero-padded past S up to cache_len (the paged engine passes the
+    bucket length, and its insert chops the rows into pages).  true_len:
+    optional (B,) real prompt lengths of right-padded rows; the logits are
+    then taken at each row's true last token."""
+    logits, rows = forward(cfg, params, tokens, window=window,
+                           return_cache=True, q_block=q_block)
+    S = tokens.shape[1]
+    cache_len = cache_len or S
+    if cache_len > S:
+        pad = (0, 0, 0, 0, 0, cache_len - S)  # the seq axis of (nb,B,S,KV,hd)
+        rows = {k: torch.nn.functional.pad(v, pad) for k, v in rows.items()}
+    if true_len is None:
+        return logits[:, -1:], {"blocks": rows}
+    last = (true_len.long() - 1)[:, None, None].expand(-1, 1,
+                                                       logits.shape[-1])
+    return torch.gather(logits, 1, last), {"blocks": rows}
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (block tables over fixed-size token pages)
+# ---------------------------------------------------------------------------
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     device) -> Dict[str, Any]:
+    """Physical K/V page pools {"blocks": {"k", "v": (nb, n_pages, ps, KV,
+    hd)}}.  Page 0 is the engine's reserved null page (masked writes land
+    there).  Fill depth lives in the block table + lengths the caller
+    passes to each step."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"paged cache supports dense; got {cfg.family!r}")
+    shape = (tfm.n_blocks(cfg), n_pages, page_size, cfg.kv_heads(),
+             cfg.head_dim_())
+    dt = torch_dtype(cfg)
+    return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)}}
+
+
+def _paged_layers(cfg, params, cache, x, q_pos, table, lengths, window,
+                  impl, cow):
+    blocks = cache["blocks"]
+    win = cfg.sliding_window if window is None else window
+    for i, bp in enumerate(params.layers()):
+        x = tfm.block_decode_paged(
+            cfg, bp, x, q_pos, table, lengths,
+            {"k": blocks["k"][i], "v": blocks["v"][i]}, window=win,
+            impl=impl, cow=cow)
+    return x
+
+
+def paged_decode_step(cfg: ModelConfig, params: Transformer, cache,
+                      token: torch.Tensor, pos: torch.Tensor,
+                      table: torch.Tensor, lengths: torch.Tensor, *,
+                      window: Optional[int] = None, impl: str = "gather",
+                      cow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One paged decode step.  token: (B, 1) int; pos: (B,) write
+    positions; table: (B, P) block table; lengths: (B,) live tokens incl.
+    this one (0 = inactive row, output garbage, writes -> null page);
+    cow: optional (src, dst) copy-on-write page pairs.
+
+    Returns (logits (B, 1, V), cache); the cache's pools are updated in
+    place."""
+    x = params.embed[token.long()]
+    q_pos = pos.to(torch.int32)[:, None]
+    x = _paged_layers(cfg, params, cache, x, q_pos, table, lengths, window,
+                      impl, cow)
+    return _logits(params, x), cache
+
+
+def paged_prefill_chunk(cfg: ModelConfig, params: Transformer, cache,
+                        tokens: torch.Tensor, offset: torch.Tensor,
+                        chunk_end: torch.Tensor, table: torch.Tensor, *,
+                        window: Optional[int] = None, impl: str = "gather"
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One chunk of an incremental (chunked) prefill.
+
+    tokens: (B, C) the next C prompt tokens of each row, right-padded;
+    offset: (B,) absolute position of each row's first chunk token;
+    chunk_end: (B,) live length after this chunk (0 marks an inactive
+    row).  The chunk attends the row's paged context plus itself (causal by
+    absolute position) and writes its K/V rows into the pages in place.
+
+    Returns (last-token logits (B, 1, V), cache)."""
+    B, C = tokens.shape
+    x = params.embed[tokens.long()]
+    q_pos = (offset.to(torch.int32)[:, None]
+             + torch.arange(C, dtype=torch.int32, device=tokens.device)[None])
+    x = _paged_layers(cfg, params, cache, x, q_pos, table, chunk_end, window,
+                      impl, None)
+    last = torch.clamp(chunk_end - offset - 1, 0, C - 1).long()
+    x_last = torch.gather(x, 1, last[:, None, None].expand(-1, 1,
+                                                           x.shape[-1]))
+    return _logits(params, x_last), cache

@@ -1,0 +1,876 @@
+"""ServeEngine: continuous-batching decode over a paged KV pool, elastic
+across `resize(k)` events (PyTorch).
+
+One engine tick =
+  scheduler phase : policies (scale/rebalance/straggler) -> admission ->
+                    prefill (whole-prompt bucketed, or page-sized CHUNKS
+                    for long prompts) + KV insert
+  solver phase    : ONE decode step over the whole pool (every active slot
+                    advances at its own position; empty slots are inert
+                    rows), bracketed by the assignment's
+                    begin/end_iteration ownership contract.
+
+This is the paged, synchronous loop of the JAX package's engine: fixed-size
+token pages with per-slot block tables (`serve.pages.PageAllocator` via
+`serve.memory.KVMemoryManager`), prefix sharing with copy-on-write breaks
+fused into the decode step, admission that writes only the admitted
+request's pages, decode that reads only the pages live in this batch (table
+width bucketed to a power of two), and long prompts prefilled in chunks
+interleaved with decode.  `paged_impl="kernel"` runs attention through the
+paged-attention kernel, `"gather"` through a gather and plain attention.
+
+The KV pools live on `device` (CUDA unless the caller asks for the CPU) and
+are updated in place.  `resize(k)` changes the logical worker count on the
+one device: the scheduler's slot-chunk assignment and the page-granular
+move accounting follow the JAX engine; nothing is re-laid-out.  Every
+dispatch's metadata (tokens, positions, block table, lengths, COW pairs)
+goes to the device as ONE copy of a packed int32 staging tensor
+(`_MetaPacker`), counted per tick as `meta_transfers`.
+
+Not in this slice (each raises NotImplementedError naming its ROADMAP
+item): the flat layout, speculative decoding, park/restore eviction, the
+overlapped tick, fault injection, overload control and the moe family.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import model as M
+from ..obs import MetricsRegistry, NULL_TRACER, Tracer, meets_slo
+from .memory import KVMemoryManager
+from .pages import PageAllocator, next_pow2
+from .request import Request, RequestState
+from .scheduler import SlotScheduler
+
+
+@dataclasses.dataclass
+class TickRecord:
+    tick: int
+    now: float
+    n_active: int
+    n_workers: int
+    occupancy: float
+    decode_s: float
+    admitted: int
+    tokens_emitted: int
+    admission_bytes: int = 0  # modeled device bytes written by admission
+    prefill_chunks: int = 0  # chunked-prefill chunks advanced this tick
+    prefill_dispatches: int = 0  # batched chunk forwards issued this tick
+    page_occupancy: float = 0.0  # live fraction of the KV page pool
+    spec_drafted: int = 0  # draft tokens proposed this tick
+    spec_accepted: int = 0  # draft tokens verification accepted this tick
+    draft_dispatches: int = 0  # device dispatches spent DRAFTING this tick
+    # KV memory manager (prefix sharing / COW / eviction) deltas this tick
+    shared_page_hits: int = 0  # admission pages mapped onto existing pages
+    cow_breaks: int = 0  # copy-on-write share breaks fused into dispatches
+    parked: int = 0  # slots preempted to host this tick
+    restored: int = 0  # parked slots restored this tick
+    kv_moved_bytes: int = 0  # park + restore bytes moved (host <-> device)
+    shared_extra_pages: int = 0  # pages saved by sharing, end of tick
+    # fault/recovery accounting (crash_worker + deadline shedding)
+    crashes: int = 0  # worker-crash faults applied this tick
+    retries: int = 0  # victim requests re-queued for re-execution this tick
+    shed: int = 0  # requests expired this tick (retry budget / deadline)
+    brownout_level: int = 0  # degradation-ladder level this tick (0 = full)
+    meta_transfers: int = 0  # packed host->device metadata transfers
+
+
+@dataclasses.dataclass
+class ServeMetrics:
+    requests: List[Request] = dataclasses.field(default_factory=list)
+    ticks: List[TickRecord] = dataclasses.field(default_factory=list)
+    scale_events: List[Tuple[int, int, int]] = dataclasses.field(
+        default_factory=list)  # (tick, k_before, k_after)
+    suspend_events: List[Tuple[int, str]] = dataclasses.field(
+        default_factory=list)  # (tick, "suspend" | "resume")
+    resize_moves: List[Tuple[int, int, int, int]] = dataclasses.field(
+        default_factory=list)  # (tick, k_after, slots_moved, bytes_moved)
+    jit_cache_sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    kv_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    fault_events: List[Tuple[int, str, Any]] = dataclasses.field(
+        default_factory=list)  # (tick, kind, target)
+    recovery_events: List[Tuple[int, int, int]] = dataclasses.field(
+        default_factory=list)  # (crash_tick, recovery_ticks, n_victims)
+    brownout_events: List[Tuple[int, int, str]] = dataclasses.field(
+        default_factory=list)
+    breaker_events: List[Tuple[int, str]] = dataclasses.field(
+        default_factory=list)
+    slo_ttft: Optional[float] = None
+    slo_tpot: Optional[float] = None
+    wall_s: float = 0.0
+
+    def to_registry(self, registry: Optional[MetricsRegistry] = None
+                    ) -> MetricsRegistry:
+        """Re-back the serve telemetry onto an `obs.MetricsRegistry`: every
+        quantity `summarize()` reports becomes a typed counter / gauge /
+        histogram under ``serve.*``.  `summarize()` itself reads from this
+        registry."""
+        reg = registry if registry is not None else MetricsRegistry()
+        done = [r for r in self.requests if r.state is RequestState.FINISHED]
+        reg.gauge("serve.requests_total").set(len(self.requests))
+        reg.gauge("serve.requests_finished").set(len(done))
+        h_ttft = reg.histogram("serve.ttft_s")
+        h_tpot = reg.histogram("serve.tpot_s")
+        # queue delay is arrival -> FIRST admission only; park/handoff
+        # waits accumulate in the separate handoff-delay histogram
+        h_qdel = reg.histogram("serve.queue_delay_s")
+        h_hoff = reg.histogram("serve.handoff_delay_s")
+        requeued = 0
+        for r in done:
+            if r.ttft() is not None:
+                h_ttft.observe(r.ttft())
+            if r.tpot() is not None:
+                h_tpot.observe(r.tpot())
+            if r.t_admitted is not None:
+                h_qdel.observe(r.t_admitted - r.arrival_time)
+            if r.handoff_delay > 0:
+                h_hoff.observe(r.handoff_delay)
+                requeued += 1
+        reg.gauge("serve.requeued").set(requeued)
+        reg.gauge("serve.requests_rejected").set(
+            sum(1 for r in self.requests
+                if r.state is RequestState.REJECTED))
+        if self.slo_ttft is not None or self.slo_tpot is not None:
+            met = sum(1 for r in done if meets_slo(
+                r.ttft(), r.tpot(),
+                self.slo_ttft if r.slo_ttft is None else r.slo_ttft,
+                self.slo_tpot if r.slo_tpot is None else r.slo_tpot))
+            reg.gauge("serve.slo_met").set(met)
+            reg.gauge("serve.goodput").set(met / len(done) if done else 0.0)
+        reg.counter("serve.tokens_generated").inc(
+            sum(r.n_generated for r in done))
+        per_tick = {
+            "serve.tokens_emitted": "tokens_emitted",
+            "serve.admission_bytes": "admission_bytes",
+            "serve.prefill_chunks": "prefill_chunks",
+            "serve.prefill_dispatches": "prefill_dispatches",
+            "serve.draft_dispatches": "draft_dispatches",
+            "serve.spec_drafted": "spec_drafted",
+            "serve.spec_accepted": "spec_accepted",
+            "serve.shared_page_hits": "shared_page_hits",
+            "serve.cow_breaks": "cow_breaks",
+            "serve.parked": "parked",
+            "serve.restored": "restored",
+            "serve.kv_moved_bytes": "kv_moved_bytes",
+            "serve.retries_total": "retries",
+            "serve.shed_requests": "shed",
+            "serve.crashes": "crashes",
+            "serve.meta_transfers": "meta_transfers",
+        }
+        for metric, field in per_tick.items():
+            reg.counter(metric).inc(
+                sum(getattr(t, field) for t in self.ticks))
+        reg.counter("serve.solver_dispatches").inc(
+            sum(1 for t in self.ticks if t.tokens_emitted))
+        reg.counter("serve.resize_moved_bytes").inc(
+            sum(m[3] for m in self.resize_moves))
+        reg.counter("serve.recoveries").inc(len(self.recovery_events))
+        h_rec = reg.histogram("serve.recovery_ticks")
+        for _, rticks, _ in self.recovery_events:
+            h_rec.observe(rticks)
+        h_occ = reg.histogram("serve.occupancy")
+        h_pocc = reg.histogram("serve.page_occupancy")
+        h_shx = reg.histogram("serve.shared_extra_pages")
+        h_dec = reg.histogram("serve.decode_s")
+        for t in self.ticks:
+            h_occ.observe(t.occupancy)
+            h_pocc.observe(t.page_occupancy)
+            h_shx.observe(t.shared_extra_pages)
+            if t.decode_s > 0:
+                h_dec.observe(t.decode_s)
+        reg.gauge("serve.n_ticks").set(len(self.ticks))
+        reg.gauge("serve.wall_s").set(self.wall_s)
+        return reg
+
+    def summarize(self) -> Dict[str, Any]:
+        reg = self.to_registry()
+        cnt = lambda n: int(reg.counter(n).value)  # noqa: E731
+        hist = lambda n: reg.histogram(n)  # noqa: E731
+        pct = (lambda h, q: float(np.percentile(h.values, q))
+               if h.values else None)
+        done = int(reg.gauge("serve.requests_finished").value)
+        toks = cnt("serve.tokens_generated")
+        emitted = cnt("serve.tokens_emitted")
+        draft_disp = cnt("serve.draft_dispatches")
+        dispatches = cnt("serve.solver_dispatches") + draft_disp
+        drafted = cnt("serve.spec_drafted")
+        accepted = cnt("serve.spec_accepted")
+        mean = lambda n: hist(n).mean or 0.0  # noqa: E731
+        return {
+            "requests_finished": done,
+            "requests_total": int(reg.gauge("serve.requests_total").value),
+            "tokens_generated": toks,
+            "tokens_per_s": toks / self.wall_s if self.wall_s else 0.0,
+            "ttft_p50_s": pct(hist("serve.ttft_s"), 50),
+            "ttft_p99_s": pct(hist("serve.ttft_s"), 99),
+            "tpot_p50_s": pct(hist("serve.tpot_s"), 50),
+            "tpot_p99_s": pct(hist("serve.tpot_s"), 99),
+            "queue_delay_p50_s": pct(hist("serve.queue_delay_s"), 50),
+            "queue_delay_p99_s": pct(hist("serve.queue_delay_s"), 99),
+            "handoff_delay_p50_s": pct(hist("serve.handoff_delay_s"), 50),
+            "handoff_delay_p99_s": pct(hist("serve.handoff_delay_s"), 99),
+            "requeued_total": int(reg.gauge("serve.requeued").value),
+            "occupancy_mean": mean("serve.occupancy"),
+            "page_occupancy_mean": mean("serve.page_occupancy"),
+            "admission_bytes_total": cnt("serve.admission_bytes"),
+            "prefill_chunks_total": cnt("serve.prefill_chunks"),
+            "prefill_dispatches_total": cnt("serve.prefill_dispatches"),
+            "meta_transfers_total": cnt("serve.meta_transfers"),
+            "decode_dispatches": int(dispatches),
+            "draft_dispatches": int(draft_disp),
+            "tokens_per_dispatch": (emitted / dispatches if dispatches
+                                    else 0.0),
+            "spec_drafted_total": drafted,
+            "spec_accepted_total": accepted,
+            "spec_acceptance_rate": (accepted / drafted if drafted else None),
+            "shared_page_hits_total": cnt("serve.shared_page_hits"),
+            "cow_breaks_total": cnt("serve.cow_breaks"),
+            "parked_total": cnt("serve.parked"),
+            "restored_total": cnt("serve.restored"),
+            "kv_moved_bytes_total": cnt("serve.kv_moved_bytes"),
+            "shared_extra_pages_mean": mean("serve.shared_extra_pages"),
+            "resize_moved_bytes_total": cnt("serve.resize_moved_bytes"),
+            "recoveries": cnt("serve.recoveries"),
+            "retries_total": cnt("serve.retries_total"),
+            "shed_requests": cnt("serve.shed_requests"),
+            "crashes_total": cnt("serve.crashes"),
+            "recovery_ticks_mean": hist("serve.recovery_ticks").mean,
+            "recovery_events": [list(e) for e in self.recovery_events],
+            "rejected_requests": int(
+                reg.gauge("serve.requests_rejected").value),
+            "slo_ttft_target": self.slo_ttft,
+            "slo_tpot_target": self.slo_tpot,
+            "slo_met": (int(reg.gauge("serve.slo_met").value)
+                        if (self.slo_ttft is not None
+                            or self.slo_tpot is not None) else None),
+            "goodput": (float(reg.gauge("serve.goodput").value)
+                        if (self.slo_ttft is not None
+                            or self.slo_tpot is not None) else None),
+            "brownout_events": [list(e) for e in self.brownout_events],
+            "breaker_events": [list(e) for e in self.breaker_events],
+            "brownout_level_max": max(
+                (t.brownout_level for t in self.ticks), default=0),
+            "kv_stats": dict(self.kv_stats),
+            "jit_cache_sizes": dict(self.jit_cache_sizes),
+            "n_ticks": len(self.ticks),
+            "scale_events": [list(e) for e in self.scale_events],
+            "suspend_events": [list(e) for e in self.suspend_events],
+            "wall_s": self.wall_s,
+        }
+
+
+class _MetaPacker:
+    """Host staging for per-dispatch metadata: every small int input of a
+    dispatch (next tokens, positions, block tables, lengths, COW pairs,
+    chunk offsets, write ids) is copied into ONE contiguous int32 staging
+    tensor, pinned on a CUDA engine, and sent as ONE non_blocking
+    host->device copy; the step slices its views back out on the device.
+    Buffers rotate through a small ring so a buffer is not rewritten while
+    an earlier copy may still read it (the synchronous loop waits for every
+    dispatch, so at most a few are ever in flight)."""
+
+    RING = 8
+    __slots__ = ("_bufs", "_i", "_device", "_pin")
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._pin = device.type == "cuda"
+        self._bufs = [self._alloc(256) for _ in range(self.RING)]
+        self._i = 0
+
+    def _alloc(self, n: int) -> torch.Tensor:
+        return torch.empty(n, dtype=torch.int32, pin_memory=self._pin)
+
+    def pack(self, arrays) -> torch.Tensor:
+        total = sum(a.size for a in arrays)
+        self._i = (self._i + 1) % self.RING
+        buf = self._bufs[self._i]
+        if buf.numel() < total:
+            buf = self._bufs[self._i] = self._alloc(next_pow2(total))
+        host = buf.numpy()
+        off = 0
+        for a in arrays:
+            host[off:off + a.size] = np.ravel(a)
+            off += a.size
+        if self._device.type == "cpu":
+            return buf[:total].clone()  # the ring buffer is reused
+        return buf[:total].to(self._device, non_blocking=True)
+
+
+def _unsupported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A: {item})")
+
+
+class ServeEngine:
+    """Continuous-batching serving engine with Chicle-style elasticity
+    (paged KV layout, synchronous tick)."""
+
+    def __init__(self, cfg: ModelConfig, *, capacity: int = 8,
+                 cache_len: int = 64, prefill_bucket: int = 16,
+                 n_workers: int = 1, policies: Sequence = (),
+                 slots_per_chunk: int = 2, max_admit_per_tick: int = 4,
+                 seed: int = 0, params: Optional[M.Transformer] = None,
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 kv_layout: str = "paged", page_size: int = 8,
+                 chunked_prefill: Optional[bool] = None,
+                 prefill_chunk: Optional[int] = None,
+                 paged_impl: str = "kernel",
+                 prefix_share: Optional[bool] = None,
+                 evict: Optional[bool] = None,
+                 spec: str = "off",
+                 debug_checks: bool = False,
+                 overlap: bool = False,
+                 fault_injector: Optional[Any] = None,
+                 slo_ttft: Optional[float] = None,
+                 slo_tpot: Optional[float] = None,
+                 tenant_rate: Optional[Any] = None,
+                 queue_cap: Optional[int] = None,
+                 brownout: str = "off",
+                 tracer: Optional[Tracer] = None,
+                 device="cuda"):
+        if cfg.family != "dense":
+            raise _unsupported(f"family {cfg.family!r}",
+                               "remaining model families")
+        if kv_layout not in ("flat", "paged"):
+            raise ValueError(f"kv_layout must be 'flat' or 'paged', "
+                             f"got {kv_layout!r}")
+        if kv_layout == "flat":
+            raise _unsupported("kv_layout='flat'", "flat layout")
+        if paged_impl not in ("kernel", "gather"):
+            raise ValueError(f"paged_impl must be 'kernel' or 'gather', "
+                             f"got {paged_impl!r}")
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1 decode slot, "
+                             f"got {capacity}")
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        if cache_len < 1:
+            raise ValueError(f"cache_len must be >= 1 token, got {cache_len}")
+        if spec != "off":
+            raise _unsupported(f"spec={spec!r}", "speculative decoding")
+        if evict:  # None (the JAX paged default: on) resolves to off here
+            raise _unsupported("evict=True", "park/restore and evict")
+        if overlap:
+            raise _unsupported("overlap=True", "overlap on CUDA streams")
+        if fault_injector is not None:
+            raise _unsupported("fault_injector", "faults and overload")
+        if (slo_ttft, slo_tpot, tenant_rate, queue_cap) != (None,) * 4 \
+                or brownout != "off":
+            raise _unsupported("overload control", "faults and overload")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if cache_len < page_size:
+            raise ValueError(
+                f"zero-page budget: cache_len {cache_len} < page_size "
+                f"{page_size} gives every slot 0 KV pages")
+        if cache_len % page_size or prefill_bucket % page_size:
+            raise ValueError("cache_len and prefill_bucket must be "
+                             "multiples of page_size")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "ServeEngine: CUDA is not available; pass device='cpu' to "
+                "run the plain versions on the CPU")
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.cfg = cfg
+        self.capacity = capacity
+        self.cache_len = cache_len
+        self.prefill_bucket = prefill_bucket
+        self.page_size = page_size
+        self.paged_impl = paged_impl
+        self.prefix_share = True if prefix_share is None else bool(prefix_share)
+        self.chunked_prefill = (True if chunked_prefill is None
+                                else bool(chunked_prefill))
+        self.prefill_chunk = prefill_chunk or prefill_bucket
+        if self.prefill_chunk % page_size:
+            raise ValueError("prefill_chunk must be a multiple of page_size")
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = M.init_params(cfg, gen, self.device)
+        self.params = params.to(self.device)
+        self.scheduler = SlotScheduler(
+            capacity, n_workers=n_workers, slots_per_chunk=slots_per_chunk,
+            policies=policies, max_admit_per_tick=max_admit_per_tick,
+            seed=seed, tenant_weights=tenant_weights, tracer=self.tracer)
+        self.debug_checks = debug_checks
+
+        self.max_pages_per_slot = cache_len // page_size
+        n_pages = capacity * self.max_pages_per_slot + 1  # +1: null page
+        self.mem = KVMemoryManager(n_pages, page_size,
+                                   prefix_share=self.prefix_share,
+                                   tracer=self.tracer)
+        self.pages: PageAllocator = self.mem.pages
+        self.blocks = M.init_paged_cache(cfg, n_pages, page_size,
+                                         self.device)["blocks"]
+        # host-side per-slot stream state
+        self.next_tok = np.zeros((capacity, 1), np.int32)
+        self._meta = _MetaPacker(self.device)
+        self._tick_meta = 0  # packed metadata transfers this tick
+        # rolling KV-stats snapshot: tick deltas are measured against the
+        # previous tick's end
+        self._kv_prev = self.mem.stats()
+        self._by_slot: Dict[int, Request] = {}
+        self._prefilling: Dict[int, Tuple[Request, int]] = {}  # slot->(req,off)
+        self.metrics = ServeMetrics()
+        self._tick = 0
+        self._t0: Optional[float] = None
+        self._last_stats: Dict = {}
+        self.k = 0
+        self.resize(n_workers)
+
+    # --- elasticity -------------------------------------------------------
+    def _slot_workers(self) -> Tuple[List[int], Dict[int, int]]:
+        """Snapshot the live slots and their current worker assignment."""
+        live = sorted(set(self._by_slot) | set(self._prefilling))
+        return live, {s: self.scheduler.worker_of_slot(s) for s in live}
+
+    def _record_resize_moves(self, k: int, live: List[int],
+                             before: Dict[int, int]) -> None:
+        """Page-granular migration accounting for one scale event: only the
+        pages of slots whose worker changed count as moved state."""
+        moved = [s for s in live
+                 if self.scheduler.worker_of_slot(s) != before[s]]
+        nbytes = sum(self.pages.n_pages_of(s) for s in moved) \
+            * self._page_bytes
+        self.metrics.resize_moves.append(
+            (self._tick, k, len(moved), int(nbytes)))
+
+    def resize(self, k: int) -> None:
+        """Elastic scale event: k logical workers on the engine's device.
+        KV state and in-flight requests carry over untouched; the slot-chunk
+        assignment rebalances with minimal churn and the pages of slots
+        whose worker changed are recorded as moved state
+        (`metrics.resize_moves`), the cost a per-worker page pool would
+        pay."""
+        if k < 1:
+            raise ValueError(
+                f"resize(k) needs at least one worker, got k={k}")
+        if self.scheduler.n_workers != k:
+            live, before = self._slot_workers()
+            self.scheduler.set_workers(k)
+            self._record_resize_moves(k, live, before)
+        self.k = k
+
+    # --- device steps -----------------------------------------------------
+    @property
+    def _page_bytes(self) -> int:
+        """Device bytes of one K+V page across the block stack."""
+        leaf = self.blocks["k"]  # (nb, N, ps, kv, hd)
+        nb, _, ps, kv, hd = leaf.shape
+        return 2 * nb * ps * kv * hd * leaf.element_size()
+
+    def _pack_meta(self, *arrays) -> torch.Tensor:
+        """ONE host->device transfer for a dispatch's metadata inputs
+        (counted per tick as `meta_transfers`)."""
+        self._tick_meta += 1
+        return self._meta.pack(arrays)
+
+    def _prefill_step(self, toks: np.ndarray, true_len: torch.Tensor):
+        """Whole-prompt prefill of right-padded rows at bucket length ->
+        (first tokens, K rows, V rows (nb, n, bucket, KV, hd))."""
+        tokens = torch.from_numpy(toks).to(self.device)
+        logits, cache = M.prefill(self.cfg, self.params, tokens,
+                                  cache_len=toks.shape[1], true_len=true_len)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        return nxt, cache["blocks"]["k"], cache["blocks"]["v"]
+
+    def _insert(self, rows_k: torch.Tensor, rows_v: torch.Tensor,
+                page_ids: torch.Tensor) -> None:
+        """Paged admission scatter: chop the prefilled rows into pages and
+        write ONLY those pages into the pools, in place.  Ids of 0 route
+        shared and padding pages to the null page."""
+        ps = self.page_size
+        ids = page_ids.long()
+        for name, rows in (("k", rows_k), ("v", rows_v)):
+            nb, n, bucket = rows.shape[:3]
+            self.blocks[name][:, ids] = rows.reshape(
+                nb, n * (bucket // ps), ps, *rows.shape[3:])
+
+    def _chunk_step(self, toks: np.ndarray, meta: torch.Tensor
+                    ) -> torch.Tensor:
+        nb = toks.shape[0]
+        offset = meta[:nb]
+        chunk_end = meta[nb: 2 * nb]
+        table = meta[2 * nb:].reshape(nb, -1)
+        last, _ = M.paged_prefill_chunk(
+            self.cfg, self.params, {"blocks": self.blocks},
+            torch.from_numpy(toks).to(self.device), offset, chunk_end, table,
+            impl=self.paged_impl)
+        return last[:, -1].argmax(-1).to(torch.int32)
+
+    def _decode_step(self, meta: torch.Tensor) -> torch.Tensor:
+        cap = self.capacity
+        w = meta.shape[0] // cap - 5  # table width
+        tok = meta[:cap].reshape(cap, 1)
+        pos = meta[cap: 2 * cap]
+        table = meta[2 * cap: cap * (2 + w)].reshape(cap, w)
+        lengths = meta[cap * (2 + w): cap * (3 + w)]
+        cow_src = meta[cap * (3 + w): cap * (4 + w)]
+        cow_dst = meta[cap * (4 + w):]
+        # without prefix sharing no page can reach refcount 2: skip the copy
+        cow = (cow_src, cow_dst) if self.prefix_share else None
+        logits, _ = M.paged_decode_step(
+            self.cfg, self.params, {"blocks": self.blocks}, tok, pos, table,
+            lengths, impl=self.paged_impl, cow=cow)
+        return logits[:, -1].argmax(-1).to(torch.int32)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- prefill ----------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        b = self.prefill_bucket
+        return min(((n + b - 1) // b) * b, self.cache_len)
+
+    def _page_bucket(self, n_pages: int) -> int:
+        """Block-table width bucket: next power of two."""
+        return min(next_pow2(max(n_pages, 1)), self.max_pages_per_slot)
+
+    def _n_bucket(self, n: int) -> int:
+        """Batch-size bucket for grouped chunk forwards: next power of two
+        (capped at capacity)."""
+        return min(next_pow2(max(n, 1)), self.capacity)
+
+    def _release(self, req: Request, now: float) -> None:
+        """Finish a request: return its pages and its slot."""
+        if req.slot is not None:
+            self.mem.release_slot(req.slot)
+        self.scheduler.release(req, now)
+
+    def _start_decoding(self, req: Request, nxt: int, now: float) -> None:
+        """PREFILL -> DECODING (or immediate finish) once the first token
+        exists."""
+        req.generated.append(nxt)
+        req.t_first_token = now
+        if req.done():  # max_new_tokens == 1: prefill's token ends it
+            self._release(req, now)
+            return
+        req.state = RequestState.DECODING
+        self.next_tok[req.slot, 0] = nxt
+        self.scheduler.pool.pos[req.slot] = req.prompt_len
+        self._by_slot[req.slot] = req
+
+    def _do_prefill(self, admitted: Sequence[Request]) -> int:
+        """Prefill this tick's admissions, one batched forward per shared
+        bucket length, and insert their KV into the pool.  Fresh admissions
+        map their longest indexed prompt prefix onto existing physical pages
+        and write only the rest.  Long prompts defer to `_advance_prefills`.
+        Returns modeled admission bytes written to the device KV pool."""
+        direct: List[Request] = []
+        for r in admitted:
+            # submit() already rejected prompt+max_new > cache_len, so the
+            # chunked table can never outgrow max_pages_per_slot
+            if self.chunked_prefill and r.prompt_len > self.prefill_chunk:
+                with self.tracer.span("prefix_index", rid=r.rid):
+                    off = self.mem.admit_chunked(r.slot, r.prompt)
+                self._prefilling[r.slot] = (r, off)
+            else:
+                direct.append(r)
+        groups: Dict[int, List[Request]] = {}
+        for r in direct:
+            groups.setdefault(self._bucket(r.prompt_len), []).append(r)
+        nbytes = 0
+        trc = self.tracer
+        for bucket, group in sorted(groups.items()):
+            n = len(group)
+            toks = np.zeros((n, bucket), np.int32)
+            lens = np.zeros(n, np.int32)
+            for i, r in enumerate(group):
+                toks[i, : r.prompt_len] = r.prompt
+                lens[i] = r.prompt_len
+            with trc.span("prefill.dispatch", bucket=bucket, n=n):
+                nxt, rows_k, rows_v = self._prefill_step(
+                    toks, self._pack_meta(lens))
+            bpp = bucket // self.page_size
+            page_ids = np.zeros(n * bpp, np.int32)  # 0 -> null page
+            real = 0
+            with trc.span("prefix_index", n=n):
+                for i, r in enumerate(group):
+                    # shared prefix pages keep id 0 in write_ids: nothing is
+                    # written, the block table points at the existing pages
+                    plan = self.mem.admit_slot(r.slot, r.prompt)
+                    page_ids[i * bpp: i * bpp + len(plan.write_ids)] = \
+                        plan.write_ids
+                    real += len(plan.table) - plan.shared_pages
+            with trc.span("prefill.insert", track="prefill"):
+                self._insert(rows_k, rows_v, self._pack_meta(page_ids))
+            nbytes += real * self._page_bytes
+            # settle at prefill's own sync point (the first tokens; the
+            # insert is queued before the copy, so it is done too)
+            with trc.span("prefill.device_wait", cat="device",
+                          track="prefill"):
+                nxt_np = nxt.cpu().numpy()
+            now = self._now()
+            for i, r in enumerate(group):
+                self._start_decoding(r, int(nxt_np[i]), now)
+        return nbytes
+
+    def _advance_prefills(self) -> Tuple[int, int, int]:
+        """Advance every mid-prefill request by ONE page-aligned chunk.
+        Slots sharing a table-width bucket are BATCHED into one forward,
+        padded to a power-of-two batch bucket (rows with chunk_end 0 are
+        inert: their writes route to the null page).
+        Returns (chunks processed, modeled KV bytes written, dispatches)."""
+        nbytes = 0
+        tok_bytes = self._page_bytes // self.page_size
+        C = self.prefill_chunk
+        plan: List[Tuple[int, Request, int, int]] = []
+        for slot in sorted(self._prefilling):
+            req, off = self._prefilling[slot]
+            end = off + min(C, req.prompt_len - off)
+            self.pages.ensure(slot, end)
+            nbytes += (end - off) * tok_bytes
+            plan.append((slot, req, off, end))
+        groups: Dict[int, List[Tuple[int, Request, int, int]]] = {}
+        for item in plan:
+            width = self._page_bucket(self.pages.n_pages_of(item[0]))
+            groups.setdefault(width, []).append(item)
+        n_chunks = 0
+        n_dispatch = 0
+        finished: List[int] = []
+        for width, group in sorted(groups.items()):
+            n = len(group)
+            nb = self._n_bucket(n)
+            toks = np.zeros((nb, C), np.int32)
+            offs = np.zeros(nb, np.int32)
+            ends = np.zeros(nb, np.int32)  # 0 marks an inert pad row
+            tbl = np.full((nb, width), -1, np.int32)
+            full = self.pages.table_array(self.capacity, width,
+                                          only=[s for s, *_ in group])
+            for i, (slot, req, off, end) in enumerate(group):
+                toks[i, : end - off] = req.prompt[off:end]
+                offs[i], ends[i] = off, end
+                tbl[i] = full[slot]
+            with self.tracer.span("prefill.chunk", width=width, n=n):
+                nxt = self._chunk_step(toks, self._pack_meta(offs, ends, tbl))
+            n_chunks += n
+            n_dispatch += 1
+            nxt_np: Optional[np.ndarray] = None
+            for i, (slot, req, off, end) in enumerate(group):
+                # index the pages this chunk just WROTE (never ahead of the
+                # writes, so a sharer can only ever map written pages)
+                self.mem.register_prefix(slot, req.prompt, upto=end)
+                if end >= req.prompt_len:
+                    finished.append(slot)
+                    if nxt_np is None:
+                        with self.tracer.span("prefill.device_wait",
+                                              cat="device", track="prefill"):
+                            nxt_np = nxt.cpu().numpy()
+                    self._start_decoding(req, int(nxt_np[i]), self._now())
+                else:
+                    self._prefilling[slot] = (req, end)
+        for slot in finished:
+            del self._prefilling[slot]
+        return n_chunks, nbytes, n_dispatch
+
+    # --- main loop --------------------------------------------------------
+    def _now(self) -> float:
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        return time.perf_counter() - self._t0
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        for r in sorted(requests, key=lambda r: r.arrival_time):
+            # reject up front: a mid-run failure would abort in-flight
+            # requests and leak the already-allocated slot
+            if r.prompt_len + r.max_new_tokens > self.cache_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt {r.prompt_len} + max_new "
+                    f"{r.max_new_tokens} exceeds cache_len {self.cache_len}")
+            self.scheduler.submit(r)
+            self.metrics.requests.append(r)
+
+    def _paged_batch_inputs(self, active: List[int], n_new: np.ndarray
+                            ) -> Tuple[np.ndarray, np.ndarray,
+                                       np.ndarray, np.ndarray]:
+        """Grow each active slot's block table to cover its `n_new[slot]`
+        pending writes and build the width-bucketed (table, lengths,
+        cow_src, cow_dst) dispatch inputs.  A slot whose first write lands
+        in a SHARED page breaks the share here (fresh private page in the
+        table) and carries the (old, new) pair so the dispatch copies the
+        payload in place; rows without a break copy the null page onto
+        itself."""
+        with self.tracer.span("cow_plan", n=len(active)):
+            pos = self.scheduler.pool.pos
+            cow_src = np.zeros(self.capacity, np.int32)
+            cow_dst = np.zeros(self.capacity, np.int32)
+            for slot in active:
+                plan = self.mem.cow_plan(slot, int(pos[slot]))
+                if plan is not None:
+                    cow_src[slot], cow_dst[slot] = plan
+                self.pages.ensure(slot, int(pos[slot]) + int(n_new[slot]))
+            width = self._page_bucket(
+                max(self.pages.n_pages_of(s) for s in active))
+            table = self.pages.table_array(self.capacity, width, only=active)
+            lengths = np.zeros(self.capacity, np.int32)
+            for slot in active:
+                lengths[slot] = pos[slot] + n_new[slot]
+            return table, lengths, cow_src, cow_dst
+
+    def _decode(self, active: List[int]) -> Tuple[int, float]:
+        """One plain greedy decode step over the pool: COW/table planning +
+        ONE packed metadata transfer + the dispatch, then wait, emit and
+        release finished requests.  Returns (tokens emitted, step
+        seconds)."""
+        sched = self.scheduler
+        pos_np = sched.pool.pos
+        # t0 BEFORE the COW/table planning: decode_s is plan + dispatch +
+        # device completion, as in the JAX engine
+        t0 = time.perf_counter()
+        with self.tracer.span("decode.dispatch", n=len(active)):
+            table, lengths, cow_src, cow_dst = self._paged_batch_inputs(
+                active, np.ones(self.capacity, np.int32))
+            nxt = self._decode_step(self._pack_meta(
+                self.next_tok, np.asarray(pos_np, np.int32), table, lengths,
+                cow_src, cow_dst))
+        with self.tracer.span("device_wait", cat="device", track="decode"):
+            nxt_np = nxt.cpu().numpy()
+        t_step = time.perf_counter() - t0
+        sched.end_iteration()
+        now = self._now()
+        emitted = 0
+        for slot in active:
+            req = self._by_slot[slot]
+            req.generated.append(int(nxt_np[slot]))
+            self.next_tok[slot, 0] = int(nxt_np[slot])
+            sched.pool.pos[slot] += 1
+            emitted += 1
+            if req.done():
+                del self._by_slot[slot]
+                self._release(req, now)
+        return emitted, t_step
+
+    def _finish_at_capacity(self) -> None:
+        """A slot whose next write position is past the cache can't store
+        another KV row: finish its request instead of overwriting."""
+        sched = self.scheduler
+        full = [s for s in self._by_slot
+                if sched.pool.pos[s] >= self.cache_len]
+        if full:
+            now = self._now()
+            for slot in full:
+                self._release(self._by_slot.pop(slot), now)
+
+    @torch.inference_mode()
+    def tick(self) -> TickRecord:
+        now = self._now()
+        sched = self.scheduler
+        kv0 = self._kv_prev
+        trc = self.tracer
+        tick_t0 = time.perf_counter() if trc.enabled else 0.0
+        self._tick_meta = 0  # packed host->device transfers this tick
+
+        # ---- scheduler phase: policies may rescale/rebalance the pool ----
+        with trc.span("schedule", k=sched.n_workers):
+            stats: Dict = dict(self._last_stats)
+            k_before = sched.n_workers
+            live, before = (self._slot_workers() if sched.policies
+                            else ([], {}))
+            sched.between_ticks(stats)
+            if sched.n_workers != k_before:
+                self.metrics.scale_events.append(
+                    (self._tick, k_before, sched.n_workers))
+                # policies resized the assignment in between_ticks, so
+                # record the slot moves here; resize() only adopts k
+                self._record_resize_moves(sched.n_workers, live, before)
+                self.resize(sched.n_workers)
+        with trc.span("admit"):
+            admitted = sched.admit(now)
+        admission_bytes = self._do_prefill(admitted) if admitted else 0
+        n_chunks = n_chunk_dispatch = 0
+        if self._prefilling:
+            n_chunks, chunk_bytes, n_chunk_dispatch = self._advance_prefills()
+            admission_bytes += chunk_bytes
+        self._finish_at_capacity()
+
+        # ---- solver phase: one pool-wide decode step ----
+        emitted = 0
+        t_step = 0.0
+        active = sorted(self._by_slot)
+        if active:
+            sched.begin_iteration()
+            emitted, t_step = self._decode(active)
+        else:
+            sched.sim_time += 1.0  # idle ticks still advance time
+            if admitted or n_chunks:
+                # prefill-only tick: settle the outstanding KV scatters so
+                # wall-clock metrics charge the work to the issuing tick
+                with trc.span("prefill.device_wait", cat="device",
+                              track="prefill"):
+                    self._sync()
+
+        if self.debug_checks:
+            # page-leak guard: every live slot holds EXACTLY the pages its
+            # live tokens need, refcounts equal true reader counts, and the
+            # prefix index points only at live pages
+            sched.pool.check_invariants()
+            live = {s: int(sched.pool.pos[s]) for s in self._by_slot}
+            live.update({s: off for s, (_, off) in self._prefilling.items()})
+            self.mem.check(live)
+
+        # modeled per-worker timing attribution feeds the policy feedback
+        # loop (load-proportional split of the step)
+        loads = sched.active_per_worker()
+        total = max(int(loads.sum()), 1)
+        self._last_stats = {
+            "task_times": {w: t_step * loads[w] / total
+                           for w in range(sched.n_workers)},
+            "per_sample_times": {w: t_step / total
+                                 for w in range(sched.n_workers)},
+        }
+        kv1 = self.mem.stats()
+        self.metrics.kv_stats = kv1
+        self._kv_prev = kv1
+        delta = lambda k: kv1[k] - kv0[k]  # noqa: E731
+        rec = TickRecord(tick=self._tick, now=self._now(),
+                         n_active=len(self._by_slot),
+                         n_workers=sched.n_workers,
+                         occupancy=sched.pool.occupancy(),
+                         decode_s=t_step, admitted=len(admitted),
+                         tokens_emitted=emitted,
+                         admission_bytes=admission_bytes,
+                         prefill_chunks=n_chunks,
+                         prefill_dispatches=n_chunk_dispatch,
+                         page_occupancy=self.pages.occupancy(),
+                         shared_page_hits=delta("shared_page_hits"),
+                         cow_breaks=delta("cow_breaks"),
+                         parked=delta("parked_total"),
+                         restored=delta("restored_total"),
+                         kv_moved_bytes=(delta("park_bytes")
+                                         + delta("restore_bytes")),
+                         shared_extra_pages=kv1["shared_extra"],
+                         meta_transfers=self._tick_meta)
+        self.metrics.ticks.append(rec)
+        if trc.enabled:
+            trc.count("serve.ticks")
+            trc.count("serve.tokens_emitted", emitted)
+            trc.observe("serve.tick_s", time.perf_counter() - tick_t0)
+            if t_step > 0.0:
+                trc.observe("serve.decode_s", t_step)
+        self._tick += 1
+        return rec
+
+    def run(self, requests: Sequence[Request], *,
+            max_ticks: int = 100_000) -> ServeMetrics:
+        """Drive the open-loop workload to completion."""
+        self.submit(requests)
+        self._now()  # start the clock
+        sched = self.scheduler
+        while ((sched.has_pending or self._by_slot or self._prefilling)
+               and self._tick < max_ticks):
+            if not self._by_slot and not self._prefilling \
+                    and sched.has_pending:
+                wait = sched.next_arrival() - self._now()
+                if wait > 0:  # idle until the next open-loop arrival
+                    time.sleep(min(wait, 0.05))
+            self.tick()
+        self.metrics.wall_s = self._now()
+        return self.metrics

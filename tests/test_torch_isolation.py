@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+`chip_smoke.py` imports nothing of the JAX package, the engine runs on the
+GPU unless the caller asks for the CPU, and a kernel build without nvcc
+raises instead of handing back the plain version."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.kernels import build as build_mod
+from repro_torch.serve import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_roots(path: Path):
+    """Top-level names of every module the file imports (absolute imports;
+    relative ones stay inside the package)."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_every_module_imports_without_jax_or_repro():
+    modules = sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+    assert "repro_torch.serve.engine" in modules
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now fails
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None "
+        "and m.split('.')[0] in ('repro', 'jax', 'jaxlib')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sources_name_no_jax_or_repro():
+    for path in PORT.rglob("*.py"):
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    roots = _imported_roots(ROOT / "chip_smoke.py")
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_variant(get_config("smollm-360m"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, kv_layout="paged")
+
+
+@pytest.mark.parametrize("kw", [dict(kv_layout="flat"), dict(spec="ngram"),
+                                dict(evict=True), dict(overlap=True),
+                                dict(fault_injector=object()),
+                                dict(queue_cap=4)])
+def test_unported_options_raise(kw):
+    cfg = smoke_variant(get_config("smollm-360m"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(cfg, device="cpu", **kw)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build_mod, "_loaded", {})
+    with pytest.raises(build_mod.KernelBuildError, match="nvcc"):
+        build_mod.build("paged_attention")

@@ -1,0 +1,104 @@
+"""Paged attention in the PyTorch port vs the JAX package: the port's plain
+version against the Pallas kernel (interpret mode, as tests/test_paged.py
+runs it) and against `kernels.ref.paged_attention_ref`, on the kernel's
+self-test cases plus wider spans; and the wrapper's input checks.  The
+CUDA kernel itself is tested on the card by tests/test_torch_cuda.py.
+
+Tolerances are the reference's (tests/test_kernels.py): fp32 2e-5."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro_torch.kernels.paged_attention import paged_attention
+
+# (B, KV, G, hd, ps, P, window, q_span): the five cases of the JAX kernel's
+# _selftest, then an hd that is not a power of two and a wide windowed span
+SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1),
+                  (2, 1, 8, 64, 16, 3, 0, 1),
+                  (4, 2, 2, 32, 8, 8, 16, 1),
+                  (3, 2, 4, 32, 8, 4, 0, 3),
+                  (2, 2, 2, 32, 8, 6, 16, 4)]
+CASES = SELFTEST_CASES + [(2, 2, 4, 80, 16, 4, 0, 1),
+                          (2, 2, 4, 32, 8, 6, 12, 8)]
+
+
+def make_inputs(case, seed=0):
+    """numpy inputs laid out as the JAX self-test lays them out: shuffled
+    physical pages, one inactive row in decode cases, -1 past live."""
+    B, KV, G, hd, ps, P, _, Q = case
+    rng = np.random.default_rng(seed)
+    N = B * P + 1
+    q = rng.standard_normal((B, KV, Q * G, hd)).astype(np.float32)
+    kp = rng.standard_normal((N, ps, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((N, ps, KV, hd)).astype(np.float32)
+    lengths = rng.integers(Q, P * ps + 1, size=B).astype(np.int32)
+    if Q == 1:
+        lengths[rng.integers(B)] = 0
+    perm = rng.permutation(np.arange(1, N))
+    table = np.full((B, P), -1, np.int32)
+    used = 0
+    for b in range(B):
+        n = -(-int(lengths[b]) // ps)
+        table[b, :n] = perm[used: used + n]
+        used += n
+    return q, kp, vp, table, lengths
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_jax_kernel_and_ref(case):
+    """All cases against the JAX oracle; the self-test cases also against
+    the Pallas kernel itself (interpret mode costs seconds per shape)."""
+    win, Q = case[6], case[7]
+    q, kp, vp, table, lengths = make_inputs(case)
+    jx = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    got = paged_attention(*_torch(q, kp, vp, table, lengths), window=win,
+                          q_span=Q).numpy()
+    want_ref = np.asarray(ref.paged_attention_ref(*jx, window=win,
+                                                  q_span=Q))
+    np.testing.assert_allclose(got, want_ref, rtol=2e-5, atol=2e-5)
+    if case in SELFTEST_CASES:
+        want_kernel = np.asarray(jax_paged(*jx, window=win, q_span=Q,
+                                           interpret=True))
+        np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
+    inactive = lengths == 0
+    assert not got[inactive].any()  # length-0 rows are zeros
+
+
+def test_explicit_q_start_matches_jax_ref():
+    """A span whose first query is not the contiguous tail (q_start given)."""
+    case = (2, 2, 4, 32, 8, 4, 0, 4)
+    q, kp, vp, table, lengths = make_inputs(case, seed=3)
+    q_start = np.maximum(lengths - 6, 0).astype(np.int32)
+    jx = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    want = np.asarray(ref.paged_attention_ref(
+        *jx, q_span=4, q_start=jnp.asarray(q_start)))
+    got = paged_attention(*_torch(q, kp, vp, table, lengths), q_span=4,
+                          q_start=torch.from_numpy(q_start)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "table_dtype", "shape",
+                                 "contiguity", "q_span"])
+def test_wrapper_rejects_bad_inputs(bad):
+    q, kp, vp, table, lengths = _torch(*make_inputs(CASES[0]))
+    kw = {}
+    if bad == "dtype":
+        q = q.double()
+    elif bad == "table_dtype":
+        table = table.long()
+    elif bad == "shape":
+        kp = kp[:, :, :1]
+    elif bad == "contiguity":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        kw["q_span"] = 3  # 4 rows per sequence is not a multiple of 3
+    with pytest.raises((TypeError, ValueError)):
+        paged_attention(q, kp, vp, table, lengths, **kw)
+

@@ -1,0 +1,109 @@
+"""The port's ServeEngine (CPU, paged_impl="kernel", so the kernel wrapper's
+plain version) vs the JAX ServeEngine (paged_impl="pallas", evict=False) on
+the same parameters and the same burst workloads: token streams and every
+wall-time-free `summarize()` counter must be equal."""
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config, smoke_variant
+from repro.core import ElasticScalingPolicy, ScaleEvent
+from repro.models import model as JM
+from repro.serve import Request, ServeEngine, synthetic_requests
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import smoke_variant as t_smoke_variant
+from repro_torch.core import ElasticScalingPolicy as TElasticScalingPolicy
+from repro_torch.core import ScaleEvent as TScaleEvent
+from repro_torch.models import model as TM
+from repro_torch.serve import Request as TRequest
+from repro_torch.serve import ServeEngine as TServeEngine
+from repro_torch.serve import synthetic_requests as t_synthetic_requests
+
+ARCH = "smollm-360m"
+# summarize() keys that carry no wall time (jit_cache_sizes is the JAX
+# engine's compile-cache bookkeeping and has no counterpart)
+COUNTERS = ["requests_finished", "requests_total", "tokens_generated",
+            "n_ticks", "prefill_chunks_total", "prefill_dispatches_total",
+            "admission_bytes_total", "meta_transfers_total",
+            "decode_dispatches", "shared_page_hits_total",
+            "cow_breaks_total", "shared_extra_pages_mean", "occupancy_mean",
+            "page_occupancy_mean", "kv_stats", "scale_events",
+            "resize_moved_bytes_total"]
+
+
+def _burst(make, vocab, n, seed, prompt, max_new):
+    return make(n, vocab_size=vocab, arrivals=np.zeros(n), prompt_len=prompt,
+                max_new_tokens=max_new, rng=np.random.default_rng(seed))
+
+
+def _identical(make_request, vocab, n=3, plen=13, max_new=5):
+    """Identical prompts with a partial last page: the first sharers map
+    the whole prompt, and their first decode write breaks the share."""
+    prompt = np.random.default_rng(3).integers(0, vocab, plen)
+    return [make_request(rid=i, prompt=prompt.astype(np.int32),
+                         max_new_tokens=max_new) for i in range(n)]
+
+
+WORKLOADS = {
+    "whole_prefill": dict(
+        engine=dict(capacity=4, cache_len=32, prefill_bucket=8,
+                    chunked_prefill=False),
+        requests=lambda mk, mr, v: _burst(mk, v, 6, 0, (6, 16), (5, 9))),
+    "chunked_prefill": dict(
+        engine=dict(capacity=2, cache_len=48, prefill_bucket=8,
+                    prefill_chunk=8),
+        requests=lambda mk, mr, v: _burst(mk, v, 3, 4, (18, 30), (3, 5))),
+    "shared_prefix_cow": dict(
+        engine=dict(capacity=4, cache_len=32, prefill_bucket=8,
+                    chunked_prefill=False),
+        requests=lambda mk, mr, v: _identical(mr, v)),
+    "resize_1_2_1": dict(
+        engine=dict(capacity=4, cache_len=32, prefill_bucket=8,
+                    slots_per_chunk=1, chunked_prefill=False),
+        events=[(0, 1), (2, 2), (5, 1)],
+        requests=lambda mk, mr, v: _burst(mk, v, 8, 2, (6, 16), (5, 9))),
+}
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg = smoke_variant(get_config(ARCH))
+    params = JM.init_params(cfg, jax.random.key(0))
+    tcfg = t_smoke_variant(t_get_config(ARCH))
+    tparams = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, params))
+    return cfg, params, tcfg, tparams
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_port_engine_matches_jax_engine(model, name):
+    cfg, params, tcfg, tparams = model
+    w = WORKLOADS[name]
+    events = w.get("events")
+    jpol = ([ElasticScalingPolicy([ScaleEvent(*e) for e in events])]
+            if events else [])
+    tpol = ([TElasticScalingPolicy([TScaleEvent(*e) for e in events])]
+            if events else [])
+    jeng = ServeEngine(cfg, kv_layout="paged", paged_impl="pallas",
+                       evict=False, seed=0, params=params, policies=jpol,
+                       **w["engine"])
+    jm = jeng.run(w["requests"](synthetic_requests, Request,
+                                cfg.vocab_size))
+    teng = TServeEngine(tcfg, kv_layout="paged", paged_impl="kernel",
+                        device="cpu", seed=0, params=tparams, policies=tpol,
+                        debug_checks=True, **w["engine"])
+    tm = teng.run(w["requests"](t_synthetic_requests, TRequest,
+                                tcfg.vocab_size))
+
+    assert ({r.rid: r.generated for r in tm.requests}
+            == {r.rid: r.generated for r in jm.requests})
+    js, ts = jm.summarize(), tm.summarize()
+    assert {k: ts[k] for k in COUNTERS} == {k: js[k] for k in COUNTERS}
+    assert ts["requests_finished"] == len(tm.requests)
+    assert teng.pages.n_used == 0  # every page returned
+    if name == "chunked_prefill":
+        assert ts["prefill_chunks_total"] > 0
+    if name == "shared_prefix_cow":
+        assert ts["shared_page_hits_total"] > 0 and ts["cow_breaks_total"] > 0
+    if name == "resize_1_2_1":
+        assert ts["scale_events"] == [[2, 1, 2], [5, 2, 1]]
+        assert ts["resize_moved_bytes_total"] > 0
