@@ -7,12 +7,18 @@ CUDA toolkit:
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. build    — compile every CUDA kernel of the serving path from the
-              sources in this checkout (one nvcc per source, all at once).
-2. kernels  — each kernel against its plain PyTorch version on the card:
-              the JAX kernel's self-test cases plus the full-width
-              h2o-danube-1.8b shapes (decode and a 256-token prefill
-              chunk), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
+1. build    — compile every CUDA kernel of the port from the sources in
+              this checkout (one nvcc per source, all at once):
+              paged_attention, scd and chunk_reduce.
+2. kernels  — each kernel against its plain PyTorch version on the card.
+              paged_attention: the JAX kernel's self-test cases plus the
+              full-width h2o-danube-1.8b shapes (decode and a 256-token
+              prefill chunk), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
+              scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
+              F in {8, 32}, masked tails) and the CoCoA path's shapes at
+              K=16, F in {28, 256} with M cut to 4,096, fp32 at rtol/atol
+              1e-5.  weighted_merge: K in 1..16, N in {7, 5001, 276,266},
+              f32 at 1e-5 and bf16 at 3e-2.
 3. engine   — the port's ServeEngine at full h2o-danube-1.8b width, bf16,
               random weights from a seed, through the kernel: 8 burst
               requests of 32-1536 prompt tokens (chunked prefill for the
@@ -24,8 +30,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               the gather path must give equal token streams; and a smoke
               size engine on the card must match the same engine on the
               CPU.
-5. timing   — kernel, plain version, bound and library yardstick at the
-              decode and chunk shapes, then the `kernels` line.
+5. cocoa    — the paper's GLM at HIGGS's shape: CoCoA/SCD on the uni-task
+              engine over 11,000,000 x 28 synthetic samples in 1,100
+              chunks, lambda 1e-3, scaling in 16 -> 2 over 12 iterations
+              through the SCD kernel; then 6 iterations with
+              RebalancePolicy, 4 of 16 workers at twice the per-sample
+              time.  Gap, K, wall and kernel time per iteration.
+6. lsgd     — the paper's CNN at CIFAR-10's shape: local SGD (L=8, H=16,
+              momentum 0.9, lr 1e-4 sqrt(K)) over 50,000 synthetic 32x32x3
+              images in chunks of 50, K 16 -> 8 -> 16, 24 iterations
+              through the weighted-merge kernel; loss, accuracy (every 8)
+              and wall time per iteration.
+7. timing   — each kernel, its plain version, its bound and its library
+              yardstick at the main path's shapes, then the `kernels` line.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 a checkout of the repository, it exits non-zero before printing a result.
@@ -50,6 +67,19 @@ ARCH = "h2o-danube-1.8b"
 DEVICE = "cuda"
 ENGINE = dict(capacity=8, page_size=16, cache_len=2048, prefill_bucket=64,
               prefill_chunk=256, kv_layout="paged")
+# training path (phases cocoa and lsgd)
+COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
+             iters=12, rebalance_iters=6)
+LSGD = dict(n_train=50_000, n_test=10_000, image_size=32, chunk_size=50,
+            k0=16, iters=24, eval_every=8)
+SLOW = [2.0] * 4 + [1.0] * 12  # per-sample times: 4 of 16 workers at 2x
+SCD_PATH_M = 4096  # the plain version steps M times from Python
+TOL_SCD = 1e-5
+TOL_MERGE = {"float32": 1e-5, "bfloat16": 3e-2}
+# the SCD chain model: per step, one FMA, a 5-level shuffle butterfly
+# (SHFL + FADD each) and ~20 dependent FMA-class ops (IEEE division,
+# clip, update); assumed latencies, not measured: SHFL 23, FMA-class 4
+SCD_CHAIN_CYCLES = 5 * (23 + 4) + 20 * 4
 SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
                   (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
                   (2, 2, 2, 32, 8, 6, 16, 4)]
@@ -176,30 +206,40 @@ def time_ms(torch, fn, inputs, window, iters):
 # ---------------------------------------------------------------------------
 
 
-def profile_run(torch, run):
+def profile_run(torch, run, kernel="paged_attention", attempts=1):
     """Run `run()` under torch.profiler; return the device-time breakdown:
     busy seconds (sum of kernel, memcpy and memset time on the card), the
-    wall seconds, the idle share and the largest kernels by time."""
+    wall seconds, the idle share, `kernel`'s share of the busy time and
+    the largest kernels by time.  The profiler can drop a window's device
+    records; a repeatable `run` gets up to `attempts` tries until `kernel`
+    shows in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        mine = sum(e.self_device_time_total for e in dev if kernel in e.key)
+        if mine > 0 or attempt == attempts:
+            break
     if not dev:  # the profiler saw no device activity in this sandbox
         return {"wall_s": wall, "device_busy_s": None,
                 "note": "torch.profiler recorded no device events"}
+    if mine == 0:  # records dropped: a busy time without the kernel lies
+        return {"wall_s": wall, "device_busy_s": None, "attempts": attempt,
+                "note": f"torch.profiler dropped this window's records: "
+                        f"no {kernel} launch in {attempt} tries"}
     busy_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
-    paged = sum(e.self_device_time_total for e in dev
-                if "paged_attention" in e.key)
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "paged_attention_share_of_busy": paged / busy_us,
+            f"{kernel}_share_of_busy": mine / busy_us,
+            "attempts": attempt,
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "total_ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -213,6 +253,455 @@ def requests(np, synthetic_requests, vocab):
 
 def streams(metrics):
     return {r.rid: list(r.generated) for r in metrics.requests}
+
+
+# ---------------------------------------------------------------------------
+# training path: the SCD and weighted-merge kernels, CoCoA and local SGD
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, iters=1):
+    """CUDA-event time per call of `fn` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters):
+    """Device time per call of `fn` from torch.profiler: the time of the
+    kernels it launches, without the host's launch gaps (which bound a
+    back-to-back loop of a microsecond kernel).  The profiler can drop
+    records, so each kernel is averaged over its own recorded launches
+    and counted as often per call as it was recorded per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.count]
+    if not dev:
+        fail("torch.profiler recorded no device time for the merge timing")
+    return sum(e.self_device_time_total / e.count
+               * max(1, round(e.count / iters)) for e in dev) / 1e3
+
+
+def host_profile(torch, run, n=8):
+    """Run `run()` under cProfile; the `n` functions with the most host
+    time of their own."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # (file, line, fn) -> (cc, nc, tt, ..)
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return [{"fn": f"{Path(f).name}:{line}:{fn}", "calls": v[1],
+             "own_s": v[2]} for (f, line, fn), v in top]
+
+
+def kernel_timer(torch, module, name, log):
+    """Wrap `module.name` so each call is bracketed by CUDA events appended
+    to `log`; returns the original for restoring."""
+    real = getattr(module, name)
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        log.append((start, end))
+        return out
+
+    setattr(module, name, timed)
+    return real
+
+
+def scd_inputs(torch, np, rng, K, M, F, masked, *, unit_rows):
+    """float32 SCD inputs on the card; `unit_rows` normalizes the rows as
+    `make_svm_data` does (the CoCoA path), else x ~ 0.3 N(0, 1) as in the
+    JAX kernel test."""
+    x = rng.standard_normal((K, M, F)).astype(np.float32)
+    if unit_rows:
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    else:
+        x *= 0.3
+    y = np.where(rng.standard_normal((K, M)) > 0, 1.0, -1.0).astype(
+        np.float32)
+    alpha = rng.uniform(size=(K, M)).astype(np.float32)
+    w = (rng.standard_normal(F) * 0.1).astype(np.float32)
+    mask = np.ones((K, M), np.float32)
+    if masked:
+        mask[:, M - masked:] = 0.0
+    return [torch.from_numpy(a).to(DEVICE) for a in (x, y, alpha, w, mask)]
+
+
+def scd_work(K, M, F):
+    """(bytes, flops) of one SCD pass: x, y, alpha, mask, w and sigma read
+    once, v_end and da written once; per step 6F flops (dot, |x|^2 and the
+    update) and ~12 scalar ones."""
+    nbytes = 4 * (K * M * F + 3 * K * M + F + K + K * F + K * M)
+    return nbytes, K * M * (6 * F + 12)
+
+
+def merge_work(K, N, itemsize):
+    return K * N * itemsize + 4 * K + N * itemsize, 2 * K * N
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def check_scd(torch, np, scd_pass, scd_pass_plain):
+    """The SCD kernel against its plain version: the JAX test's shapes and
+    the CoCoA path's (K=16, F in {28, 256}, M cut to SCD_PATH_M)."""
+    rng = np.random.default_rng(1)
+    cases = [(k, m, f, int(rng.integers(0, 6)), False, 10.0)
+             for k in (1, 2, 3, 4) for m in (16, 64) for f in (8, 32)]
+    lam_n = float(np.float32(COCOA["lam"]) * np.float32(COCOA["n"]))
+    cases += [(16, SCD_PATH_M, f, 7, True, lam_n) for f in (28, 256)]
+    worst, out = 0.0, []
+    for K, M, F, masked, unit_rows, ln in cases:
+        x, y, alpha, w, mask = scd_inputs(torch, np, rng, K, M, F, masked,
+                                          unit_rows=unit_rows)
+        sigma = torch.full((K,), float(K), device=DEVICE)
+        got = scd_pass(x, y, alpha, w, mask, ln, sigma)
+        torch.cuda.synchronize()
+        want = scd_pass_plain(x, y, alpha, w, mask, ln, sigma)
+        err = 0.0
+        for g, t in zip(got, want):
+            err = max(err, float((g - t).abs().max()))
+            excess = float(((g - t).abs() - TOL_SCD * t.abs()).max())
+            if not math.isfinite(excess) or excess > TOL_SCD:
+                fail(f"scd case K={K} M={M} F={F}: max abs err {err}")
+        if masked and bool((got[1][:, M - masked:] != 0).any()):
+            fail(f"scd case K={K} M={M} F={F}: masked rows moved")
+        out.append({"K": K, "M": M, "F": F, "masked": masked,
+                    "max_abs_err": err})
+        worst = max(worst, err)
+    return worst, out
+
+
+def check_merge(torch, weighted_merge, weighted_merge_plain):
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    worst = {}
+    for dtype_name, tol in TOL_MERGE.items():
+        dtype = getattr(torch, dtype_name)
+        err = 0.0
+        for K in range(1, 17):
+            for N in (7, 5001, 276_266):
+                u = torch.randn(K, N, device=DEVICE, generator=gen).to(dtype)
+                w = torch.rand(K, device=DEVICE, generator=gen)
+                got = weighted_merge(u, w)
+                torch.cuda.synchronize()
+                want = weighted_merge_plain(u, w)
+                if got.dtype != dtype or got.shape != (N,):
+                    fail(f"weighted_merge K={K} N={N}: {got.dtype} "
+                         f"{tuple(got.shape)}")
+                e = (got.float() - want.float()).abs()
+                if float((e - tol * want.float().abs()).max()) > tol:
+                    fail(f"weighted_merge {dtype_name} K={K} N={N}: max abs "
+                         f"err {float(e.max())}")
+                err = max(err, float(e.max()))
+        worst[dtype_name] = err
+    return worst
+
+
+def cocoa_phase(torch, np):
+    """CoCoA/SCD at HIGGS's shape through the kernel: a 16 -> 2 scale-in,
+    then a rebalancing run with 4 slow workers."""
+    from repro_torch.core import (Assignment, ChunkStore, CoCoASolver,
+                                  ElasticScalingPolicy, RebalancePolicy,
+                                  ScaleEvent, UniTaskEngine)
+    from repro_torch.data import make_svm_data
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.scd import scd_pass
+    c = COCOA
+    t0 = time.perf_counter()
+    x, y = make_svm_data(c["n"], c["features"], seed=0)
+    data_s = time.perf_counter() - t0
+    k0 = c["k0"]
+    unit = c["n"] // k0  # one K=16 full pass in sample-units of sim time
+    runs = {
+        # examples/cocoa_svm.py's schedule, 2 workers every 2 time units,
+        # one unit being one K=16 iteration of simulated time
+        "scale_in": ([ElasticScalingPolicy(
+            [ScaleEvent(2 * i * unit, max(k0 - 2 * i, 2))
+             for i in range(8)])], lambda w: 1.0, c["iters"]),
+        # examples/load_balancing.py's policy and slow nodes
+        "rebalance": ([RebalancePolicy(window=2, max_moves_per_gap=24)],
+                      lambda w: SLOW[w % len(SLOW)], c["rebalance_iters"]),
+    }
+    results = {}
+    for name, (policies, node_pst, iters) in runs.items():
+        store = ChunkStore({"x": x, "y": y}, chunk_size=c["chunk_size"])
+        a = Assignment(store.n_chunks, k0, np.random.default_rng(0))
+        solver = CoCoASolver(store, lam=c["lam"], device=DEVICE)
+        eng = UniTaskEngine(store, a, policies, node_pst=node_pst,
+                            balance_processing=False)
+        log, rows = [], []
+
+        def step(s, asg, sh, solver=solver, log=log, rows=rows,
+                 store=store):
+            t = time.perf_counter()
+            out = solver.step(s, asg, sh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            ids = sorted(cid for w in asg.workers for cid in w)
+            if ids != list(range(store.n_chunks)):
+                fail(f"cocoa {name}: chunks not conserved")
+            nnz = int(np.count_nonzero(store.state["alpha"]))
+            if rows and nnz < rows[-1]["alpha_nonzero"] // 2:
+                fail(f"cocoa {name}: alpha was reset ({nnz} nonzero after "
+                     f"{rows[-1]['alpha_nonzero']})")
+            rows.append({"K": asg.n_workers,
+                         "M": int(out["per_worker_samples"].max()),
+                         "wall_s": wall,
+                         "kernel_ms": log[-1][0].elapsed_time(log[-1][1]),
+                         "alpha_nonzero": nnz})
+            return out
+
+        real = kernel_timer(torch, ops, "scd_local_pass", log)
+        try:
+            scd_pass.launches = 0
+            t0 = time.perf_counter()
+            hist = eng.run(iters, step, solver.metric)
+            run_s = time.perf_counter() - t0
+            launches = scd_pass.launches
+        finally:
+            ops.scd_local_pass = real
+        for r, h in zip(rows, hist):
+            r["gap"] = h.metric
+            r["max_task_time"] = max(h.task_times.values())
+        gaps = [h.metric for h in hist]
+        if not all(math.isfinite(g) for g in gaps) or gaps[-1] >= gaps[0]:
+            fail(f"cocoa {name}: the duality gap did not fall: {gaps}")
+        if launches != iters:
+            fail(f"cocoa {name}: {launches} scd launches in {iters} "
+                 f"iterations")
+        if name == "scale_in" and hist[-1].n_workers != 2:
+            fail(f"cocoa scale_in ended at K={hist[-1].n_workers}")
+        if name == "rebalance" and \
+                rows[-1]["max_task_time"] >= rows[0]["max_task_time"]:
+            fail("cocoa rebalance: the max task time did not fall")
+        results[name] = {"launches": launches, "run_s": run_s,
+                         "iterations": rows}
+        if name == "rebalance":  # one more K=16 iteration, profiled
+            emit({"phase": "profile", "cell": "cocoa", "K": a.n_workers,
+                  **profile_run(torch, lambda: solver.step(store, a),
+                                kernel="scd_kernel", attempts=3),
+                  "host_top": host_profile(
+                      torch, lambda: solver.step(store, a))})
+        emit({"phase": "cocoa", "run": name, "n": c["n"],
+              "features": c["features"], "chunks": store.n_chunks,
+              "lam": c["lam"], "data_s": data_s, "run_s": run_s,
+              "scd_launches": launches,
+              "kernel_ms_total": sum(r["kernel_ms"] for r in rows),
+              "iterations": rows,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del solver, eng, store
+        torch.cuda.empty_cache()
+    return results
+
+
+def lsgd_phase(torch, np):
+    """Local SGD on the paper's CNN at CIFAR-10's shape through the merge
+    kernel, K 16 -> 8 -> 16."""
+    from repro_torch.configs.chicle_paper import PAPER_LSGD, CNNConfig
+    from repro_torch.core import (Assignment, ChunkStore,
+                                  ElasticScalingPolicy, LocalSGDSolver,
+                                  ScaleEvent, UniTaskEngine)
+    from repro_torch.core.nets import cnn_apply, cnn_init, loss_per_sample
+    from repro_torch.data import make_images
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunk_reduce import weighted_merge
+    c = LSGD
+    cfg = dataclasses.replace(CNNConfig(), image_size=c["image_size"])
+    t0 = time.perf_counter()
+    xtr, ytr = make_images(c["n_train"], cfg.image_size, cfg.channels,
+                           cfg.num_classes, seed=0, noise=1.5)
+    xte, yte = make_images(c["n_test"], cfg.image_size, cfg.channels,
+                           cfg.num_classes, seed=1, noise=1.5)
+    data_s = time.perf_counter() - t0
+    params = cnn_init(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(v.numel() for v in params.values())
+    store = ChunkStore({"x": xtr, "y": ytr}, chunk_size=c["chunk_size"])
+    k0 = c["k0"]
+    a = Assignment(store.n_chunks, k0, np.random.default_rng(0))
+    unit = PAPER_LSGD.local_steps * PAPER_LSGD.local_batch  # per iteration
+    pol = ElasticScalingPolicy([ScaleEvent(0, k0),
+                                ScaleEvent(8 * unit, k0 // 2),
+                                ScaleEvent(16 * unit, k0)])
+    solver = LocalSGDSolver(params, cnn_apply, loss_per_sample, PAPER_LSGD,
+                            eval_data=xte, eval_labels=yte, seed=0,
+                            device=DEVICE)
+    eng = UniTaskEngine(store, a, [pol])
+    data = torch.from_numpy(xtr).to(DEVICE)
+    labels = torch.from_numpy(ytr).to(DEVICE)
+    log, rows = [], []
+
+    def step(s, asg, sh):
+        t = time.perf_counter()
+        out = solver.step(s, asg, data, labels, sh)
+        torch.cuda.synchronize()
+        rows.append({"K": asg.n_workers, "loss": out["loss"],
+                     "wall_s": time.perf_counter() - t,
+                     "merge_ms": log[-1][0].elapsed_time(log[-1][1])})
+        return out
+
+    real = kernel_timer(torch, ops, "merge_updates", log)
+    try:
+        weighted_merge.launches = 0
+        t0 = time.perf_counter()
+        hist = eng.run(c["iters"], step, solver.metric,
+                       eval_every=c["eval_every"])
+        run_s = time.perf_counter() - t0
+        launches = weighted_merge.launches
+    finally:
+        ops.merge_updates = real
+    for r, h in zip(rows, hist):
+        r["accuracy"] = h.metric
+    emit({"phase": "profile", "cell": "lsgd", "K": a.n_workers,
+          **profile_run(torch, lambda: solver.step(store, a, data, labels),
+                        kernel="merge_kernel", attempts=3)})
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lsgd: non-finite loss {losses}")
+    if launches != c["iters"]:
+        fail(f"lsgd: {launches} merge launches in {c['iters']} iterations")
+    ks = [r["K"] for r in rows]
+    if k0 // 2 not in ks or ks[-1] != k0:
+        fail(f"lsgd: K path {ks} is not {k0} -> {k0 // 2} -> {k0}")
+    emit({"phase": "lsgd", "n_train": c["n_train"], "n_test": c["n_test"],
+          "image_size": cfg.image_size, "params": n_params,
+          "chunk_size": c["chunk_size"], "local_batch":
+          PAPER_LSGD.local_batch, "local_steps": PAPER_LSGD.local_steps,
+          "data_s": data_s, "run_s": run_s, "merge_launches": launches,
+          "epochs": hist[-1].epoch, "iterations": rows,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {"launches": launches, "n_params": n_params, "run_s": run_s}
+
+
+def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
+                    weighted_merge_plain):
+    """Kernel, plain version, bound and yardstick for the SCD and merge
+    kernels at the training path's shapes."""
+    out = {}
+    rng = np.random.default_rng(3)
+    lam_n = float(np.float32(COCOA["lam"]) * np.float32(COCOA["n"]))
+    clock = sm_clock_hz()
+    # SCD at K=16, F=28 with M cut for the plain version, then the kernel
+    # alone at the path's full passes (K=16 and K=2)
+    K, F = COCOA["k0"], COCOA["features"]
+    x, y, alpha, w, mask = scd_inputs(torch, np, rng, K, SCD_PATH_M, F, 0,
+                                      unit_rows=True)
+    sigma = torch.full((K,), float(K), device=DEVICE)
+    args = (x, y, alpha, w, mask, lam_n, sigma)
+    plain1 = cuda_ms(torch, lambda: scd_pass_plain(*args))
+    kern1 = cuda_ms(torch, lambda: scd_pass(*args), iters=20)
+    kern2 = cuda_ms(torch, lambda: scd_pass(*args), iters=20)
+    plain2 = cuda_ms(torch, lambda: scd_pass_plain(*args))
+    b_ms, b_by = bound(*scd_work(K, SCD_PATH_M, F))
+    scd = {"shape": {"K": K, "M": SCD_PATH_M, "F": F},
+           "ms": min(kern1, kern2), "ms_runs": [kern1, kern2],
+           "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
+                                                              plain2],
+           "bound_ms": b_ms, "bound_by": b_by,
+           "chain_bound_ms": SCD_CHAIN_CYCLES * SCD_PATH_M / clock * 1e3,
+           "library_ms": None, "path": []}
+    del x, y, alpha, mask
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    for Kp in (COCOA["k0"], 2):
+        M = COCOA["n"] // Kp
+        x = torch.randn(Kp, M, F, device=DEVICE, generator=gen)
+        x /= x.norm(dim=-1, keepdim=True)
+        y = torch.where(torch.rand(Kp, M, device=DEVICE, generator=gen)
+                        > 0.5, 1.0, -1.0)
+        alpha = torch.zeros(Kp, M, device=DEVICE)
+        mask = torch.ones(Kp, M, device=DEVICE)
+        sigma = torch.full((Kp,), float(Kp), device=DEVICE)
+        ms = cuda_ms(torch, lambda: scd_pass(x, y, alpha, w, mask, lam_n,
+                                             sigma))
+        b_ms, b_by = bound(*scd_work(Kp, M, F))
+        scd["path"].append({"K": Kp, "M": M, "F": F, "ms": ms,
+                            "ns_per_step": ms * 1e6 / M,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "chain_bound_ms": SCD_CHAIN_CYCLES * M / clock
+                            * 1e3})
+        del x, y, alpha, mask
+        torch.cuda.empty_cache()
+    scd["sm_clock_mhz"] = clock / 1e6
+    scd["chain_cycles_per_step_model"] = SCD_CHAIN_CYCLES
+    out["scd"] = scd
+    # merge: the lSGD path's (16, 276,266) fp32 deltas, then a large N;
+    # input copies rotate past the 50 MB L2 so reads come from HBM
+    merge = {}
+    for label, (K, N) in (("path", (LSGD["k0"], 276_266)),
+                          ("large", (16, 1 << 24))):
+        n_rot = max(1, -(-200_000_000 // (K * N * 4)))
+        rot = [(torch.randn(K, N, device=DEVICE, generator=gen),
+                torch.rand(K, device=DEVICE, generator=gen))
+               for _ in range(n_rot)]
+        it = [0]
+
+        def nxt():
+            it[0] += 1
+            return rot[it[0] % len(rot)]
+
+        def plain():
+            return weighted_merge_plain(*nxt())
+
+        def kern():
+            return weighted_merge(*nxt())
+
+        def lib():
+            u, w = nxt()
+            return w @ u
+
+        iters = 50
+        # device time per call (the kernels alone), in turns
+        runs = [device_ms(torch, f, iters)
+                for f in (plain, kern, kern, plain)]
+        b_ms, b_by = bound(*merge_work(K, N, 4))
+        merge[label] = {"shape": {"K": K, "N": N, "dtype": "float32"},
+                        "ms": min(runs[1:3]), "ms_runs": runs[1:3],
+                        "plain_ms": min(runs[0], runs[3]),
+                        "plain_ms_runs": [runs[0], runs[3]],
+                        "library_ms": device_ms(torch, lib, iters),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        # CUDA events over back-to-back calls: bounded by
+                        # the host's launch rate at the path's small N
+                        "events_ms": {"kernel": cuda_ms(torch, kern, iters),
+                                      "plain": cuda_ms(torch, plain, iters),
+                                      "library": cuda_ms(torch, lib, iters)}}
+        del rot
+        torch.cuda.empty_cache()
+    out["weighted_merge"] = merge
+    return out
 
 
 def main() -> None:
@@ -229,8 +718,11 @@ def main() -> None:
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core import ElasticScalingPolicy, ScaleEvent
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.chunk_reduce import (weighted_merge,
+                                                  weighted_merge_plain)
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_plain)
+    from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine, synthetic_requests
 
@@ -241,12 +733,15 @@ def main() -> None:
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    kbuild.build("paged_attention")
+    names = ("paged_attention", "scd", "chunk_reduce")
+    kbuild.build(*names)
     build_s = time.perf_counter() - t0
-    log = kbuild.library_path("paged_attention").with_suffix(".log")
-    ptxas = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
+    ptxas = {}
+    for kname in names:
+        log = kbuild.library_path(kname).with_suffix(".log")
+        ptxas[kname] = [ln.strip() for ln in (log.read_text().splitlines()
+                                              if log.exists() else [])
+                        if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "card": card,
           "ptxas": ptxas})
 
@@ -287,8 +782,14 @@ def main() -> None:
                      f"err {e} > {TOL[dtype_name]}")
             err = max(err, e)
         worst[dtype_name] = err
+    scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain)
+    merge_err = check_merge(torch, weighted_merge, weighted_merge_plain)
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": worst,
-          "cases": checks})
+          "cases": checks, "scd": {"tolerance": TOL_SCD,
+                                   "max_abs_err": scd_err,
+                                   "cases": scd_cases},
+          "weighted_merge": {"tolerance": TOL_MERGE,
+                             "max_abs_err": merge_err}})
 
     # ---- 3. engine at full width, bf16, through the kernel ----------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -396,7 +897,15 @@ def main() -> None:
           sum(len(v) for v in got["kernel"].values()),
           "smoke_card_vs_cpu_tokens": sum(len(v) for v in on_card.values())})
 
-    # ---- 5. timing at the main path's shapes (bf16, the engine dtype) -----
+    # ---- 5. cocoa, 6. lsgd: the training path at full width --------------
+    torch.cuda.reset_peak_memory_stats()
+    cocoa = cocoa_phase(torch, np)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lsgd = lsgd_phase(torch, np)
+    torch.cuda.empty_cache()
+
+    # ---- 7. timing at the main path's shapes (bf16, the engine dtype) -----
     lib = library_call(torch, F, cfg.sliding_window)
     timing = {}
     for shape_name, sh in shapes.items():
@@ -427,6 +936,9 @@ def main() -> None:
             "bytes": nbytes, "flops": flops}
         del rot
     dec = timing["decode"]
+    train = training_timing(torch, np, scd_pass, scd_pass_plain,
+                            weighted_merge, weighted_merge_plain)
+    scd_t, merge_t = train["scd"], train["weighted_merge"]
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -437,7 +949,30 @@ def main() -> None:
         "max_abs_err_bf16": worst["bfloat16"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shapes": timing}]})
+        "library_ms": dec["library_ms"], "shapes": timing}, {
+        "name": "scd_pass", "route": "cuda",
+        "source": "src/repro_torch/csrc/scd.cu",
+        "replaces": "src/repro/kernels/scd.py:62",
+        "replaces_function": "src/repro/kernels/scd.py::scd_pass "
+                             "(body _scd_kernel :25)",
+        "launches": cocoa["scale_in"]["launches"],
+        "launches_rebalance": cocoa["rebalance"]["launches"],
+        "max_abs_err": scd_err, "ms": scd_t["ms"],
+        "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],
+        "bound_by": scd_t["bound_by"], "library_ms": None,
+        "chain_bound_ms": scd_t["chain_bound_ms"], "timing": scd_t}, {
+        "name": "weighted_merge", "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_reduce.cu",
+        "replaces": "src/repro/kernels/chunk_reduce.py:25",
+        "replaces_function": "src/repro/kernels/chunk_reduce.py::"
+                             "weighted_merge (body _merge_kernel :17)",
+        "launches": lsgd["launches"],
+        "max_abs_err": merge_err["float32"],
+        "max_abs_err_bf16": merge_err["bfloat16"],
+        "ms": merge_t["path"]["ms"], "plain_ms": merge_t["path"]["plain_ms"],
+        "bound_ms": merge_t["path"]["bound_ms"],
+        "bound_by": merge_t["path"]["bound_by"],
+        "library_ms": merge_t["path"]["library_ms"], "timing": merge_t}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

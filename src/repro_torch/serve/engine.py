@@ -18,6 +18,10 @@ request's pages, decode that reads only the pages live in this batch (table
 width bucketed to a power of two), and long prompts prefilled in chunks
 interleaved with decode.  `paged_impl="kernel"` runs attention through the
 paged-attention kernel, `"gather"` through a gather and plain attention.
+With `evict` (on by default, as in the JAX engine's paged layout) a
+higher-priority arrival that finds the pool full parks a strictly
+lower-priority decode: its live pages go to host memory in one gather and
+come back through admission in one scatter, with no re-prefill.
 
 The KV pools live on `device` (CUDA unless the caller asks for the CPU) and
 are updated in place.  `resize(k)` changes the logical worker count on the
@@ -28,8 +32,8 @@ goes to the device as ONE copy of a packed int32 staging tensor
 (`_MetaPacker`), counted per tick as `meta_transfers`.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the flat layout, speculative decoding, park/restore eviction, the
-overlapped tick, fault injection, overload control and the moe family.
+item): the flat layout, speculative decoding, the overlapped tick, fault
+injection, overload control and the moe family.
 """
 from __future__ import annotations
 
@@ -355,8 +359,6 @@ class ServeEngine:
             raise ValueError(f"cache_len must be >= 1 token, got {cache_len}")
         if spec != "off":
             raise _unsupported(f"spec={spec!r}", "speculative decoding")
-        if evict:  # None (the JAX paged default: on) resolves to off here
-            raise _unsupported("evict=True", "park/restore and evict")
         if overlap:
             raise _unsupported("overlap=True", "overlap on CUDA streams")
         if fault_injector is not None:
@@ -386,6 +388,7 @@ class ServeEngine:
         self.page_size = page_size
         self.paged_impl = paged_impl
         self.prefix_share = True if prefix_share is None else bool(prefix_share)
+        self.evict = True if evict is None else bool(evict)
         self.chunked_prefill = (True if chunked_prefill is None
                                 else bool(chunked_prefill))
         self.prefill_chunk = prefill_chunk or prefill_bucket
@@ -545,6 +548,82 @@ class ServeEngine:
             self.mem.release_slot(req.slot)
         self.scheduler.release(req, now)
 
+    # --- eviction: park / restore (page-granular preemption) --------------
+    def park(self, slot: int) -> int:
+        """Preempt the decoding request in `slot`: gather ONLY its live
+        pages to host memory (one O(pages) device->host copy, no re-prefill
+        on return), free its pages and slot, and re-queue the request
+        (state PARKED) for a later restore through admission.  Returns the
+        bytes moved."""
+        req = self._by_slot.pop(slot, None)
+        if req is None:
+            raise KeyError(f"slot {slot} has no decoding request")
+        with self.tracer.span("park", rid=req.rid, slot=slot):
+            idx = torch.as_tensor(self.pages.table(slot), dtype=torch.long,
+                                  device=self.device)
+            # host copies stay torch tensors: numpy has no bfloat16
+            host = {name: arr[:, idx].cpu()
+                    for name, arr in self.blocks.items()}
+            seq = self.mem.park(req.rid, slot, host,
+                                int(self.scheduler.pool.pos[slot]),
+                                int(self.next_tok[slot, 0]),
+                                prompt=req.prompt)
+            self.scheduler.pool.free(slot)
+            req.slot = None
+            req.state = RequestState.PARKED
+            req.t_parked = self._now()  # handoff-delay clock starts
+            self.scheduler.submit(req)  # rejoins its tenant queue
+        return seq.nbytes
+
+    def park_excess(self, n: int) -> int:
+        """Park up to `n` decoding slots, lowest priority first (latest
+        admitted within a priority) — the cluster lease-shrink hook.
+        Returns total bytes moved to host."""
+        moved = 0
+        for _ in range(max(0, n)):
+            victim = self._pick_victim()
+            if victim is None:
+                break
+            moved += self.park(victim)
+        return moved
+
+    def _pick_victim(self) -> Optional[int]:
+        """Lowest-priority, most-recently-admitted decoding slot."""
+        cands = [(req.priority, -(req.t_admitted or 0.0), slot)
+                 for slot, req in self._by_slot.items()]
+        return min(cands)[2] if cands else None
+
+    def _preempt_for(self, incoming: Request) -> bool:
+        """Scheduler hook: admit `incoming` over a STRICTLY lower-priority
+        in-flight decode by parking the victim (KV to host, no work lost).
+        Returns True when a slot was freed."""
+        victim = self._pick_victim()
+        if victim is None \
+                or self._by_slot[victim].priority >= incoming.priority:
+            return False
+        self.park(victim)
+        return True
+
+    def _restore_slot(self, req: Request) -> int:
+        """Re-admit a parked request: pages re-matched against the prefix
+        index where possible, ONE scatter of the unshared payload, decode
+        state restored — the stream continues bit for bit with zero prefill
+        compute.  Returns bytes moved."""
+        with self.tracer.span("restore", rid=req.rid, slot=req.slot):
+            plan = self.mem.restore(req.rid, req.slot)
+            seq = plan.seq
+            # re-shared pages carry write id 0: their rows land in the null
+            # page and nothing live is overwritten (AdmitPlan's trick)
+            ids = self._pack_meta(np.asarray(plan.write_ids,
+                                             np.int32)).long()
+            for name, rows in seq.pages.items():
+                self.blocks[name][:, ids] = rows.to(self.device)
+            req.state = RequestState.DECODING
+            self.next_tok[req.slot, 0] = seq.next_tok
+            self.scheduler.pool.pos[req.slot] = seq.live_tokens
+            self._by_slot[req.slot] = req
+        return plan.moved_bytes
+
     def _start_decoding(self, req: Request, nxt: int, now: float) -> None:
         """PREFILL -> DECODING (or immediate finish) once the first token
         exists."""
@@ -560,15 +639,20 @@ class ServeEngine:
 
     def _do_prefill(self, admitted: Sequence[Request]) -> int:
         """Prefill this tick's admissions, one batched forward per shared
-        bucket length, and insert their KV into the pool.  Fresh admissions
-        map their longest indexed prompt prefix onto existing physical pages
-        and write only the rest.  Long prompts defer to `_advance_prefills`.
-        Returns modeled admission bytes written to the device KV pool."""
+        bucket length, and insert their KV into the pool.  PARKED requests
+        restore their host-parked pages instead (no model forward at all);
+        fresh admissions map their longest indexed prompt prefix onto
+        existing physical pages and write only the rest.  Long prompts defer
+        to `_advance_prefills`.  Returns modeled admission bytes written to
+        the device KV pool."""
         direct: List[Request] = []
+        nbytes = 0
         for r in admitted:
+            if self.mem.has_parked(r.rid):
+                nbytes += self._restore_slot(r)
             # submit() already rejected prompt+max_new > cache_len, so the
             # chunked table can never outgrow max_pages_per_slot
-            if self.chunked_prefill and r.prompt_len > self.prefill_chunk:
+            elif self.chunked_prefill and r.prompt_len > self.prefill_chunk:
                 with self.tracer.span("prefix_index", rid=r.rid):
                     off = self.mem.admit_chunked(r.slot, r.prompt)
                 self._prefilling[r.slot] = (r, off)
@@ -577,7 +661,6 @@ class ServeEngine:
         groups: Dict[int, List[Request]] = {}
         for r in direct:
             groups.setdefault(self._bucket(r.prompt_len), []).append(r)
-        nbytes = 0
         trc = self.tracer
         for bucket, group in sorted(groups.items()):
             n = len(group)
@@ -782,8 +865,11 @@ class ServeEngine:
                 # record the slot moves here; resize() only adopts k
                 self._record_resize_moves(sched.n_workers, live, before)
                 self.resize(sched.n_workers)
+        # priority admission: a full pool parks a strictly lower-priority
+        # in-flight decode (pages to host) instead of queueing the arrival
         with trc.span("admit"):
-            admitted = sched.admit(now)
+            admitted = sched.admit(
+                now, preempt=self._preempt_for if self.evict else None)
         admission_bytes = self._do_prefill(admitted) if admitted else 0
         n_chunks = n_chunk_dispatch = 0
         if self._prefilling:

@@ -1,17 +1,29 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version on an NVIDIA GPU.  This file imports torch only (no jax),
-so it runs on a machine with a card and no JAX:
+PyTorch version on an NVIDIA GPU, and the training solvers launching their
+kernels.  This file imports torch only (no jax), so it runs on a machine
+with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Elsewhere every test skips.  Tolerances are the JAX package's kernel
-tolerances (tests/test_kernels.py): fp32 2e-5 with TF32 off, bf16 2e-2."""
+tolerances (tests/test_kernels.py) with TF32 off: paged attention fp32
+2e-5 and bf16 2e-2; SCD 1e-5; weighted merge f32 1e-5 and bf16 3e-2."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.chicle_paper import PAPER_LSGD
+from repro_torch.core import (Assignment, ChunkStore, CoCoASolver,
+                              LocalSGDSolver, UniTaskEngine)
+from repro_torch.core.nets import loss_per_sample, mlp_apply, mlp_init
+from repro_torch.data import make_classification, make_svm_data
+from repro_torch.kernels.chunk_reduce import (weighted_merge,
+                                              weighted_merge_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
+from repro_torch.kernels.scd import scd_pass, scd_pass_plain
 
 # (B, KV, G, hd, ps, P, window, q_span): the JAX kernel's self-test cases,
 # then the full-width h2o-danube-1.8b decode and chunk shapes
@@ -77,3 +89,129 @@ def test_paged_attention_kernel_refuses_cpu_fallback(cuda):
     q, kp, vp, table, lengths = _inputs(CASES[0], torch.float32)
     with pytest.raises(ValueError):
         paged_attention(q, kp, vp, table.cpu(), lengths)
+
+
+# (K, M, F, masked tail, lam*n): the JAX SCD test's shapes, the CoCoA
+# path's widths (F=28 at HIGGS's lambda*n, F=256) and the widest rows the
+# kernel takes (F=1024), plus an F that is not a multiple of 32
+SCD_CASES = [(1, 16, 8, 0, 10.0), (3, 64, 32, 5, 10.0), (4, 64, 8, 2, 10.0),
+             (16, 512, 28, 7, 11000.0), (16, 256, 256, 0, 11000.0),
+             (2, 64, 1024, 3, 100.0), (2, 96, 100, 1, 100.0)]
+
+
+def _scd_inputs(K, M, F, masked, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((K, M, F)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    y = np.where(rng.standard_normal((K, M)) > 0, 1.0, -1.0).astype(
+        np.float32)
+    alpha = rng.uniform(size=(K, M)).astype(np.float32)
+    w = (rng.standard_normal(F) * 0.1).astype(np.float32)
+    mask = np.ones((K, M), np.float32)
+    if masked:
+        mask[:, M - masked:] = 0.0
+    sigma = np.full(K, float(K), np.float32)
+    return [torch.from_numpy(a).cuda() for a in (x, y, alpha, w, mask,
+                                                 sigma)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCD_CASES)
+def test_scd_kernel_matches_plain(cuda, case):
+    K, M, F, masked, lam_n = case
+    x, y, alpha, w, mask, sigma = _scd_inputs(K, M, F, masked)
+    before = scd_pass.launches
+    v, da = scd_pass(x, y, alpha, w, mask, lam_n, sigma)
+    torch.cuda.synchronize()
+    assert scd_pass.launches == before + 1
+    v_want, da_want = scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
+    torch.testing.assert_close(v, v_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(da, da_want, rtol=1e-5, atol=1e-5)
+    if masked:
+        assert not da[:, M - masked:].any()  # masked rows: exactly 0
+
+
+@pytest.mark.cuda
+def test_scd_kernel_refuses_rows_wider_than_its_registers(cuda):
+    x, y, alpha, w, mask, sigma = _scd_inputs(1, 4, 1025, 0)
+    with pytest.raises(ValueError, match="F <= 1024"):
+        scd_pass(x, y, alpha, w, mask, 10.0, sigma)
+
+
+MERGE_CASES = [(K, N) for K in (1, 5, 16) for N in (1, 7, 5001, 276_266)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("K,N", MERGE_CASES)
+def test_weighted_merge_kernel_matches_plain(cuda, K, N, dtype, tol):
+    gen = torch.Generator(device="cuda").manual_seed(K * N)
+    u = torch.randn(K, N, device="cuda", generator=gen).to(dtype)
+    w = torch.rand(K, device="cuda", generator=gen)
+    before = weighted_merge.launches
+    got = weighted_merge(u, w)
+    torch.cuda.synchronize()
+    assert weighted_merge.launches == before + 1
+    assert got.dtype == dtype and got.shape == (N,)
+    torch.testing.assert_close(got.float(),
+                               weighted_merge_plain(u, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_weighted_merge_kernel_on_misaligned_rows(cuda):
+    """A (K, N) view whose base is not 16-byte aligned takes the element
+    path on every row and still matches."""
+    K, N = 4, 1001
+    flat = torch.randn(K * N + 1, device="cuda")
+    u = flat[1:].view(K, N)  # contiguous, base 4 bytes past alignment
+    w = torch.rand(K, device="cuda")
+    torch.testing.assert_close(weighted_merge(u, w),
+                               weighted_merge_plain(u, w),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_training_solvers_launch_their_kernels_every_iteration(cuda):
+    """CoCoA and local SGD on the card launch the SCD and merge kernels
+    once per iteration and land where the same runs on the CPU land
+    (tolerance 1e-4: card and CPU sum in different orders)."""
+    x, y = make_svm_data(2000, 16, seed=3)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        store = ChunkStore({"x": x, "y": y}, chunk_size=50)
+        a = Assignment(store.n_chunks, 4, np.random.default_rng(0))
+        solver = CoCoASolver(store, lam=1e-3, device=dev)
+        eng = UniTaskEngine(store, a, [], balance_processing=False)
+        before = scd_pass.launches
+        hist = eng.run(3, solver.step, solver.metric)
+        res[dev] = (scd_pass.launches - before, solver.w.cpu(),
+                    [h.metric for h in hist])
+    assert res["cuda"][0] == 3 and res["cpu"][0] == 0
+    torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(res["cuda"][2], res["cpu"][2], rtol=1e-4)
+
+    xs, ys = make_classification(512, 16, 4, seed=0)
+    tc = dataclasses.replace(PAPER_LSGD, local_steps=4, learning_rate=0.01)
+    p0 = mlp_init(torch.Generator().manual_seed(0), 16, 4)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        store = ChunkStore({"x": xs, "y": ys}, chunk_size=32)
+        a = Assignment(store.n_chunks, 4, np.random.default_rng(0))
+        solver = LocalSGDSolver(p0, mlp_apply, loss_per_sample, tc,
+                                eval_data=xs, eval_labels=ys, seed=7,
+                                device=dev)
+        eng = UniTaskEngine(store, a, [])
+        data = torch.from_numpy(xs).to(dev)
+        labels = torch.from_numpy(ys).to(dev)
+        before = weighted_merge.launches
+        eng.run(3, lambda s, asg, sh: solver.step(s, asg, data, labels, sh),
+                solver.metric)
+        res[dev] = (weighted_merge.launches - before,
+                    {k: v.cpu() for k, v in solver.params.items()})
+    assert res["cuda"][0] == 3 and res["cpu"][0] == 0
+    for k, v in res["cpu"][1].items():
+        torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
+                                   atol=1e-4)

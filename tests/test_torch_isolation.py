@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package,
-`chip_smoke.py` imports nothing of the JAX package, the engine runs on the
-GPU unless the caller asks for the CPU, and a kernel build without nvcc
-raises instead of handing back the plain version."""
+`chip_smoke.py` imports nothing of the JAX package, the engine and the
+training solvers run on the GPU unless the caller asks for the CPU, and a
+kernel build without nvcc raises instead of handing back the plain
+version."""
 import ast
 import os
 import pkgutil
@@ -12,8 +13,13 @@ from pathlib import Path
 import pytest
 import torch
 
+import numpy as np
+
 import repro_torch
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs.chicle_paper import PAPER_LSGD
+from repro_torch.core import ChunkStore, CoCoASolver, LocalSGDSolver
+from repro_torch.core.nets import loss_per_sample, mlp_apply
 from repro_torch.kernels import build as build_mod
 from repro_torch.serve import ServeEngine
 
@@ -70,7 +76,7 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(kv_layout="flat"), dict(spec="ngram"),
-                                dict(evict=True), dict(overlap=True),
+                                dict(overlap=True),
                                 dict(fault_injector=object()),
                                 dict(queue_cap=4)])
 def test_unported_options_raise(kw):
@@ -85,3 +91,44 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build_mod, "_loaded", {})
     with pytest.raises(build_mod.KernelBuildError, match="nvcc"):
         build_mod.build("paged_attention")
+
+
+@pytest.mark.parametrize("kernel", ["scd", "chunk_reduce"])
+def test_training_kernel_builds_raise_without_nvcc(monkeypatch, tmp_path,
+                                                   kernel):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build_mod, "_loaded", {})
+    with pytest.raises(build_mod.KernelBuildError, match="nvcc"):
+        build_mod.build(kernel)
+
+
+TRAINING_MODULES = ["core.cocoa", "core.local_sgd", "core.nets",
+                    "core.engine", "core.metrics", "data.synthetic",
+                    "kernels.scd", "kernels.chunk_reduce", "kernels.ops"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_neither_jax_nor_repro(module):
+    path = PORT / (module.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def _solver(name, **kw):
+    x = np.zeros((8, 4), np.float32)
+    y = np.ones(8, np.float32)
+    if name == "cocoa":
+        return CoCoASolver(ChunkStore({"x": x, "y": y}, chunk_size=4), **kw)
+    params = {"w0": torch.zeros(4, 2), "b0": torch.zeros(2)}
+    return LocalSGDSolver(params, mlp_apply, loss_per_sample, PAPER_LSGD,
+                          **kw)
+
+
+@pytest.mark.parametrize("name", ["cocoa", "lsgd"])
+def test_training_solvers_default_to_cuda_and_refuse_without_it(
+        monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _solver(name)
+    assert _solver(name, device="cpu").device.type == "cpu"

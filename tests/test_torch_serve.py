@@ -1,7 +1,9 @@
 """The port's ServeEngine (CPU, paged_impl="kernel", so the kernel wrapper's
-plain version) vs the JAX ServeEngine (paged_impl="pallas", evict=False) on
-the same parameters and the same burst workloads: token streams and every
-wall-time-free `summarize()` counter must be equal."""
+plain version) vs the JAX ServeEngine (paged_impl="pallas") on the same
+parameters and the same workloads: token streams and every wall-time-free
+`summarize()` counter must be equal.  The burst workloads run the JAX engine
+with evict=False; the mixed-priority ones run both engines with the default
+`evict` (on), so a high-priority arrival parks and later restores a decode."""
 import jax
 import numpy as np
 import pytest
@@ -107,3 +109,100 @@ def test_port_engine_matches_jax_engine(model, name):
     if name == "resize_1_2_1":
         assert ts["scale_events"] == [[2, 1, 2], [5, 2, 1]]
         assert ts["resize_moved_bytes_total"] > 0
+
+
+VOCAB = smoke_variant(get_config(ARCH)).vocab_size
+PRIORITY_ENGINE = dict(capacity=2, cache_len=32, prefill_bucket=8,
+                       n_workers=1, seed=0, kv_layout="paged",
+                       chunked_prefill=False)
+
+
+def _mixed_priority(make):
+    """Two low-priority decodes that fill capacity 2, then a priority-2
+    arrival (the workload of test_memory.py's same-tenant preemption
+    test)."""
+    low = make(2, vocab_size=VOCAB, arrivals=np.zeros(2), prompt_len=(6, 8),
+               max_new_tokens=(12, 14), rng=np.random.default_rng(2))
+    hi = make(1, vocab_size=VOCAB, arrivals=np.array([0.05]),
+              prompt_len=(6, 8), max_new_tokens=(4, 4), priority=2,
+              rng=np.random.default_rng(3), rid_base=100)
+    return low, hi
+
+
+def _drive_priority(eng, make, before_hi=None):
+    """Two ticks of the low-priority pair, then the high-priority arrival
+    and one tick; `before_hi(eng)` runs between.  Returns (requests, the
+    rids PARKED right after the arrival's tick), then runs to the end."""
+    import time as _time
+    low, hi = _mixed_priority(make)
+    eng.submit(low)
+    eng._now()
+    for _ in range(2):
+        eng.tick()
+    assert len(eng._by_slot) == 2
+    if before_hi is not None:
+        before_hi(eng)
+    eng.submit(hi)
+    _time.sleep(0.06)  # let the high-priority arrival come due
+    eng.tick()
+    parked = sorted(r.rid for r in low + hi if r.state.name == "PARKED")
+    while eng._by_slot or eng.scheduler.has_pending:
+        eng.tick()
+    eng.metrics.wall_s = eng._now()
+    return low + hi, parked
+
+
+def test_default_evict_preempts_like_the_jax_engine(model):
+    """With the default `evict`, a priority-2 arrival parks the latest
+    low-priority decode in both engines: equal streams, equal park/restore
+    counters and the same request PARKED after the arrival's tick."""
+    cfg, params, tcfg, tparams = model
+    jeng = ServeEngine(cfg, paged_impl="pallas", params=params,
+                       **PRIORITY_ENGINE)
+    jreqs, jparked = _drive_priority(jeng, synthetic_requests)
+    teng = TServeEngine(tcfg, paged_impl="kernel", device="cpu",
+                        params=tparams, debug_checks=True, **PRIORITY_ENGINE)
+    assert teng.evict  # the JAX paged default
+    treqs, tparked = _drive_priority(teng, t_synthetic_requests)
+
+    assert len(tparked) == 1 and tparked == jparked
+    assert ({r.rid: r.generated for r in treqs}
+            == {r.rid: r.generated for r in jreqs})
+    js, ts = jeng.metrics.summarize(), teng.metrics.summarize()
+    keys = ["parked_total", "restored_total", "kv_moved_bytes_total",
+            "tokens_generated", "requests_finished", "n_ticks",
+            "meta_transfers_total", "admission_bytes_total", "kv_stats"]
+    assert {k: ts[k] for k in keys} == {k: js[k] for k in keys}
+    assert ts["parked_total"] == ts["restored_total"] == 1
+    assert teng.pages.n_used == 0 and teng.mem.n_parked == 0
+
+
+def test_park_excess_matches_the_jax_engine(model):
+    """The lease-shrink hook parks the lowest-priority, latest-admitted
+    decode; the victim restores through admission and every stream still
+    equals the JAX engine's."""
+    cfg, params, tcfg, tparams = model
+    moved = {}
+
+    def shrink(key):
+        def run(eng):
+            victim = eng._pick_victim()
+            moved[key] = (victim, eng.park_excess(1))
+            assert victim not in eng._by_slot
+        return run
+
+    jeng = ServeEngine(cfg, paged_impl="pallas", params=params,
+                       **PRIORITY_ENGINE)
+    jreqs, _ = _drive_priority(jeng, synthetic_requests, shrink("jax"))
+    teng = TServeEngine(tcfg, paged_impl="kernel", device="cpu",
+                        params=tparams, debug_checks=True, **PRIORITY_ENGINE)
+    treqs, _ = _drive_priority(teng, t_synthetic_requests, shrink("torch"))
+
+    assert moved["torch"] == moved["jax"] and moved["torch"][1] > 0
+    assert ({r.rid: r.generated for r in treqs}
+            == {r.rid: r.generated for r in jreqs})
+    js, ts = jeng.metrics.summarize(), teng.metrics.summarize()
+    for k in ("parked_total", "restored_total", "kv_moved_bytes_total"):
+        assert ts[k] == js[k]
+    assert ts["parked_total"] >= 1
+    assert teng.pages.n_used == 0 and teng.mem.n_parked == 0
