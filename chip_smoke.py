@@ -9,7 +9,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. build    — compile every CUDA kernel of the port from the sources in
               this checkout (one nvcc per source, all at once):
-              paged_attention, scd and chunk_reduce.
+              paged_attention, scd, chunk_reduce and flash_attention.
 2. kernels  — each kernel against its plain PyTorch version on the card.
               paged_attention: the JAX kernel's self-test cases plus the
               full-width h2o-danube-1.8b shapes (decode and a 256-token
@@ -18,7 +18,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               F in {8, 32}, masked tails) and the CoCoA path's shapes at
               K=16, F in {28, 256} with M cut to 4,096, fp32 at rtol/atol
               1e-5.  weighted_merge: K in 1..16, N in {7, 5001, 276,266},
-              f32 at 1e-5 and bf16 at 3e-2.
+              f32 at 1e-5 and bf16 at 3e-2.  flash_attention: the JAX
+              kernel test's cases, its model-layout wrapper case and
+              h2o-danube-1.8b's head geometry (KV=8, G=4, hd=80) at
+              windows 0, 1024 and 4096 up to S=4096, plus a bidirectional
+              case, fp32 at 2e-5 and bf16 at 2e-2.
 3. engine   — the port's ServeEngine at full h2o-danube-1.8b width, bf16,
               random weights from a seed, through the kernel: 8 burst
               requests of 32-1536 prompt tokens (chunked prefill for the
@@ -41,7 +45,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               images in chunks of 50, K 16 -> 8 -> 16, 24 iterations
               through the weighted-merge kernel; loss, accuracy (every 8)
               and wall time per iteration.
-7. timing   — each kernel, its plain version, its bound and its library
+7. flash    — the flash kernel's path, its entry point
+              ops.flash_attention at h2o-danube-1.8b's full attention
+              shape (B=4, S=4096, KV=8, G=4, hd=80, bf16, causal, window
+              4096), held to the port's blocked_attention on the same
+              q/k/v at 2e-2 (1 + |b|) and to the plain version at 2e-2;
+              the kernel at the same shape in fp32 against the plain
+              version at 2e-5; then its time, its plain version's, its
+              bound and scaled_dot_product_attention's.
+8. lm_train — the LM trainer `launch.train.train` on h2o-danube-1.8b at
+              the 100m preset: 20 steps, workers 4 -> 2 at step 4,
+              rebalancing, 2 of 4 workers at twice the per-sample time.
+9. lm_elastic — ElasticTrainer on h2o-danube-1.8b at full width and depth
+              (bf16, sgdm, remat) on batches of 8 x 4096 tokens from
+              ChunkBatchPipeline: 6 steps, K 4 -> 2 at step 3, suspended
+              to the host after step 3 and resumed (the state must come
+              back bit for bit); then, under deterministic algorithms, a
+              suspended run against an uninterrupted one (bit-equal).
+10. timing  — each kernel, its plain version, its bound and its library
               yardstick at the main path's shapes, then the `kernels` line.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
@@ -52,6 +73,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -83,6 +105,22 @@ SCD_CHAIN_CYCLES = 5 * (23 + 4) + 20 * 4
 SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
                   (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
                   (2, 2, 2, 32, 8, 6, 16, 4)]
+# flash attention (B, S, KV, G, hd, window, causal): tests/test_kernels.py's
+# FLASH_CASES, then h2o-danube-1.8b's head geometry, then a bidirectional
+# window, then a tile shorter than the kernel's 16 thread-rows; each in fp32
+# and bf16
+FLASH_CASES = [(2, 128, 2, 2, 64, 0, True), (1, 256, 1, 4, 32, 0, True),
+               (2, 128, 3, 1, 64, 32, True), (1, 128, 2, 1, 64, 0, False),
+               (1, 128, 2, 2, 64, 64, True), (1, 4096, 8, 4, 80, 0, True),
+               (1, 4096, 8, 4, 80, 1024, True),
+               (1, 4096, 8, 4, 80, 4096, True),
+               (1, 1024, 8, 4, 80, 256, False), (2, 8, 2, 1, 32, 0, True)]
+FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
+# LM training (phases lm_train and lm_elastic)
+LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
+                hetero="2.0x2", workers=4, seed=0)
+LM_ELASTIC = dict(batch=8, seq=4096, n_seqs=256, chunk_size=8, k0=4,
+                  scale_at=3, k1=2, steps=6, suspend_after=3, det_steps=2)
 
 
 def emit(obj) -> None:
@@ -704,10 +742,344 @@ def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
     return out
 
 
+# ---------------------------------------------------------------------------
+# flash attention: kernel checks, the entry point at full width, timing
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(torch, gen, B, S, KV, G, hd, dtype):
+    """q (B*KV*G, S, hd), k/v (B*KV, S, hd) on the card, N(0, 1)."""
+    def randn(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+    return (randn(B * KV * G, S, hd), randn(B * KV, S, hd),
+            randn(B * KV, S, hd))
+
+
+def check_flash(torch, flash_attention, flash_attention_plain, ops):
+    """The flash kernel against its plain version on FLASH_CASES in fp32
+    and bf16, and the model-layout wrapper on the card against the same
+    entry point on the CPU (its plain version)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    worst, cases = {}, []
+    for dtype_name, tol in TOL.items():
+        dtype = getattr(torch, dtype_name)
+        err = 0.0
+        for case in FLASH_CASES:
+            B, S, KV, G, hd, win, causal = case
+            q, k, v = flash_inputs(torch, gen, B, S, KV, G, hd, dtype)
+            got = flash_attention(q, k, v, causal=causal, window=win,
+                                  block_q=64, block_k=64, group_size=G)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, causal=causal, window=win,
+                                         group_size=G)
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"flash_attention {case}: {got.dtype} "
+                     f"{tuple(got.shape)}")
+            e = float((got.float() - want.float()).abs().max())
+            cases.append({"dtype": dtype_name, "case": list(case),
+                          "max_abs_err": e})
+            if not math.isfinite(e) or e > tol:
+                fail(f"flash_attention {dtype_name} case {case}: max abs "
+                     f"err {e} > {tol}")
+            err = max(err, e)
+        worst[dtype_name] = err
+    # tests/test_kernels.py's model-layout wrapper case
+    B, S, KV, G, hd = 2, 128, 2, 3, 32
+    q = torch.randn(B, S, KV, G, hd, device=DEVICE, generator=gen)
+    k = torch.randn(B, S, KV, hd, device=DEVICE, generator=gen)
+    v = torch.randn(B, S, KV, hd, device=DEVICE, generator=gen)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                               block_q=64, block_k=64)
+    e = float((got.cpu() - want).abs().max())
+    if not math.isfinite(e) or e > TOL["float32"]:
+        fail(f"ops.flash_attention on the card vs the CPU: max abs err {e}")
+    worst["float32"] = max(worst["float32"], e)
+    cases.append({"dtype": "float32", "case": "ops wrapper (2, 128, 2, 3, "
+                  "32), card vs cpu", "max_abs_err": e})
+    return worst, cases
+
+
+def flash_work(np, B, S, H, KV, hd, window, causal, itemsize):
+    """(bytes, flops) of one call: q, k and v read once and the output
+    written once; 4*hd flops per visible (query, key) pair."""
+    p = np.arange(S, dtype=np.int64)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros_like(p)
+    hi = p if causal else np.full_like(p, S - 1)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = (2 * B * H * S * hd + 2 * B * KV * S * hd) * itemsize
+    return nbytes, 4 * hd * B * H * pairs
+
+
+def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
+    """The flash kernel's path: its entry point `ops.flash_attention` at
+    h2o-danube-1.8b's full attention shape, held to the port's
+    blocked_attention and to the plain version (and, at the same shape in
+    fp32, the kernel to the plain version); then kernel, plain version,
+    bound and SDPA."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    KV, G, hd = cfg.kv_heads(), cfg.num_heads // cfg.kv_heads(), \
+        cfg.head_dim_()
+    kind, HP, g_pad = attn.head_layout(cfg)
+    if (kind, g_pad) != ("grouped", G):
+        fail(f"h2o-danube-1.8b's head layout is {kind} g_pad={g_pad}")
+    B, S, win = FLASH_PATH["B"], FLASH_PATH["S"], cfg.sliding_window
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    q, k, v = flash_inputs(torch, gen, B, S, KV, G, hd, torch.bfloat16)
+    # model layout: q (B, S, KV, G, hd), k/v (B, S, KV, hd)
+    q5 = q.view(B, KV, G, S, hd).permute(0, 3, 1, 2, 4).contiguous()
+    k4 = k.view(B, KV, S, hd).transpose(1, 2).contiguous()
+    v4 = v.view(B, KV, S, hd).transpose(1, 2).contiguous()
+    flash_attention.launches = 0
+    out = ops.flash_attention(q5, k4, v4, causal=True, window=win)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    if launches != 1:
+        fail(f"ops.flash_attention launched the kernel {launches} times")
+    with torch.no_grad():
+        want = attn.blocked_attention(cfg, q5.reshape(B, S, HP, hd), k4, v4,
+                                      window=win)
+    # blocked_attention rounds P to bf16 before PV, the kernel keeps it
+    # fp32: held at the JAX bf16 tolerance, |a - b| <= 2e-2 (1 + |b|)
+    tol = TOL["bfloat16"]
+    d = (out.reshape(B, S, HP, hd).float() - want.float()).abs()
+    err = float(d.max())
+    excess = float((d - tol * want.float().abs()).max())
+    if not math.isfinite(excess) or excess > tol:
+        fail(f"ops.flash_attention vs blocked_attention: max abs err {err}")
+    del want, q5, k4, v4
+    torch.cuda.empty_cache()
+    # the path's output against the plain version on the same q/k/v (bf16),
+    # then the kernel against the plain version at this shape in fp32
+    kw = dict(causal=True, window=win, group_size=G)
+    flat = out.permute(0, 2, 3, 1, 4).reshape(q.shape)
+    vs_plain = {}
+    for dtype_name, (a, qq, kk, vv) in (
+            ("bfloat16", (flat, q, k, v)),
+            ("float32", (None, q.float(), k.float(), v.float()))):
+        got = a if a is not None else flash_attention(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(qq, kk, vv, **kw)
+        e = float((got.float() - want.float()).abs().max())
+        if got.dtype != qq.dtype or not math.isfinite(e) \
+                or e > TOL[dtype_name]:
+            fail(f"flash_attention at the path's shape, {dtype_name}: "
+                 f"{got.dtype}, max abs err {e} vs the plain version")
+        vs_plain[dtype_name] = e
+        del got, want, qq, kk, vv
+        torch.cuda.empty_cache()
+    del out, flat
+    # times on the flat tensors; SDPA reads them as (B, H, S, hd) and
+    # (B, KV, S, hd) views (head h uses kv head h // G, as the kernel does)
+    iters = 5
+    kern1 = cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), iters)
+    plain1 = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **kw))
+    plain2 = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **kw))
+    kern2 = cuda_ms(torch, lambda: flash_attention(q, k, v, **kw), iters)
+    torch.cuda.empty_cache()
+    qs, ks, vs = (q.view(B, KV * G, S, hd), k.view(B, KV, S, hd),
+                  v.view(B, KV, S, hd))
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), iters)
+    nbytes, flops = flash_work(np, B, S, KV * G, KV, hd, win, True, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    res = {"shape": {"B": B, "S": S, "KV": KV, "G": G, "hd": hd,
+                     "window": win, "causal": True, "dtype": "bfloat16"},
+           "launches": launches, "vs_blocked_attention_max_abs_err": err,
+           "vs_plain_max_abs_err": vs_plain,
+           "ms": min(kern1, kern2), "ms_runs": [kern1, kern2],
+           "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
+                                                              plain2],
+           "library_ms": lib, "library": "scaled_dot_product_attention("
+           "is_causal=True, enable_gqa=True)",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops,
+           "achieved_tflops": flops / min(kern1, kern2) / 1e9}
+    emit({"phase": "flash", **res})
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# LM training: the trainer at the 100m preset, ElasticTrainer at full width
+# ---------------------------------------------------------------------------
+
+
+def lm_train_phase(torch):
+    """`launch.train.train` on h2o-danube-1.8b at the 100m preset with an
+    elastic event, rebalancing and slow workers; each step's wall time is
+    the difference of the history's wall clock (read after the step's
+    loss, so after the step)."""
+    from repro_torch.launch import train as lm
+    t0 = time.perf_counter()
+    out = lm.train(ARCH, log_every=LM_TRAIN["train_steps"], device=DEVICE,
+                   **LM_TRAIN)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    hist, cfg = out["history"], out["cfg"]
+    losses = [h["loss"] for h in hist]
+    workers = [h["workers"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"lm_train: losses {losses}")
+    if workers[0] != LM_TRAIN["workers"] or workers[-1] != 2:
+        fail(f"lm_train: workers {workers}")
+    walls = [0.0] + [h["wall_s"] for h in hist]
+    emit({"phase": "lm_train", "arch": ARCH, **LM_TRAIN,
+          "model": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                    "vocab": cfg.vocab_size, "dtype": cfg.dtype},
+          "global_batch": 8, "seq_len": 128, "run_s": run_s,
+          "steps": [{"step": h["step"], "loss": h["loss"],
+                     "workers": h["workers"], "sim_time": h["sim_time"],
+                     "events": h["events"],
+                     "step_ms": (walls[i + 1] - walls[i]) * 1e3}
+                    for i, h in enumerate(hist)]})
+    del out
+    torch.cuda.empty_cache()
+
+
+def lm_batches(np, cfg):
+    """ChunkBatchPipeline over make_lm_tokens at train_4k's sequence, with
+    an ElasticScalingPolicy K k0 -> k1 at step scale_at, scheduled as
+    launch.train schedules its steps."""
+    from repro_torch.core import (Assignment, ElasticScalingPolicy,
+                                  ScaleEvent)
+    from repro_torch.data import ChunkBatchPipeline
+    from repro_torch.launch.train import build_data, scheduled_batch
+    c = LM_ELASTIC
+    store = build_data(cfg, n_seqs=c["n_seqs"], seq_len=c["seq"],
+                       chunk_size=c["chunk_size"], seed=0)
+    a = Assignment(store.n_chunks, c["k0"], np.random.default_rng(0))
+    pipe = ChunkBatchPipeline(store, a, global_batch=c["batch"], seed=0)
+    pols = [ElasticScalingPolicy([ScaleEvent(c["scale_at"], c["k1"])])]
+    out = []
+    for it in range(c["steps"]):
+        batch = scheduled_batch(it, pipe, pols, seed=0, stats={})
+        out.append((a.n_workers, batch))
+        a.end_iteration()
+    return out
+
+
+def state_on_host(trainer, M):
+    return ({k: v.detach().cpu().clone()
+             for k, v in M.param_dict(trainer.params).items()},
+            {k: v.cpu().clone() for k, v in trainer.opt_state.mu.items()},
+            int(trainer.opt_state.step))
+
+
+def same_state(torch, a, b) -> bool:
+    """Bit-equality of two (params, momentum, step) host snapshots."""
+    return a[2] == b[2] and all(
+        torch.equal(x, b[i][k]) for i in (0, 1) for k, x in a[i].items())
+
+
+def lm_elastic_phase(torch, np):
+    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 6 steps of
+    8 x 4096 tokens, K 4 -> 2, suspended to the host after step 3 and
+    resumed; then a suspended run against an uninterrupted one under
+    deterministic algorithms."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.launch.elastic import ElasticTrainer
+    from repro_torch.models import model as M
+    c = LM_ELASTIC
+    cfg = get_config(ARCH)
+    tc = TrainConfig()
+    batches = lm_batches(np, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = ElasticTrainer(cfg, tc, seed=0, device=DEVICE)
+    n_params = sum(p.numel() for p in trainer.params.parameters())
+    rows = []
+    for it, (k, b) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows.append({"step": it, "K": k, "loss": m["loss"],
+                     "grad_norm": m["grad_norm"], "step_s": dt,
+                     "tokens_per_s": c["batch"] * c["seq"] / dt})
+        if it == c["suspend_after"]:
+            before = state_on_host(trainer, M)
+            t0 = time.perf_counter()
+            trainer.suspend()
+            if trainer.params.embed.device.type != "cpu":
+                fail("lm_elastic: suspend left the params on the card")
+            suspend_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trainer.resume(1)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            if not same_state(torch, before, state_on_host(trainer, M)):
+                fail("lm_elastic: the state changed across suspend/resume")
+            del before
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler: where a full-width step's device
+    # time goes (cuBLAS kernel names vary; the elementwise kernels of the
+    # attention's softmax tail are always there)
+    emit({"phase": "profile", "cell": "lm_elastic",
+          **profile_run(torch, lambda: trainer.train_step(batches[-1][1]),
+                        kernel="elementwise_kernel")})
+    losses = [r["loss"] for r in rows]
+    ks = [r["K"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lm_elastic: non-finite losses {losses}")
+    if ks[0] != c["k0"] or ks[-1] != c["k1"]:
+        fail(f"lm_elastic: K path {ks}")
+    del trainer
+    torch.cuda.empty_cache()
+    # suspended vs uninterrupted, bit for bit, with deterministic kernels
+    # (cuBLAS's workspace was fixed by CUBLAS_WORKSPACE_CONFIG in main(),
+    # before CUDA started)
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        states = []
+        for suspend in (False, True):
+            tr = ElasticTrainer(cfg, tc, seed=0, device=DEVICE)
+            for it in range(c["det_steps"]):
+                tr.train_step(batches[it][1])
+                if suspend and it == 0:
+                    tr.suspend()
+                    tr.resume(1)
+            states.append(state_on_host(tr, M))
+            del tr
+            torch.cuda.empty_cache()
+        det_equal = same_state(torch, *states)
+        del states
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+    if not det_equal:
+        fail("lm_elastic: a suspended run and an uninterrupted one differ "
+             "under deterministic algorithms")
+    emit({"phase": "lm_elastic", "arch": ARCH, "params": n_params,
+          "model": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                    "heads": cfg.num_heads, "kv_heads": cfg.kv_heads(),
+                    "head_dim": cfg.head_dim_(), "d_ff": cfg.d_ff,
+                    "vocab": cfg.vocab_size, "window": cfg.sliding_window,
+                    "dtype": cfg.dtype},
+          "train_config": dataclasses.asdict(tc), **c,
+          "reduced": {"global_batch": "256 -> 8 (train_4k's batch cut to "
+                      "one card)", "steps": c["steps"]},
+          "steps_log": rows, "suspend_s": suspend_s, "resume_s": resume_s,
+          "round_trip_bit_exact": True,
+          "deterministic_suspended_equals_uninterrupted": det_equal,
+          "peak_mem_gb": peak / 1e9})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         sys.exit("chip_smoke: run it from a checkout of the repository "
                  "(src/repro_torch not found beside this script)")
+    # lm_elastic's deterministic comparison needs cuBLAS's workspace fixed
+    # before CUDA starts (PyTorch reads it once); :4096:8 is also the
+    # default size on Hopper, so the other phases run as they would without
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -718,8 +1090,11 @@ def main() -> None:
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core import ElasticScalingPolicy, ScaleEvent
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import ops
     from repro_torch.kernels.chunk_reduce import (weighted_merge,
                                                   weighted_merge_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_plain)
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
@@ -733,7 +1108,7 @@ def main() -> None:
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    names = ("paged_attention", "scd", "chunk_reduce")
+    names = ("paged_attention", "scd", "chunk_reduce", "flash_attention")
     kbuild.build(*names)
     build_s = time.perf_counter() - t0
     ptxas = {}
@@ -784,12 +1159,16 @@ def main() -> None:
         worst[dtype_name] = err
     scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain)
     merge_err = check_merge(torch, weighted_merge, weighted_merge_plain)
+    flash_err, flash_cases = check_flash(torch, flash_attention,
+                                         flash_attention_plain, ops)
     emit({"phase": "kernels", "tolerance": TOL, "max_abs_err": worst,
           "cases": checks, "scd": {"tolerance": TOL_SCD,
                                    "max_abs_err": scd_err,
                                    "cases": scd_cases},
           "weighted_merge": {"tolerance": TOL_MERGE,
-                             "max_abs_err": merge_err}})
+                             "max_abs_err": merge_err},
+          "flash_attention": {"tolerance": TOL, "max_abs_err": flash_err,
+                              "cases": flash_cases}})
 
     # ---- 3. engine at full width, bf16, through the kernel ----------------
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -905,7 +1284,15 @@ def main() -> None:
     lsgd = lsgd_phase(torch, np)
     torch.cuda.empty_cache()
 
-    # ---- 7. timing at the main path's shapes (bf16, the engine dtype) -----
+    # ---- 7. flash: the entry point at full width; 8-9. LM training -------
+    flash = flash_phase(torch, np, F, cfg, flash_attention,
+                        flash_attention_plain)
+    flash_err = {k: max(e, flash["vs_plain_max_abs_err"][k])
+                 for k, e in flash_err.items()}
+    lm_train_phase(torch)
+    lm_elastic_phase(torch, np)
+
+    # ---- 10. timing at the main path's shapes (bf16, the engine dtype) ----
     lib = library_call(torch, F, cfg.sliding_window)
     timing = {}
     for shape_name, sh in shapes.items():
@@ -972,7 +1359,19 @@ def main() -> None:
         "ms": merge_t["path"]["ms"], "plain_ms": merge_t["path"]["plain_ms"],
         "bound_ms": merge_t["path"]["bound_ms"],
         "bound_by": merge_t["path"]["bound_by"],
-        "library_ms": merge_t["path"]["library_ms"], "timing": merge_t}]})
+        "library_ms": merge_t["path"]["library_ms"], "timing": merge_t}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "replaces_function": "src/repro/kernels/flash_attention.py::"
+                             "flash_attention (body _flash_kernel :25; "
+                             "model-layout wrapper kernels/ops.py:24)",
+        "launches": flash["launches"],
+        "max_abs_err": flash_err["float32"],
+        "max_abs_err_bf16": flash_err["bfloat16"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"], "timing": flash}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

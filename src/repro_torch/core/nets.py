@@ -100,7 +100,7 @@ def loss_per_sample(logits: torch.Tensor, labels: torch.Tensor,
     return per.mean() if reduce else per
 
 
-def params_from_numpy(tree: Mapping[str, np.ndarray], device="cpu"
+def params_from_numpy(tree: Mapping[str, np.ndarray], device="cuda"
                       ) -> Params:
     """The JAX package's CNN or MLP parameter dict (numpy leaves) as the
     port's: conv weights HWIO -> OIHW, and `f1`'s rows from the JAX

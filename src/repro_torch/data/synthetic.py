@@ -3,7 +3,7 @@ MNIST / HIGGS / Criteo): numpy, the same draws as the JAX package's
 `data/synthetic.py` for the same seeds."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -48,3 +48,19 @@ def make_images(n: int, size: int, channels: int, n_classes: int,
     y = rng.integers(0, n_classes, size=n)
     x = patterns[y] * 0.8 + rng.normal(size=(n, size, size, channels)) * noise
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def make_lm_tokens(n_seqs: int, seq_len: int, vocab: int, *, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """Markov-ish token streams so an LM has learnable structure."""
+    rng = np.random.default_rng(seed)
+    # low-entropy transition structure: each token prefers a few successors
+    nxt = rng.integers(0, vocab, size=(vocab, 4))
+    toks = np.zeros((n_seqs, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=n_seqs)
+    for t in range(seq_len):
+        choice = rng.integers(0, 4, size=n_seqs)
+        explore = rng.random(n_seqs) < 0.1
+        step = nxt[toks[:, t], choice]
+        toks[:, t + 1] = np.where(explore, rng.integers(0, vocab, n_seqs), step)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -11,7 +11,6 @@ CLI: PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -20,29 +19,7 @@ import numpy as np
 from ..configs import get_config, smoke_variant
 from ..core import ElasticScalingPolicy, ScaleEvent
 from ..serve import ServeEngine, poisson_arrivals, synthetic_requests
-
-
-def scale_config(cfg, scale: str):
-    """Reduced real-size variants (the JAX package's training presets)."""
-    presets = {
-        "tiny": dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
-                     head_dim=32, d_ff=256, vocab_size=512),
-        "25m": dict(num_layers=6, d_model=384, num_heads=6, num_kv_heads=2,
-                    head_dim=64, d_ff=1024, vocab_size=8192),
-        "100m": dict(num_layers=12, d_model=640, num_heads=10,
-                     num_kv_heads=2, head_dim=64, d_ff=1792,
-                     vocab_size=32768),
-    }
-    upd = dict(presets[scale])
-    if cfg.num_experts:
-        upd["num_experts"] = min(cfg.num_experts, 4)
-    if cfg.encoder_layers:
-        upd["encoder_layers"] = 2
-        upd["encoder_seq"] = 32
-    if cfg.num_image_tokens:
-        upd["num_image_tokens"] = 32
-    upd["dtype"] = "float32"
-    return dataclasses.replace(cfg, **upd)
+from .train import scale_config
 
 
 def parse_scale_events(s: Optional[str]) -> Sequence[ScaleEvent]:

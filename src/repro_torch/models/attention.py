@@ -17,6 +17,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import ParamDef, rms_norm, rope
@@ -125,7 +126,9 @@ def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, *, window: int = 0,
                       q_block: int = 512) -> torch.Tensor:
     """Exact causal attention over query blocks (plain matmul + softmax, as
-    the JAX package leaves it to XLA).
+    the JAX package leaves it to XLA).  While autograd records, each query
+    block is recomputed in backward (the JAX package's `@jax.checkpoint
+    one_block`), so no block's fp32 scores and probabilities outlive it.
 
     q: (B, S, H_pad, hd); k, v: (B, Sk, KV, hd) compact.
     Returns (B, S, H_pad, hd) with padded heads zeroed."""
@@ -148,12 +151,17 @@ def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         probs = torch.softmax(scores + bias, dim=-1)
         return (probs.to(vf.dtype) @ vf).transpose(1, 2)  # (B, qb, H, hd)
 
+    block = one_block
+    if torch.is_grad_enabled():
+        def block(q_blk, q0):
+            return checkpoint(one_block, q_blk, q0, use_reentrant=False)
+
     q_block = min(q_block, S)
     n_blocks = max(S // q_block, 1)
-    outs = [one_block(q[:, i * q_block:(i + 1) * q_block], i * q_block)
+    outs = [block(q[:, i * q_block:(i + 1) * q_block], i * q_block)
             for i in range(n_blocks)]
     if S - n_blocks * q_block:
-        outs.append(one_block(q[:, n_blocks * q_block:], n_blocks * q_block))
+        outs.append(block(q[:, n_blocks * q_block:], n_blocks * q_block))
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return out * hmask[None, None, :, None].to(out.dtype)
 

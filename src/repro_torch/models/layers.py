@@ -109,3 +109,11 @@ def mlp_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
         "up": ParamDef((d_model, d_ff), ("fsdp", "tensor")),
         "down": ParamDef((d_ff, d_model), ("tensor", "fsdp")),
     }
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE in fp32: logsumexp minus the picked logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - picked

@@ -1,12 +1,13 @@
-"""Top-level model API: parameters, full-sequence forward, prefill, and the
-paged-KV decode / chunked-prefill steps.
+"""Top-level model API: parameters, full-sequence forward, the Chicle-
+weighted LM loss, prefill, and the paged-KV decode / chunked-prefill steps.
 
 The parameters live in a `Transformer` module whose attribute tree is the
 JAX package's parameter pytree (same keys, blocks stacked along a leading
 layer dim, Q heads padded as in JAX), so `params_from_numpy` carries a JAX
 tree across one to one.  The JAX package's `lax.scan` over blocks is a loop
-over layers here.  Paged KV pools are plain tensors that the steps update
-in place.
+over layers here, and its `jax.checkpoint` of the block body is
+`torch.utils.checkpoint` per block.  Paged KV pools are plain tensors that
+the steps update in place.
 """
 from __future__ import annotations
 
@@ -15,10 +16,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import transformer as tfm
-from .layers import ParamDef, init_tree, map_defs, rms_norm
+from .layers import ParamDef, cross_entropy, init_tree, map_defs, rms_norm
+
+AUX_LOSS_COEF = 0.01
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -37,7 +41,8 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dict keys become attribute
-    names, leaves frozen parameters (inference only)."""
+    names, leaves parameters.  They start frozen; the training steps turn
+    on their gradients and update them in place."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -70,11 +75,22 @@ class Transformer(ParamTree):
         return super()._apply(fn, recurse)
 
     def layers(self):
-        """Per-layer parameter dicts (views into the stacked leaves)."""
+        """Per-layer parameter dicts (views into the stacked leaves).  The
+        views are cached for inference; while the leaves take gradients
+        they are made anew, so autograd sees each one."""
+        if self.embed.requires_grad and torch.is_grad_enabled():
+            return [self.blocks.layer(i)
+                    for i in range(tfm.n_blocks(self.cfg))]
         if self._views is None:
             self._views = [self.blocks.layer(i)
                            for i in range(tfm.n_blocks(self.cfg))]
         return self._views
+
+
+def param_dict(params: nn.Module) -> Dict[str, torch.Tensor]:
+    """The leaves of a parameter module by their pytree path
+    ("blocks/attn/wq"), the keys of the JAX package's flat encoding."""
+    return {n.replace(".", "/"): p for n, p in params.named_parameters()}
 
 
 def _check_tree(defs: Any, tree: Any, path: str = "") -> None:
@@ -100,7 +116,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
-                      device="cpu") -> Transformer:
+                      device="cuda") -> Transformer:
     """The JAX parameter pytree as nested dicts of numpy arrays (same keys,
     stacked (nb, ...) layout, padded heads) -> the port's module."""
     defs = param_defs(cfg)
@@ -117,8 +133,23 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     return Transformer(cfg, conv(tree))
 
 
+def params_from_paths(cfg: ModelConfig,
+                      flat: Dict[str, torch.Tensor]) -> Transformer:
+    """The inverse of `param_dict`: a module whose leaves are the given
+    tensors (shared, not copied), keyed by pytree path."""
+    tree: Dict[str, Any] = {}
+    for path, t in flat.items():
+        *head, leaf = path.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    _check_tree(param_defs(cfg), tree)
+    return Transformer(cfg, tree)
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -127,10 +158,18 @@ def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, params.final_ln) @ params.embed.t()
 
 
+def _block_x(cfg, bp, x, positions, window, q_block):
+    return tfm.block_apply(cfg, bp, x, positions, window=window,
+                           q_block=q_block)[0]
+
+
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
             window: Optional[int] = None, return_cache: bool = False,
-            q_block: int = 512):
+            q_block: int = 512, remat: bool = True):
     """Full-sequence causal forward.  tokens: (B, S) int.
+
+    remat: while autograd records, each block's activations are recomputed
+    in backward instead of kept (the JAX package's `jax.checkpoint(body)`).
 
     Returns logits (B, S, V), or (logits, {"k", "v": (nb, B, S, KV, hd)})
     with return_cache."""
@@ -140,7 +179,12 @@ def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     ks, vs = [], []
+    remat = remat and torch.is_grad_enabled() and not return_cache
     for bp in params.layers():
+        if remat:
+            x = checkpoint(_block_x, cfg, bp, x, positions, win, q_block,
+                           use_reentrant=False)
+            continue
         x, k, v = tfm.block_apply(cfg, bp, x, positions, window=win,
                                   q_block=q_block)
         if return_cache:
@@ -150,6 +194,33 @@ def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     if return_cache:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer,
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            q_block: int = 512,
+            total_weight: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chicle-weighted LM loss.
+
+    batch: tokens (B, S) int, labels (B, S) int, weights (B,) float — the
+    per-example weights carry the uni-task chunk weighting |D_k|/|D^|
+    (Stich 2018): grad(loss) == the weighted merge of per-worker updates.
+
+    total_weight: the FULL global-batch weight sum when this call sees only
+    a microbatch (gradient accumulation), so microbatch grads sum to the
+    full-batch gradient.  Returns (loss + AUX_LOSS_COEF * aux, metrics
+    {"loss", "aux_loss"}); aux is 0 for the dense model."""
+    logits = forward(cfg, params, batch["tokens"], remat=remat,
+                     q_block=q_block)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    ce = cross_entropy(logits, batch["labels"])  # (B, S)
+    w = batch["weights"].float()
+    per_ex = ce.mean(-1)
+    total_w = (w.sum().clamp_min(1e-9) if total_weight is None
+               else total_weight)
+    loss = (per_ex * w).sum() / total_w
+    return loss + AUX_LOSS_COEF * aux, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,

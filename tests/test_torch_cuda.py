@@ -1,26 +1,35 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain
-PyTorch version on an NVIDIA GPU, and the training solvers launching their
-kernels.  This file imports torch only (no jax), so it runs on a machine
-with a card and no JAX:
+PyTorch version on an NVIDIA GPU, the training solvers launching their
+kernels, and the LM trainer's suspend/resume round trip.  This file
+imports torch only (no jax), so it runs on a machine with a card and no
+JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Elsewhere every test skips.  Tolerances are the JAX package's kernel
-tolerances (tests/test_kernels.py) with TF32 off: paged attention fp32
-2e-5 and bf16 2e-2; SCD 1e-5; weighted merge f32 1e-5 and bf16 3e-2."""
+tolerances (tests/test_kernels.py) with TF32 off: paged and flash
+attention fp32 2e-5 and bf16 2e-2; SCD 1e-5; weighted merge f32 1e-5 and
+bf16 3e-2."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import TrainConfig, get_config, smoke_variant
 from repro_torch.configs.chicle_paper import PAPER_LSGD
 from repro_torch.core import (Assignment, ChunkStore, CoCoASolver,
                               LocalSGDSolver, UniTaskEngine)
 from repro_torch.core.nets import loss_per_sample, mlp_apply, mlp_init
-from repro_torch.data import make_classification, make_svm_data
+from repro_torch.data import (make_classification, make_lm_tokens,
+                              make_svm_data)
+from repro_torch.kernels import ops
 from repro_torch.kernels.chunk_reduce import (weighted_merge,
                                               weighted_merge_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.launch.elastic import ElasticTrainer
+from repro_torch.models import model as M
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.kernels.scd import scd_pass, scd_pass_plain
@@ -215,3 +224,76 @@ def test_training_solvers_launch_their_kernels_every_iteration(cuda):
     for k, v in res["cpu"][1].items():
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-4)
+
+
+# (B, S, KV, G, hd, window, causal): tests/test_kernels.py's flash cases,
+# h2o-danube-1.8b's head geometry (G=4, hd=80) at windows 0, 1024 and 4096,
+# a bidirectional windowed case, and a tile of 8 rows (fewer than the
+# kernel's 16 thread-rows)
+FLASH_CASES = [(2, 128, 2, 2, 64, 0, True), (1, 256, 1, 4, 32, 0, True),
+               (2, 128, 3, 1, 64, 32, True), (1, 128, 2, 1, 64, 0, False),
+               (1, 128, 2, 2, 64, 64, True), (1, 2048, 8, 4, 80, 0, True),
+               (1, 2048, 8, 4, 80, 1024, True),
+               (1, 4096, 8, 4, 80, 4096, True),
+               (1, 512, 2, 4, 80, 100, False), (2, 8, 2, 1, 32, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
+    B, S, KV, G, hd, win, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(S + G)
+    q = torch.randn(B * KV * G, S, hd, device="cuda", generator=gen)
+    k = torch.randn(B * KV, S, hd, device="cuda", generator=gen)
+    v = torch.randn(B * KV, S, hd, device="cuda", generator=gen)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=win, block_q=64,
+                          block_k=64, group_size=G)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=win,
+                                 group_size=G)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_model_layout_wrapper_on_the_card(cuda):
+    B, S, KV, G, hd = 2, 128, 2, 3, 32
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, S, KV, G, hd, device="cuda", generator=gen)
+    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen)
+    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                               block_q=64, block_k=64)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_elastic_trainer_round_trip_on_the_card(cuda):
+    """suspend() parks the state on the host and resume() brings it back
+    to the card bit for bit; training goes on with finite losses."""
+    cfg = smoke_variant(get_config("h2o-danube-1.8b"))
+    trainer = ElasticTrainer(cfg, TrainConfig(learning_rate=5e-3))
+    assert trainer.params.embed.device.type == "cuda" and trainer.k == 1
+    data = make_lm_tokens(16, 64, cfg.vocab_size, seed=0)
+    batch = {"tokens": data["tokens"][:4], "labels": data["labels"][:4],
+             "weights": np.ones(4, np.float32)}
+    losses = [trainer.train_step(batch)["loss"] for _ in range(2)]
+    before = {k: v.detach().clone()
+              for k, v in M.param_dict(trainer.params).items()}
+    mu = {k: v.clone() for k, v in trainer.opt_state.mu.items()}
+    trainer.suspend()
+    assert trainer.params.embed.device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in trainer.opt_state.mu.values())
+    trainer.resume(1)
+    for k, v in M.param_dict(trainer.params).items():
+        assert v.device.type == "cuda" and torch.equal(v, before[k]), k
+    for k, v in trainer.opt_state.mu.items():
+        assert torch.equal(v, mu[k]), k
+    losses.append(trainer.train_step(batch)["loss"])
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

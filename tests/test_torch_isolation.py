@@ -93,7 +93,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         build_mod.build("paged_attention")
 
 
-@pytest.mark.parametrize("kernel", ["scd", "chunk_reduce"])
+@pytest.mark.parametrize("kernel", ["scd", "chunk_reduce",
+                                    "flash_attention"])
 def test_training_kernel_builds_raise_without_nvcc(monkeypatch, tmp_path,
                                                    kernel):
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -105,7 +106,10 @@ def test_training_kernel_builds_raise_without_nvcc(monkeypatch, tmp_path,
 
 TRAINING_MODULES = ["core.cocoa", "core.local_sgd", "core.nets",
                     "core.engine", "core.metrics", "data.synthetic",
-                    "kernels.scd", "kernels.chunk_reduce", "kernels.ops"]
+                    "kernels.scd", "kernels.chunk_reduce", "kernels.ops",
+                    "kernels.flash_attention", "data.pipeline",
+                    "optim.optimizers", "optim.schedule", "launch.steps",
+                    "launch.train", "launch.elastic", "checkpoint.ckpt"]
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -132,3 +136,24 @@ def test_training_solvers_default_to_cuda_and_refuse_without_it(
     with pytest.raises(RuntimeError, match="CUDA"):
         _solver(name)
     assert _solver(name, device="cpu").device.type == "cpu"
+
+
+def test_lm_trainer_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.elastic import ElasticTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_train.train("h2o-danube-1.8b", smoke=True, train_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticTrainer(smoke_variant(get_config("h2o-danube-1.8b")),
+                       TrainConfig())
+
+
+@pytest.mark.parametrize("fn", ["models.model", "core.nets"])
+def test_params_from_numpy_defaults_to_cuda(fn):
+    import importlib
+    import inspect
+    mod = importlib.import_module(f"repro_torch.{fn}")
+    sig = inspect.signature(mod.params_from_numpy)
+    assert sig.parameters["device"].default == "cuda"

@@ -34,7 +34,8 @@ def pair(request):
     cfg = smoke_variant(get_config(request.param))
     params = JM.init_params(cfg, jax.random.key(0))
     tcfg = t_smoke_variant(t_get_config(request.param))
-    tparams = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, params))
+    tparams = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
     return cfg, params, tcfg, tparams
 
 
@@ -75,7 +76,7 @@ def test_params_from_numpy_rejects_wrong_tree(pair):
     tree = jax.tree.map(np.asarray, params)
     del tree["final_ln"]
     with pytest.raises(ValueError):
-        TM.params_from_numpy(tcfg, tree)
+        TM.params_from_numpy(tcfg, tree, device="cpu")
 
 
 def test_init_params_follows_param_defs(pair):

@@ -72,7 +72,8 @@ def model():
     cfg = smoke_variant(get_config(ARCH))
     params = JM.init_params(cfg, jax.random.key(0))
     tcfg = t_smoke_variant(t_get_config(ARCH))
-    tparams = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, params))
+    tparams = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
     return cfg, params, tcfg, tparams
 
 

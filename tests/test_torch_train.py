@@ -63,7 +63,7 @@ def test_cnn_logits_match_jax():
     params = JN.cnn_init(SMOKE_CNN, jax.random.key(0))
     x, _ = make_images(16, 8, 3, 10, seed=2, noise=1.5)
     want = np.asarray(JN.cnn_apply(params, jnp.asarray(x)))
-    got = TN.cnn_apply(TN.params_from_numpy(_numpy_tree(params)),
+    got = TN.cnn_apply(TN.params_from_numpy(_numpy_tree(params), device="cpu"),
                        torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -72,7 +72,7 @@ def test_mlp_logits_match_jax():
     params = JN.mlp_init(jax.random.key(1), 16, 4, hidden=(32, 16))
     x, _ = make_classification(32, 16, 4, seed=5)
     want = np.asarray(JN.mlp_apply(params, jnp.asarray(x)))
-    got = TN.mlp_apply(TN.params_from_numpy(_numpy_tree(params)),
+    got = TN.mlp_apply(TN.params_from_numpy(_numpy_tree(params), device="cpu"),
                        torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -86,7 +86,7 @@ def test_port_init_has_the_jax_layouts_and_sizes():
     mine = TN.cnn_init(cfg, gen)
     assert sum(v.numel() for v in mine.values()) == 276_266
     ref = TN.params_from_numpy(_numpy_tree(JN.cnn_init(
-        CNNConfig(image_size=32), jax.random.key(0))))
+        CNNConfig(image_size=32), jax.random.key(0))), device="cpu")
     assert {k: v.shape for k, v in mine.items()} \
         == {k: v.shape for k, v in ref.items()}
     mlp = TN.mlp_init(torch.Generator().manual_seed(0), 16, 4, hidden=(8,))
@@ -260,7 +260,8 @@ def _lsgd(kind):
                                  eval_labels=jnp.asarray(ye), seed=7)
             d, lab = jnp.asarray(x), jnp.asarray(y)
         else:
-            s = T.LocalSGDSolver(TN.params_from_numpy(_numpy_tree(p0)),
+            s = T.LocalSGDSolver(TN.params_from_numpy(_numpy_tree(p0),
+                                                       device="cpu"),
                                  apply[1], TN.loss_per_sample, ttc,
                                  eval_data=xe, eval_labels=ye, seed=7,
                                  device="cpu")
@@ -290,7 +291,7 @@ def test_local_sgd_matches_jax(kind):
         assert np.array_equal(a["per_worker_samples"],
                               b["per_worker_samples"])
         assert a["samples_processed"] == b["samples_processed"]
-    want = TN.params_from_numpy(_numpy_tree(sj.params))
+    want = TN.params_from_numpy(_numpy_tree(sj.params), device="cpu")
     for k, v in want.items():
         np.testing.assert_allclose(st.params[k].numpy(), v.numpy(),
                                    atol=1e-5)
