@@ -9,11 +9,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. build    — compile every CUDA kernel of the port from the sources in
               this checkout (one nvcc per source, all at once):
-              paged_attention, scd, chunk_reduce and flash_attention.
+              paged_attention, scd, chunk_reduce and flash_attention; count
+              each library's tensor-core instructions (HGMMA, HMMA) in its
+              SASS (`cuobjdump -sass`): the two attention libraries must
+              have some.
 2. kernels  — each kernel against its plain PyTorch version on the card.
               paged_attention: the JAX kernel's self-test cases plus the
               full-width h2o-danube-1.8b shapes (decode and a 256-token
-              prefill chunk), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
+              prefill chunk) and two more spans of >= 16 rows (the
+              tensor-core kernel), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
               scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
               F in {8, 32}, masked tails) and the CoCoA path's shapes at
               K=16, F in {28, 256} with M cut to 4,096, fp32 at rtol/atol
@@ -27,9 +31,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               random weights from a seed, through the kernel: 8 burst
               requests of 32-1536 prompt tokens (chunked prefill for the
               long ones), 32 new tokens each, scale events k 1 -> 2 -> 1.
-              Launch counts are zeroed just before and read just after.
+              Launch counts are zeroed just before and read just after;
+              every launch of >= 16 rows (the prefill chunks) must have
+              taken the tensor-core kernel and every decode launch not.
    profile  — the same run again under torch.profiler: device busy time,
-              idle share and the largest kernels.
+              idle share, the largest kernels and the time of each
+              paged-attention kernel (tensor-core chunk, CUDA-core decode).
 4. streams  — the same workload in fp32 through the kernel and through
               the gather path must give equal token streams; and a smoke
               size engine on the card must match the same engine on the
@@ -49,10 +56,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               ops.flash_attention at h2o-danube-1.8b's full attention
               shape (B=4, S=4096, KV=8, G=4, hd=80, bf16, causal, window
               4096), held to the port's blocked_attention on the same
-              q/k/v at 2e-2 (1 + |b|) and to the plain version at 2e-2;
-              the kernel at the same shape in fp32 against the plain
-              version at 2e-5; then its time, its plain version's, its
-              bound and scaled_dot_product_attention's.
+              q/k/v at 2e-2 (1 + |b|), to the plain version at 2e-2, and
+              within one bf16 ulp of the plain version on the fp32-cast
+              inputs (|a - b| <= 2^-7 |b| + 1e-5); its one launch must
+              be a tensor-core one; the kernel at the same shape in fp32
+              against the plain version at 2e-5; then its time, its plain
+              version's, its bound and scaled_dot_product_attention's.
 8. lm_train — the LM trainer `launch.train.train` on h2o-danube-1.8b at
               the 100m preset: 20 steps, workers 4 -> 2 at step 4,
               rebalancing, 2 of 4 workers at twice the per-sample time.
@@ -63,7 +72,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               back bit for bit); then, under deterministic algorithms, a
               suspended run against an uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
-              yardstick at the main path's shapes, then the `kernels` line.
+              yardstick at the main path's shapes (the paged shapes also
+              held within one bf16 ulp of the fp32 plain result), then the
+              `kernels` line.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 a checkout of the repository, it exits non-zero before printing a result.
@@ -105,16 +116,24 @@ SCD_CHAIN_CYCLES = 5 * (23 + 4) + 20 * 4
 SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
                   (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
                   (2, 2, 2, 32, 8, 6, 16, 4)]
+# spans of >= 16 rows at other head dims and windows (bf16: the
+# tensor-core kernel): QG 16 at hd 64 with a window, QG 64 at hd 128
+TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 40, 4), (2, 2, 1, 128, 16, 8, 0, 64)]
+# one bf16 ulp (8 significant bits) of the fp32 result, and an absolute
+# floor for outputs near zero
+ULP_REL, ULP_ABS = 2.0 ** -7, 1e-5
 # flash attention (B, S, KV, G, hd, window, causal): tests/test_kernels.py's
 # FLASH_CASES, then h2o-danube-1.8b's head geometry, then a bidirectional
-# window, then a tile shorter than the kernel's 16 thread-rows; each in fp32
-# and bf16
+# window, then a tile shorter than the CUDA-core kernel's 16 thread-rows,
+# then hd 40 (bf16 on the CUDA cores); each in fp32 and bf16 (bf16 with hd
+# 32, 64 or 80 on the tensor cores)
 FLASH_CASES = [(2, 128, 2, 2, 64, 0, True), (1, 256, 1, 4, 32, 0, True),
                (2, 128, 3, 1, 64, 32, True), (1, 128, 2, 1, 64, 0, False),
                (1, 128, 2, 2, 64, 64, True), (1, 4096, 8, 4, 80, 0, True),
                (1, 4096, 8, 4, 80, 1024, True),
                (1, 4096, 8, 4, 80, 4096, True),
-               (1, 1024, 8, 4, 80, 256, False), (2, 8, 2, 1, 32, 0, True)]
+               (1, 1024, 8, 4, 80, 256, False), (2, 8, 2, 1, 32, 0, True),
+               (1, 256, 2, 4, 40, 0, True)]
 FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
 # LM training (phases lm_train and lm_elastic)
 LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
@@ -129,6 +148,42 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def one_ulp_excess(got, want) -> float:
+    """max of |got - want| - (2^-7 |want| + 1e-5): <= 0 when every element
+    of the bf16 `got` is within one ulp of the fp32 `want`."""
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  - (ULP_REL * want.abs() + ULP_ABS)).max())
+
+
+def sass_counts(lib: Path) -> dict:
+    """Tensor-core instructions in a built library's SASS."""
+    from repro_torch.kernels.build import find_nvcc
+    import re
+    sass = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
+def record_paged_launches(module):
+    """Wrap `module._launch` (what the paged-attention wrapper calls for
+    CUDA tensors) so every launch logs (rows QG, 1 if it took the
+    tensor-core kernel); returns the log and a function that restores it."""
+    real, counted = module._launch, module.paged_attention
+    log = []
+
+    def wrapped(q, *args, **kwargs):
+        before = counted.launches_tc
+        out = real(q, *args, **kwargs)
+        log.append((q.shape[2], counted.launches_tc - before))
+        return out
+
+    module._launch = wrapped
+    return log, lambda: setattr(module, "_launch", real)
 
 
 def card_line() -> str:
@@ -277,6 +332,9 @@ def profile_run(torch, run, kernel="paged_attention", attempts=1):
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             f"{kernel}_share_of_busy": mine / busy_us,
+            f"{kernel}_kernels": [{"name": e.key[:90], "count": e.count,
+                                   "total_ms": e.self_device_time_total / 1e3}
+                                  for e in dev if kernel in e.key],
             "attempts": attempt,
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "total_ms": e.self_device_time_total / 1e3}
@@ -831,12 +889,14 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
     q5 = q.view(B, KV, G, S, hd).permute(0, 3, 1, 2, 4).contiguous()
     k4 = k.view(B, KV, S, hd).transpose(1, 2).contiguous()
     v4 = v.view(B, KV, S, hd).transpose(1, 2).contiguous()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_tc = 0
     out = ops.flash_attention(q5, k4, v4, causal=True, window=win)
     torch.cuda.synchronize()
-    launches = flash_attention.launches
-    if launches != 1:
-        fail(f"ops.flash_attention launched the kernel {launches} times")
+    launches, launches_tc = (flash_attention.launches,
+                             flash_attention.launches_tc)
+    if (launches, launches_tc) != (1, 1):
+        fail(f"ops.flash_attention launched {launches} kernels, "
+             f"{launches_tc} on the tensor cores (want 1 and 1)")
     with torch.no_grad():
         want = attn.blocked_attention(cfg, q5.reshape(B, S, HP, hd), k4, v4,
                                       window=win)
@@ -850,7 +910,8 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
         fail(f"ops.flash_attention vs blocked_attention: max abs err {err}")
     del want, q5, k4, v4
     torch.cuda.empty_cache()
-    # the path's output against the plain version on the same q/k/v (bf16),
+    # the path's output against the plain version on the same q/k/v (bf16)
+    # and within one ulp of the plain version on the fp32-cast inputs;
     # then the kernel against the plain version at this shape in fp32
     kw = dict(causal=True, window=win, group_size=G)
     flat = out.permute(0, 2, 3, 1, 4).reshape(q.shape)
@@ -867,6 +928,11 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
             fail(f"flash_attention at the path's shape, {dtype_name}: "
                  f"{got.dtype}, max abs err {e} vs the plain version")
         vs_plain[dtype_name] = e
+        if dtype_name == "float32":
+            ulp = one_ulp_excess(flat, want)
+            if not math.isfinite(ulp) or ulp > 0:
+                fail(f"flash_attention bf16 at the path's shape is not "
+                     f"within one ulp of the fp32 result (excess {ulp})")
         del got, want, qq, kk, vv
         torch.cuda.empty_cache()
     del out, flat
@@ -887,8 +953,9 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     res = {"shape": {"B": B, "S": S, "KV": KV, "G": G, "hd": hd,
                      "window": win, "causal": True, "dtype": "bfloat16"},
-           "launches": launches, "vs_blocked_attention_max_abs_err": err,
-           "vs_plain_max_abs_err": vs_plain,
+           "launches": launches, "launches_tc": launches_tc,
+           "vs_blocked_attention_max_abs_err": err,
+           "vs_plain_max_abs_err": vs_plain, "one_ulp_excess": ulp,
            "ms": min(kern1, kern2), "ms_runs": [kern1, kern2],
            "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
                                                               plain2],
@@ -1111,14 +1178,18 @@ def main() -> None:
     names = ("paged_attention", "scd", "chunk_reduce", "flash_attention")
     kbuild.build(*names)
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, sass = {}, {}
     for kname in names:
         log = kbuild.library_path(kname).with_suffix(".log")
         ptxas[kname] = [ln.strip() for ln in (log.read_text().splitlines()
                                               if log.exists() else [])
                         if "registers" in ln or "spill" in ln]
+        sass[kname] = sass_counts(kbuild.library_path(kname))
+    for kname in ("paged_attention", "flash_attention"):
+        if not sum(sass[kname].values()):
+            fail(f"{kname}'s library has no tensor-core instruction")
     emit({"phase": "build", "seconds": build_s, "card": card,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass_tensor_core_instructions": sass})
 
     # ---- 2. kernel vs plain version on the card --------------------------
     cfg = get_config(ARCH)
@@ -1138,7 +1209,7 @@ def main() -> None:
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         err = 0.0
-        cases = [(c, None) for c in SELFTEST_CASES] + [
+        cases = [(c, None) for c in SELFTEST_CASES + TC_PAGED_CASES] + [
             ((s["B"], KV, G, hd, ps, P, cfg.sliding_window, s["Q"]), s)
             for s in shapes.values()]
         for case, full in cases:
@@ -1185,9 +1256,13 @@ def main() -> None:
     eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
                       device=DEVICE, policies=[pol], **ENGINE)
     reqs = requests(np, synthetic_requests, cfg.vocab_size)
-    paged_attention.launches = 0
+    import repro_torch.kernels.paged_attention as paged_mod
+    span_log, restore = record_paged_launches(paged_mod)
+    paged_attention.launches = paged_attention.launches_tc = 0
     metrics = eng.run(reqs)
     launches = paged_attention.launches
+    launches_tc = paged_attention.launches_tc
+    restore()
     s = metrics.summarize()
     dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
     toks = [t for r in metrics.requests for t in r.generated]
@@ -1196,6 +1271,13 @@ def main() -> None:
     if launches != cfg.num_layers * dispatches:
         fail(f"{launches} kernel launches for {dispatches} paged "
              f"dispatches of {cfg.num_layers} layers")
+    # bf16 spans of >= 16 rows (the prefill chunks) take the tensor-core
+    # kernel; decode's G rows never do
+    wrong = [(qg, tc) for qg, tc in span_log if tc != (qg >= 16)]
+    if len(span_log) != launches or wrong or launches_tc != sum(
+            qg >= 16 for qg, _ in span_log) or not launches_tc:
+        fail(f"tensor-core launches: {launches_tc} of {launches}; "
+             f"misrouted (rows, tc): {wrong[:5]}")
     if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32 \
             or not all(0 <= t < cfg.vocab_size for t in toks):
         fail(f"engine output wrong: {s['requests_finished']} finished, "
@@ -1214,6 +1296,8 @@ def main() -> None:
           "scale_events": s["scale_events"],
           "resize_moved_bytes": s["resize_moved_bytes_total"],
           "kernel_launches": launches,
+          "kernel_launches_tensor_core": launches_tc,
+          "launch_rows": sorted({qg for qg, _ in span_log}),
           "launches_per_dispatch": launches / dispatches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # the same run again under the profiler: where the device time goes
@@ -1301,6 +1385,19 @@ def main() -> None:
             rot.append(paged_inputs(torch, np, rng, sh["B"], KV, G, hd, ps,
                                     P, sh["Q"], torch.bfloat16,
                                     n_pages=n_pages, lengths=sh["lengths"]))
+        inp = rot[0]
+        n_tc = paged_attention.launches_tc
+        got = call(paged_attention, inp, cfg.sliding_window)
+        torch.cuda.synchronize()
+        tc = paged_attention.launches_tc - n_tc
+        want = call(paged_attention_plain, dict(
+            inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
+            v_pages=inp["v_pages"].float()), cfg.sliding_window)
+        ulp = one_ulp_excess(got, want)
+        if not math.isfinite(ulp) or ulp > 0 or tc != (shape_name == "chunk"):
+            fail(f"paged_attention {shape_name}: one-ulp excess {ulp}, "
+                 f"{tc} tensor-core launches")
+        del got, want, inp
         iters = 50
         nbytes, flops = work(np, rot[0], cfg.sliding_window, 2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1318,6 +1415,8 @@ def main() -> None:
             "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
                                                                plain2],
             "library_ms": time_ms(torch, lib, rot, win, iters),
+            "kernel": "tensor cores" if tc else "CUDA cores",
+            "one_ulp_excess": ulp,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -1332,7 +1431,9 @@ def main() -> None:
         "replaces": "src/repro/kernels/paged_attention.py:47",
         "replaces_function": "src/repro/kernels/paged_attention.py"
                              "::_paged_kernel",
-        "launches": launches, "max_abs_err": worst["float32"],
+        "launches": launches, "launches_tc": launches_tc,
+        "sass": sass["paged_attention"],
+        "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -1344,6 +1445,7 @@ def main() -> None:
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"],
         "launches_rebalance": cocoa["rebalance"]["launches"],
+        "launches_tc": None, "sass": sass["scd"],
         "max_abs_err": scd_err, "ms": scd_t["ms"],
         "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],
         "bound_by": scd_t["bound_by"], "library_ms": None,
@@ -1353,7 +1455,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/chunk_reduce.py:25",
         "replaces_function": "src/repro/kernels/chunk_reduce.py::"
                              "weighted_merge (body _merge_kernel :17)",
-        "launches": lsgd["launches"],
+        "launches": lsgd["launches"], "launches_tc": None,
+        "sass": sass["chunk_reduce"],
         "max_abs_err": merge_err["float32"],
         "max_abs_err_bf16": merge_err["bfloat16"],
         "ms": merge_t["path"]["ms"], "plain_ms": merge_t["path"]["plain_ms"],
@@ -1366,7 +1469,8 @@ def main() -> None:
         "replaces_function": "src/repro/kernels/flash_attention.py::"
                              "flash_attention (body _flash_kernel :25; "
                              "model-layout wrapper kernels/ops.py:24)",
-        "launches": flash["launches"],
+        "launches": flash["launches"], "launches_tc": flash["launches_tc"],
+        "sass": sass["flash_attention"],
         "max_abs_err": flash_err["float32"],
         "max_abs_err_bf16": flash_err["bfloat16"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],

@@ -33,14 +33,33 @@
 // result equals the TPU kernel's up to rounding.
 //
 // Bound.  Each (query, visible key) pair costs 4 * hd flops (QK^T and PV)
-// against 2 * hd elements of K/V read once per tile of TP * G rows: far
-// above the card's ops:byte ridge, so it is bound by its operations.  This
-// version runs them in fp32 on the CUDA cores; wgmma on the tensor cores
-// (bf16 QK^T with fp32 accumulation), TMA and warp specialisation are
-// later work.
+// against 2 * hd elements of K/V read once per tile of query rows: far
+// above the card's ops:byte ridge, so it is bound by its operations.
+//
+// Two kernels, chosen by flash_attention_launch (which reports its choice):
+//   - bf16 with hd 32, 64, 80 or 128 and 16-byte aligned q, k, v and out
+//     runs on the tensor cores (flash_attention_tc_kernel, with
+//     the warpgroup routines of attention_mma.cuh): a block of two
+//     warpgroups owns 128 rows (the tile's positions of all G heads,
+//     position-major as above), each warpgroup 64 of them with q in
+//     registers.  Steps of 64 keys of K and V arrive by TMA, one box each,
+//     into a 3-slot ring: thread 0 keeps two steps in flight, an mbarrier
+//     per slot says the bytes have landed, another that all 8 warps are
+//     done with it, so the warpgroups never wait on each other.  The boxes
+//     have a 32-byte inner dimension (32-byte swizzle), so device memory
+//     is read in whole sectors (with 16-byte boxes the loads, not the
+//     products, set the kernel's time).  Only steps that cut through some
+//     row's causal or window edge are masked, and a warpgroup skips a
+//     step none of its rows can see.  Blocks are numbered longest tile
+//     first, so the short causal tiles fill the tail.
+//   - everything else (fp32, and bf16 with another hd) runs the kernel
+//     described above: fp32 on the CUDA cores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -317,15 +336,220 @@ int launch(const void* q, const void* k, const void* v, void* out, int BHkv,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ------------------------------------------
+
+constexpr int TC_WARPS = 8;  // two warpgroups
+constexpr int TC_ROWS = 16 * TC_WARPS;  // query rows per block
+constexpr int TC_STAGES = 3;  // K/V ring depth: TMA runs two steps ahead
+
+// two blocks per SM where their shared memory fits two (up to hd = 80:
+// 80 KB a block), which caps a thread at 128 registers (no spills at
+// hd 80, PERF.md §6); at hd = 128 a block takes 128 KB, so one per SM
+template <int HD>
+__global__ void __launch_bounds__(TC_WARPS * 32, HD <= 80 ? 2 : 1)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          __nv_bfloat16* __restrict__ out, Shape s,
+                          int n_tiles,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap) {
+  using namespace attn_mma;
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  constexpr int NTH = TC_WARPS * 32;
+  constexpr int STEP = attn_mma::KEYS;  // keys per step
+  constexpr int TILE = STEP * HD;       // elements of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // TC_ROWS x HD
+  bf16* kv_s = q_s + TC_ROWS * HD;  // TC_STAGES x (K tile, V tile)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + TC_STAGES * 2 * TILE);
+  // full[st]: the stage's K and V have landed; empty[st]: its 8 warps are
+  // done with it
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  auto empty = [&](int st) { return smem_u32(bars + TC_STAGES + st); };
+  const int G = s.G, S = s.S;
+  // block i: kv head i % BHkv of tile n_tiles - 1 - i / BHkv
+  const int BHkv = gridDim.x / n_tiles;
+  const int kvh = blockIdx.x % BHkv;
+  const int p0 = (n_tiles - 1 - blockIdx.x / BHkv) * s.tp;
+  const int n_pos = min(s.tp, S - p0);
+  const int nr = n_pos * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // row r: position p0 + r / G of q head kvh * G + r % G
+  auto row_off = [&](int r) {
+    return ((size_t)(kvh * G + r % G) * S + p0 + r / G) * HD;
+  };
+  copy_tile<TC_ROWS, CPR>(q_s, q, [&](int r, int ch) {
+    return r < nr ? q + row_off(r) + ch * 8 : nullptr;
+  }, tid, NTH);
+  cp_async_commit();
+  // the keys some row of this tile can see
+  const int k_lo = s.window > 0 ? max(0, p0 - s.window + 1) : 0;
+  const int k_end = s.causal ? p0 + n_pos : S;
+  const int n_steps = (k_end - k_lo + STEP - 1) / STEP;
+  // step i's K and V rows kvh * S + k_lo + i * STEP.. as one TMA box each
+  // (rows past the head's end are another head's or zeros, and masked)
+  auto stage = [&](int i) {
+    const int st = i % TC_STAGES;
+    bf16* kd = kv_s + (size_t)st * 2 * TILE;
+    const int row = kvh * S + k_lo + i * STEP;
+    mbar_expect_tx(full(st), 2 * TILE * (int)sizeof(bf16));
+    tma_load_3d(kd, &kmap, 0, row, 0, full(st));
+    tma_load_3d(kd + TILE, &vmap, 0, row, 0, full(st));
+  };
+  if (tid == 0) {
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), TC_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(n_steps, TC_STAGES - 1); ++i) stage(i);
+  }
+
+  // key k is visible to row r iff lo(r) <= k < hi(r)
+  auto lo_of = [&](int r) {
+    return s.window > 0 ? p0 + r / G - s.window + 1 : 0;
+  };
+  auto hi_of = [&](int r) { return s.causal ? p0 + r / G + 1 : S; };
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    lo[i] = r < nr ? lo_of(r) : ROW_ALL;
+    hi[i] = r < nr ? hi_of(r) : -ROW_ALL;
+  }
+  const int wg0 = (warp >> 2) * 64;  // the warpgroup's first row
+  const int wg1 = min(wg0 + 64, nr) - 1;  // and its last valid one
+  WarpgroupRows<HD> rows;
+  if (wg1 >= wg0)
+    rows.init(lo, hi, lo_of(wg0), lo_of(wg1), hi_of(wg0), hi_of(wg1));
+  else
+    rows.init(lo, hi, ROW_ALL, ROW_ALL, -ROW_ALL, -ROW_ALL);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // q staged, barriers initialised
+  rows.load_q(q_s, TC_ROWS, warp * 16, lane);
+  const float scale_log2 = s.sm_scale * LOG2E;
+  // the warpgroups run through the ring on their own; thread 0 refills a
+  // stage once all 8 warps have released it
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % TC_STAGES;
+    if (tid == 0 && i + TC_STAGES - 1 < n_steps) {
+      const int nx = i + TC_STAGES - 1;  // into the stage of step i - 1
+      if (i > 0)
+        mbar_wait(empty(nx % TC_STAGES), ((i - 1) / TC_STAGES) & 1);
+      stage(nx);
+    }
+    mbar_wait(full(st), (i / TC_STAGES) & 1);
+    const int kb = k_lo + i * STEP;
+    const bf16* kd = kv_s + (size_t)st * 2 * TILE;
+    if (rows.sees(kb)) {
+      const KVDesc d = kv_desc_sw32(kd, kd + TILE);
+      if (rows.partial(kb))
+        rows.template step<true>(d, kb, scale_log2, lane);
+      else
+        rows.template step<false>(d, kb, scale_log2, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
+  rows.store(ra < nr ? out + row_off(ra) : nullptr,
+             rb < nr ? out + row_off(rb) : nullptr, lane);
+}
+
+// cuTensorMapEncodeTiled is a CUDA driver API function: looked up at run
+// time, so the library needs no link to libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &st) == cudaSuccess &&
+        st == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// K or V, (rows, HD) bf16, as the 3-D map {16, rows, HD / 16} (strides 2,
+// HD * 2 and 32 bytes): a box of KEYS rows lands in shared memory as
+// [HD / 16][KEYS][16] with 32-byte swizzle (attn_mma::kv_desc_sw32), read
+// from device memory in whole 32-byte sectors
+bool kv_map(CUtensorMap* m, const void* base, long long rows, int hd) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {16, (cuuint64_t)rows, (cuuint64_t)(hd / 16)};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, 32};
+  const cuuint32_t box[3] = {16, (cuuint32_t)attn_mma::KEYS,
+                             (cuuint32_t)(hd / 16)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              int BHkv, Shape s, cudaStream_t stream) {
+  s.tp = TC_ROWS / s.G;
+  const long long n_tiles = (s.S + s.tp - 1) / s.tp;
+  if (n_tiles * BHkv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap kmap, vmap;
+  if (!kv_map(&kmap, k, (long long)BHkv * s.S, HD) ||
+      !kv_map(&vmap, v, (long long)BHkv * s.S, HD))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(TC_ROWS + 2 * TC_STAGES * attn_mma::KEYS) * HD *
+          sizeof(__nv_bfloat16) +
+      2 * TC_STAGES * sizeof(uint64_t);
+  auto kern = flash_attention_tc_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)(n_tiles * BHkv), TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
+      s, (int)n_tiles, kmap, vmap);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core kernel's rule: bf16, hd 32, 64, 80 or 128 (the model
+// configs' and scale presets' head dims), and 16-byte aligned q, k, v and
+// out; -1 if it does not take the call
+int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
+                 int BHkv, const Shape& s, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return -1;
+  switch (s.hd) {
+    case 32: return launch_tc<32>(q, k, v, out, BHkv, s, stream);
+    case 64: return launch_tc<64>(q, k, v, out, BHkv, s, stream);
+    case 80: return launch_tc<80>(q, k, v, out, BHkv, s, stream);
+    case 128: return launch_tc<128>(q, k, v, out, BHkv, s, stream);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-// Needs hd <= 128 with 16-byte K/V rows and G <= 64.
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched)
+// and sets *variant to the kernel it launched: 1 = the tensor-core kernel
+// (bf16, hd 32, 64, 80 or 128, 16-byte aligned q, k, v and out),
+// 0 = the CUDA-core kernel (every other call).  Needs hd <= 128 with
+// 16-byte K/V rows and G <= 64.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BHkv,
                                       int S, int hd, int G, int causal,
                                       int window, float sm_scale, int dtype,
-                                      void* stream) {
+                                      void* stream, int* variant) {
+  *variant = 0;
   if (BHkv <= 0 || BHkv > 65535 || S <= 0 || hd <= 0 || hd > MAX_HD ||
       G <= 0 || G > ROWS || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -340,7 +564,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, out, BHkv, s, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, BHkv, s, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int err = launch_tc_hd(q, k, v, out, BHkv, s, st);
+  if (err >= 0) {
+    *variant = 1;
+    return err;
+  }
+  return launch<__nv_bfloat16>(q, k, v, out, BHkv, s, st);
 }

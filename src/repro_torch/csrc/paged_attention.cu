@@ -37,12 +37,29 @@
 // Bound.  Decode does ~4*G*hd flops per K/V row of 2*hd elements, far below
 // the card's ops:byte ridge: it is bound by the bytes of the live K/V pages
 // (2 * B * KV * live_tokens * hd * sizeof(T)).  A long prefill chunk reuses
-// each staged key for up to ROWS rows and is bound by its operations.  This
-// version runs its products in fp32 on the CUDA cores; TMA, wgmma on the
-// tensor cores and split-KV (for decode's few blocks) are later work.
+// each staged key for up to ROWS rows and is bound by its operations.
+//
+// Two kernels, chosen by paged_attention_launch (which reports its choice):
+//   - bf16 spans of at least 16 rows (QG >= 16: chunked prefill, spec
+//     verify) with hd 64, 80 or 128 and 16-byte aligned q, pools and out
+//     run on the tensor cores (paged_attention_tc_kernel,
+//     with the warpgroup routines of attention_mma.cuh): a block of two
+//     warpgroups owns 128 rows of one (b, kv), each warpgroup 64 of them
+//     with q in registers, and walks 64-key steps from the first key its
+//     rows' windows reach to the last key its last row can see (causal).
+//     Each key is gathered through the block table by 16-byte cp.async
+//     copies (a pair of threads per 32-byte sector) into a 3-slot ring in
+//     the core-matrix layout wgmma reads, two steps ahead of the one the
+//     warpgroups compute on.  Only steps that cut through some row's
+//     causal, live-tail or window edge are masked.
+//   - everything else (decode's G rows, fp32, other hd) runs the kernel
+//     described above: fp32 on the CUDA cores.  Decode is bound by its
+//     bytes, not its products; its cure is split-KV, not tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -353,15 +370,189 @@ int launch_rows(const void* q, const void* k, const void* v,
                            stream);
 }
 
+// ---- bf16 spans of >= 16 rows on the tensor cores -----------------------
+
+constexpr int TC_WARPS = 8;
+constexpr int TC_ROWS = 16 * TC_WARPS;  // query rows per block
+constexpr int TC_STAGES = 3;  // K/V ring depth: gathers run two steps ahead
+
+// two blocks per SM where their shared memory fits two (up to hd = 80:
+// 80 KB a block), which caps a thread at 128 registers (at hd 80 ptxas
+// spills 72 bytes, PERF.md §6); at hd = 128 a block takes 128 KB, so one
+// per SM
+template <int HD>
+__global__ void __launch_bounds__(TC_WARPS * 32, HD <= 80 ? 2 : 1)
+paged_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k_pages,
+                          const __nv_bfloat16* __restrict__ v_pages,
+                          const int32_t* __restrict__ table,
+                          const int32_t* __restrict__ lengths,
+                          const int32_t* __restrict__ q_start,
+                          __nv_bfloat16* __restrict__ out, Shape s) {
+  using namespace attn_mma;
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  constexpr int NTH = TC_WARPS * 32;
+  constexpr int STEP = attn_mma::KEYS;  // keys per step
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // TC_ROWS x HD
+  bf16* kv_s = q_s + TC_ROWS * HD;  // TC_STAGES x (K tile, V tile)
+  // later rows see more keys: their tiles first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * TC_ROWS;
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const int nr = min(TC_ROWS, s.QG - r0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t base = (((size_t)b * s.KV + kv) * s.QG + r0) * HD;
+  bf16* o = out + base;
+  const int length = lengths[b];
+  if (length <= 0) {  // inactive row: zeros (the engine relies on it)
+    for (int i = tid; i < nr * HD / 2; i += NTH)
+      reinterpret_cast<__nv_bfloat162*>(o)[i] = __floats2bfloat162_rn(0.f,
+                                                                       0.f);
+    return;
+  }
+  const bf16* qp = q + base;
+  copy_tile<TC_ROWS, CPR>(q_s, q, [&](int r, int ch) {
+    return r < nr ? qp + (size_t)r * HD + ch * 8 : nullptr;
+  }, tid, NTH);
+  const int ps = s.ps, G = s.G;
+  const int n_live = min((length + ps - 1) / ps, s.P);
+  const int k_end = min(length, n_live * ps);  // keys past it are masked
+  const int qs0 = q_start[b];
+  // key k is visible to row r iff lo(r) <= k < hi(r)
+  auto lo_of = [&](int r) {
+    return s.window > 0 ? qs0 + (r0 + r) / G - s.window + 1 : 0;
+  };
+  auto hi_of = [&](int r) { return min(k_end, qs0 + (r0 + r) / G + 1); };
+  // the keys some row of this tile can see
+  const int k_hi = hi_of(nr - 1);
+  const int k_lo = max(0, lo_of(0));
+  const int n_steps = k_hi > k_lo ? (k_hi - k_lo + STEP - 1) / STEP : 0;
+  const size_t tok_stride = (size_t)s.KV * HD;  // one token row of a page
+  const size_t page_stride = (size_t)ps * tok_stride;
+  const int32_t* trow = table + (size_t)b * s.P;
+  auto stage = [&](int i) {  // K and V of step i into its ring slot
+    const int kb = k_lo + i * STEP;
+    bf16* kd = kv_s + (size_t)(i % TC_STAGES) * 2 * STEP * HD;
+    // key j's row in the pools, through the block table; past k_hi:
+    // zeros, masked
+    auto at = [&](int j) -> size_t {
+      const int pos = kb + j;
+      return (size_t)max(trow[pos / ps], 0) * page_stride +
+             (size_t)(pos % ps) * tok_stride + (size_t)kv * HD;
+    };
+    copy_tile<STEP, CPR>(kd, k_pages, [&](int j, int ch) {
+      return kb + j < k_hi ? k_pages + at(j) + ch * 8 : nullptr;
+    }, tid, NTH);
+    copy_tile<STEP, CPR>(kd + STEP * HD, v_pages, [&](int j, int ch) {
+      return kb + j < k_hi ? v_pages + at(j) + ch * 8 : nullptr;
+    }, tid, NTH);
+  };
+  // copy group j holds step j (group 0 the q tile too)
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < n_steps) stage(i);
+    cp_async_commit();
+  }
+
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    lo[i] = r < nr ? lo_of(r) : ROW_ALL;
+    hi[i] = r < nr ? hi_of(r) : -ROW_ALL;
+  }
+  const int wg0 = (warp >> 2) * 64;  // the warpgroup's first row
+  const int wg1 = min(wg0 + 64, nr) - 1;  // and its last valid one
+  WarpgroupRows<HD> rows;
+  if (wg1 >= wg0)
+    rows.init(lo, hi, lo_of(wg0), lo_of(wg1), hi_of(wg0), hi_of(wg1));
+  else
+    rows.init(lo, hi, ROW_ALL, ROW_ALL, -ROW_ALL, -ROW_ALL);
+  const float scale_log2 = s.sm_scale * LOG2E;
+  for (int i = 0; i < n_steps; ++i) {
+    // step i has landed, and every warp is done with step i - 1, whose
+    // slot the gather of step i + TC_STAGES - 1 refills
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    if (i == 0) rows.load_q(q_s, TC_ROWS, warp * 16, lane);
+    if (i + TC_STAGES - 1 < n_steps) stage(i + TC_STAGES - 1);
+    cp_async_commit();
+    const int kb = k_lo + i * STEP;
+    const bf16* kd = kv_s + (size_t)(i % TC_STAGES) * 2 * STEP * HD;
+    if (rows.sees(kb)) {
+      const KVDesc d = kv_desc_plain(kd, kd + STEP * HD);
+      if (rows.partial(kb))
+        rows.template step<true>(d, kb, scale_log2, lane);
+      else
+        rows.template step<false>(d, kb, scale_log2, lane);
+    }
+  }
+  if (n_steps == 0) {  // no key visible: the q tile was never waited for
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
+  rows.store(ra < nr ? o + (size_t)ra * HD : nullptr,
+             rb < nr ? o + (size_t)rb * HD : nullptr, lane);
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* table,
+              const void* lengths, const void* q_start, void* out, int B,
+              const Shape& s, cudaStream_t stream) {
+  const size_t smem = (size_t)(TC_ROWS + 2 * TC_STAGES * attn_mma::KEYS) *
+                      HD * sizeof(__nv_bfloat16);
+  auto kern = paged_attention_tc_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((s.QG + TC_ROWS - 1) / TC_ROWS, s.KV, B);
+  kern<<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(q_start), static_cast<__nv_bfloat16*>(out),
+      s);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core kernel's rule: bf16 (the caller's), QG >= 16, hd 64, 80
+// or 128 (the attention configs' head dims), 16-byte aligned q, pools and
+// out; -1 if it does not take the call
+int launch_tc_hd(const void* q, const void* k, const void* v,
+                 const void* table, const void* lengths, const void* q_start,
+                 void* out, int B, const Shape& s, cudaStream_t stream) {
+  if (s.QG < 16 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+          16)
+    return -1;
+#define PAGED_TC(H)                                                       \
+  case H:                                                                 \
+    return launch_tc<H>(q, k, v, table, lengths, q_start, out, B, s, stream)
+  switch (s.hd) {
+    PAGED_TC(64);
+    PAGED_TC(80);
+    PAGED_TC(128);
+    default: return -1;
+  }
+#undef PAGED_TC
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-// Needs hd <= 128 with 16-byte page rows, and page_size <= 64.
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched)
+// and sets *variant to the kernel it launched: 1 = the tensor-core kernel
+// (bf16, QG >= 16, hd 64, 80 or 128, 16-byte aligned q, pools and out), 0 = the CUDA-core kernel (every other call, decode
+// among them).  Needs hd <= 128 with 16-byte page rows, and
+// page_size <= 64.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* lengths, const void* q_start, void* out,
     int B, int KV, int QG, int hd, int page_size, int P, int G, int window,
-    float sm_scale, int dtype, void* stream) {
+    float sm_scale, int dtype, void* stream, int* variant) {
+  *variant = 0;
   if (B <= 0 || KV <= 0 || QG <= 0 || hd <= 0 || hd > MAX_HD ||
       page_size <= 0 || page_size > KEYS_PER_STEP || P <= 0 || G <= 0 ||
       QG % G != 0 || B > 65535 || KV > 65535)
@@ -380,8 +571,13 @@ extern "C" int paged_attention_launch(
   if (dtype == 0)
     return launch_rows<float>(q, k_pages, v_pages, table, lengths, q_start,
                               out, B, s, st);
-  if (dtype == 1)
-    return launch_rows<__nv_bfloat16>(q, k_pages, v_pages, table, lengths,
-                                      q_start, out, B, s, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int err = launch_tc_hd(q, k_pages, v_pages, table, lengths, q_start,
+                               out, B, s, st);
+  if (err >= 0) {
+    *variant = 1;
+    return err;
+  }
+  return launch_rows<__nv_bfloat16>(q, k_pages, v_pages, table, lengths,
+                                    q_start, out, B, s, st);
 }

@@ -3,9 +3,10 @@
 Each kernel source `src/repro_torch/csrc/<name>.cu` exports a plain C
 function and is compiled by `nvcc` into its own shared library, at first
 use, under `build/kernels/` at the root of the checkout.  The library's
-file name carries a hash of its source, so an edited source is rebuilt and
-a stale library is never loaded.  A missing `nvcc` or a failed build
-raises: there is no fallback.
+file name carries a hash of everything its build reads: its source, every
+shared header `csrc/*.cuh` and the nvcc flags, so an edit to any of them
+is rebuilt and a stale library is never loaded.  A missing `nvcc` or a
+failed build raises: there is no fallback.
 
 `build(*names)` starts one `nvcc` per missing library, all at once, and
 waits for them together.
@@ -47,9 +48,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """`build/kernels/<name>-<hash>.so`, the hash over `<name>.cu`, every
+    `csrc/*.cuh` (by name and content) and `NVCC_FLAGS`."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, ctypes.CDLL]:

@@ -10,17 +10,21 @@ masks are -1e30, P.V is fp32, and the output has q's dtype.  S must divide
 by the block sizes, as the TPU kernel asserts; the CUDA kernel picks its
 own tiling, which changes nothing but rounding.
 
-The kernel (`csrc/flash_attention.cu`) is bound by its operations (4*hd
-flops per visible (query, key) pair, each K/V row read once per tile of
-query rows).  Its design: one block per (kv head, tile of 64 query rows
-that holds the tile's positions of all G heads of the group) loops over
-the key tiles its rows can see (skipping those wholly outside the causal
-and window band), stages 64 keys of K and V in shared memory per step with
-16-byte loads, and runs the fp32 online softmax with m and l in shared
-memory and the output accumulator in registers.  It needs head_dim up to
-128 with 16-byte rows (a multiple of 4 in fp32, of 8 in bf16) and
-G <= 64.  It is built from source with nvcc at first use
-(`kernels.build`) and loaded with ctypes.
+The kernels (`csrc/flash_attention.cu`) are bound by their operations
+(4*hd flops per visible (query, key) pair, each K/V row read once per tile
+of query rows).  One block per (kv head, tile of query rows that holds the
+tile's positions of all G heads of the group) loops over the key steps its
+rows can see (skipping those wholly outside the causal and window band).
+The C launcher picks one of two kernels and reports which:
+- bf16 with head_dim 32, 64, 80 or 128 runs on the tensor cores
+  (`csrc/attention_mma.cuh`): 128 rows per block, bf16 QK^T with fp32
+  accumulation, and P.V as two bf16 products of P's high and low halves,
+  so P keeps ~16 bits; counted in `flash_attention.launches_tc`;
+- every other call (fp32, other head_dim) runs the fp32 CUDA-core kernel:
+  64 rows per block, K/V staged as fp32, m and l in shared memory.
+Both need head_dim up to 128 with 16-byte rows (a multiple of 4 in fp32,
+of 8 in bf16) and G <= 64.  They are built from source with nvcc at first
+use (`kernels.build`) and loaded with ctypes.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -85,7 +89,8 @@ def _launch(q, k, v, causal, window, group_size) -> torch.Tensor:
     if fn.argtypes is None:  # ctypes caches the function object
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_int)])
     BHkv, S, hd = k.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if (hd * q.element_size()) % 16 or hd > 128 or group_size > 64 \
@@ -96,13 +101,16 @@ def _launch(q, k, v, causal, window, group_size) -> torch.Tensor:
                          f"group_size={group_size}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = ctypes.c_int(0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BHkv,
              S, hd, group_size, int(bool(causal)), int(window),
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream,
+             ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err} "
                            f"(BHkv={BHkv} S={S} hd={hd} G={group_size})")
     flash_attention.launches += 1
+    flash_attention.launches_tc += variant.value
     return out
 
 
@@ -112,8 +120,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group_size: int = 1) -> torch.Tensor:
     """q: (BHq, S, hd); k, v: (BHkv, S, hd) with BHq = BHkv * group_size;
     q head h uses kv head h // group_size.  Returns (BHq, S, hd) in q's
-    dtype.  CUDA tensors launch the kernel (and count the launch in
-    `flash_attention.launches`); CPU tensors run `flash_attention_plain`."""
+    dtype.  CUDA tensors launch a kernel (and count the launch in
+    `flash_attention.launches`, and in `flash_attention.launches_tc` too
+    when it ran on the tensor cores); CPU tensors run
+    `flash_attention_plain`."""
     S = q.shape[1] if q.dim() == 3 else 0
     block_q, block_k = min(block_q, S), min(block_k, S)
     _check(q, k, v, group_size, block_q, block_k)
@@ -127,3 +137,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

@@ -9,16 +9,25 @@ pages, chased through a block table; only the live pages ceil(len / ps) are
 read.  Each row r of q (position-major: query position r // G) has its own
 causal, live-tail and sliding-window mask; rows with length 0 give zeros.
 
-The kernel (`csrc/paged_attention.cu`) is bound by the bytes of the live
-K/V pages it reads: decode does ~4*G*hd flops per K/V row of 2*hd elements,
-far below the H100's ops:byte ridge.  Its design: one block per
-(sequence, kv head, tile of up to 64 query rows) loops over the live pages
-itself (the TPU kernel's sequential page grid axis), stages 64 keys of
-whole pages of K and V in shared memory per step with 16-byte loads, and
-runs the fp32 online softmax with m and l in shared memory and the output
-accumulator in registers.  It needs head_dim a multiple of 8 up to 128
-and page_size <= 64.  It is built from source with nvcc at first use
-(`kernels.build`) and loaded with ctypes.
+Decode is bound by the bytes of the live K/V pages it reads (~4*G*hd
+flops per K/V row of 2*hd elements, far below the H100's ops:byte ridge);
+a long prefill chunk reuses each key for many rows and is bound by its
+operations.  One block per (sequence, kv head, tile of query rows) loops
+over the pages itself (the TPU kernel's sequential page grid axis).  The
+C launcher (`csrc/paged_attention.cu`) picks one of two kernels and
+reports which:
+- bf16 spans of at least 16 rows (chunked prefill, spec verify) with
+  head_dim 64, 80 or 128 run on the tensor cores
+  (`csrc/attention_mma.cuh`): 128 rows per block, keys gathered through
+  the block table into a 3-slot bf16 ring, bf16 QK^T with fp32
+  accumulation, and P.V as two bf16 products of P's high and low halves,
+  so P keeps ~16 bits; counted in `paged_attention.launches_tc`;
+- every other call (decode, fp32, other head_dim) runs the fp32 CUDA-core
+  kernel: up to 64 rows per block, 64 keys of whole pages staged as fp32
+  per step, m and l in shared memory.
+Both need head_dim a multiple of 8 up to 128 and page_size <= 64.  They
+are built from source with nvcc at first use (`kernels.build`) and loaded
+with ctypes.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -110,7 +119,8 @@ def _launch(q, k_pages, v_pages, block_table, lengths, q_start, window,
     if fn.argtypes is None:  # ctypes caches the function object
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_int)])
     B, KV, QG, hd = q.shape
     ps = k_pages.shape[1]
     if hd % 8 or hd > 128 or ps > 64 \
@@ -120,15 +130,18 @@ def _launch(q, k_pages, v_pages, block_table, lengths, q_start, window,
                          f"pools; got hd={hd}, page_size={ps}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = ctypes.c_int(0)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_table.data_ptr(), lengths.data_ptr(), q_start.data_ptr(),
              out.data_ptr(), B, KV, QG, hd, ps, block_table.shape[1],
              QG // q_span, int(window),
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream,
+             ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err} "
                            f"(B={B} KV={KV} QG={QG} hd={hd} ps={ps})")
     paged_attention.launches += 1
+    paged_attention.launches_tc += variant.value
     return out
 
 
@@ -143,9 +156,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (B,) int32 absolute position of each span's first query (default
     lengths - q_span); window: sliding window (0 = full causal context).
 
-    Returns (B, KV, q_span*G, hd).  CUDA tensors launch the kernel (and
-    count the launch in `paged_attention.launches`); CPU tensors run
-    `paged_attention_plain`."""
+    Returns (B, KV, q_span*G, hd).  CUDA tensors launch a kernel (and
+    count the launch in `paged_attention.launches`, and in
+    `paged_attention.launches_tc` too when it ran on the tensor cores);
+    CPU tensors run `paged_attention_plain`."""
     if q_start is None:
         q_start = (lengths - q_span).to(torch.int32)
     _check(q, k_pages, v_pages, block_table, lengths, q_start, q_span)
@@ -161,3 +175,4 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+paged_attention.launches_tc = 0

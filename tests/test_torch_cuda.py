@@ -9,7 +9,10 @@ JAX:
 Elsewhere every test skips.  Tolerances are the JAX package's kernel
 tolerances (tests/test_kernels.py) with TF32 off: paged and flash
 attention fp32 2e-5 and bf16 2e-2; SCD 1e-5; weighted merge f32 1e-5 and
-bf16 3e-2."""
+bf16 3e-2.  The bf16 attention outputs are also held within one bf16 ulp
+of the plain version run on the fp32-cast inputs,
+|got - want| <= 2^-7 |want| + 1e-5: the TPU kernels' P.V is fp32, so a
+kernel that rounded P to bf16 would miss it."""
 import dataclasses
 
 import numpy as np
@@ -50,13 +53,35 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _inputs(case, dtype, seed=0):
+# head dims the tensor-core kernels are built for (the launchers' rule)
+PAGED_TC_DIMS = (64, 80, 128)
+FLASH_TC_DIMS = (32, 64, 80, 128)
+
+
+def _tc(dtype, rows, hd, dims):
+    """Whether the launchers' rule sends a call to a tensor-core kernel:
+    bf16, at least 16 rows (paged; flash always has them) and hd one of
+    the kernel's `dims`."""
+    return dtype == torch.bfloat16 and rows >= 16 and hd in dims
+
+
+def _one_ulp_excess(got, want):
+    """max of |got - want| - (2^-7 |want| + 1e-5): <= 0 when every bf16
+    element is within one ulp of the fp32 result."""
+    want = want.float()
+    return float(((got.float() - want).abs()
+                  - (2.0 ** -7 * want.abs() + 1e-5)).max())
+
+
+def _inputs(case, dtype, seed=0, lengths=None):
     B, KV, G, hd, ps, P, _, Q = case
     rng = np.random.default_rng(seed)
     N = B * P + 1
-    lengths = rng.integers(Q, P * ps + 1, size=B).astype(np.int32)
-    if Q == 1:
-        lengths[rng.integers(B)] = 0  # an inactive row
+    if lengths is None:
+        lengths = rng.integers(Q, P * ps + 1, size=B)
+        if Q == 1:
+            lengths[rng.integers(B)] = 0  # an inactive row
+    lengths = np.asarray(lengths, np.int32)
     perm = rng.permutation(np.arange(1, N))
     table = np.full((B, P), -1, np.int32)
     used = 0
@@ -81,14 +106,70 @@ def _inputs(case, dtype, seed=0):
 def test_paged_attention_kernel_matches_plain(cuda, case, dtype, tol):
     win, Q = case[6], case[7]
     q, kp, vp, table, lengths = _inputs(case, dtype)
-    before = paged_attention.launches
+    before = paged_attention.launches, paged_attention.launches_tc
     got = paged_attention(q, kp, vp, table, lengths, window=win, q_span=Q)
     torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
+    tc = _tc(dtype, q.shape[2], q.shape[3], PAGED_TC_DIMS)
+    assert (paged_attention.launches, paged_attention.launches_tc) == (
+        before[0] + 1, before[1] + tc)
     want = paged_attention_plain(q, kp, vp, table, lengths, window=win,
                                  q_span=Q)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert not got[lengths == 0].any()  # inactive rows are zeros
+
+
+# (B, KV, G, hd, ps, P, window, q_span) of bf16 spans of >= 16 rows (the
+# tensor-core kernel): QG 16, 64 and 1024, hd 64, 80 and 128, a window
+# that starts inside a key step, and lengths whose last page is ragged
+TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 0, 4), (2, 2, 4, 80, 16, 16, 0, 16),
+                  (2, 2, 1, 128, 16, 8, 0, 64),
+                  (2, 2, 4, 64, 16, 16, 40, 16),
+                  (2, 8, 4, 80, 16, 128, 4096, 256),
+                  (2, 2, 8, 64, 8, 40, 0, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_PAGED_CASES)
+def test_paged_attention_tensor_core_spans(cuda, case):
+    """Spans of >= 16 rows in bf16 take the tensor-core kernel and match
+    the plain version at 2e-2 and within one ulp of its fp32 result; an
+    inactive row (length 0) gives zeros."""
+    B, KV, G, hd, ps, P, win, Q = case
+    rng = np.random.default_rng(sum(case))
+    lengths = rng.integers(Q, P * ps + 1, size=B)
+    lengths[lengths % ps == 0] += 1  # ragged last pages
+    lengths = np.minimum(lengths, P * ps - 1)
+    lengths[-1] = 0
+    q, kp, vp, table, lens = _inputs(case, torch.bfloat16, lengths=lengths)
+    before = paged_attention.launches, paged_attention.launches_tc
+    got = paged_attention(q, kp, vp, table, lens, window=win, q_span=Q)
+    torch.cuda.synchronize()
+    assert Q * G >= 16 and paged_attention.launches == before[0] + 1
+    assert paged_attention.launches_tc == before[1] + 1
+    want = paged_attention_plain(q, kp, vp, table, lens, window=win,
+                                 q_span=Q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    want32 = paged_attention_plain(q.float(), kp.float(), vp.float(), table,
+                                   lens, window=win, q_span=Q)
+    assert _one_ulp_excess(got, want32) <= 0
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.cuda
+def test_paged_attention_decode_keeps_the_cuda_core_kernel(cuda):
+    """Decode (G rows), fp32 spans and bf16 spans at a head dim the
+    tensor-core kernel is not built for are not tensor-core launches."""
+    for case, dtype in (((8, 8, 4, 80, 16, 128, 4096, 1), torch.bfloat16),
+                        ((2, 2, 4, 64, 16, 8, 0, 4), torch.float32),
+                        ((2, 2, 4, 32, 16, 8, 0, 4), torch.bfloat16)):
+        q, kp, vp, table, lengths = _inputs(case, dtype)
+        before = paged_attention.launches, paged_attention.launches_tc
+        paged_attention(q, kp, vp, table, lengths, window=case[6],
+                        q_span=case[7])
+        torch.cuda.synchronize()
+        assert (paged_attention.launches, paged_attention.launches_tc) == (
+            before[0] + 1, before[1])
 
 
 @pytest.mark.cuda
@@ -228,14 +309,16 @@ def test_training_solvers_launch_their_kernels_every_iteration(cuda):
 
 # (B, S, KV, G, hd, window, causal): tests/test_kernels.py's flash cases,
 # h2o-danube-1.8b's head geometry (G=4, hd=80) at windows 0, 1024 and 4096,
-# a bidirectional windowed case, and a tile of 8 rows (fewer than the
-# kernel's 16 thread-rows)
+# a bidirectional windowed case, a tile of 8 rows (fewer than the
+# CUDA-core kernel's 16 thread-rows), and hd 40 (bf16 on the CUDA cores:
+# not a multiple of 16)
 FLASH_CASES = [(2, 128, 2, 2, 64, 0, True), (1, 256, 1, 4, 32, 0, True),
                (2, 128, 3, 1, 64, 32, True), (1, 128, 2, 1, 64, 0, False),
                (1, 128, 2, 2, 64, 64, True), (1, 2048, 8, 4, 80, 0, True),
                (1, 2048, 8, 4, 80, 1024, True),
                (1, 4096, 8, 4, 80, 4096, True),
-               (1, 512, 2, 4, 80, 100, False), (2, 8, 2, 1, 32, 0, True)]
+               (1, 512, 2, 4, 80, 100, False), (2, 8, 2, 1, 32, 0, True),
+               (1, 256, 2, 4, 40, 0, True)]
 
 
 @pytest.mark.cuda
@@ -249,15 +332,81 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype, tol):
     k = torch.randn(B * KV, S, hd, device="cuda", generator=gen)
     v = torch.randn(B * KV, S, hd, device="cuda", generator=gen)
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.launches_tc
     got = flash_attention(q, k, v, causal=causal, window=win, block_q=64,
                           block_k=64, group_size=G)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention.launches_tc) == (
+        before[0] + 1, before[1] + _tc(dtype, 16, hd, FLASH_TC_DIMS))
     assert got.dtype == dtype
     want = flash_attention_plain(q, k, v, causal=causal, window=win,
                                  group_size=G)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, S, KV, G, hd, window, causal) for the tensor-core kernel: hd 64 and
+# 128 at G 1 and 8, S shorter than one block's 128 rows (16 positions at
+# G 1, 8 at G 4), windows that start inside a key step, bidirectional
+TC_FLASH_CASES = [(2, 256, 2, 1, 64, 0, True), (1, 256, 2, 8, 64, 0, True),
+                  (2, 256, 2, 1, 128, 0, True),
+                  (1, 256, 2, 8, 128, 0, True), (2, 16, 2, 1, 80, 0, True),
+                  (2, 8, 3, 4, 64, 0, False), (1, 640, 2, 4, 80, 100, True),
+                  (1, 384, 2, 8, 64, 37, True),
+                  (1, 384, 2, 2, 128, 70, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_FLASH_CASES)
+def test_flash_attention_tensor_core_kernel(cuda, case):
+    """bf16 with hd a multiple of 16 takes the tensor-core kernel and
+    matches the plain version at 2e-2 and within one ulp of its fp32
+    result."""
+    B, S, KV, G, hd, win, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(S * G + hd)
+    q, k, v = (torch.randn(n, S, hd, device="cuda", generator=gen).to(
+        torch.bfloat16) for n in (B * KV * G, B * KV, B * KV))
+    before = flash_attention.launches, flash_attention.launches_tc
+    got = flash_attention(q, k, v, causal=causal, window=win, block_q=S,
+                          block_k=S, group_size=G)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_tc) == (
+        before[0] + 1, before[1] + 1)
+    kw = dict(causal=causal, window=win, group_size=G)
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, **kw).float(),
+        rtol=2e-2, atol=2e-2)
+    want32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    assert _one_ulp_excess(got, want32) <= 0
+
+
+@pytest.mark.cuda
+def test_bf16_attention_within_one_ulp_at_the_path_shapes(cuda):
+    """The two tensor-core paths at the main path's shapes: flash at
+    h2o-danube-1.8b's B=4, S=4096, KV=8, G=4, hd=80, causal, window 4096;
+    paged at its 256-token prefill chunk (B=4, QG=1024) over 4352 live
+    tokens.  Every bf16 element within one ulp of the fp32 result."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, S, KV, G, hd = 4, 4096, 8, 4, 80
+    q, k, v = (torch.randn(n, S, hd, device="cuda", generator=gen).to(
+        torch.bfloat16) for n in (B * KV * G, B * KV, B * KV))
+    before = flash_attention.launches_tc
+    got = flash_attention(q, k, v, causal=True, window=4096, group_size=G)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_tc == before + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                 window=4096, group_size=G)
+    assert _one_ulp_excess(got, want) <= 0
+    del q, k, v, got, want
+    case = (4, 8, 4, 80, 16, 128, 4096, 256)
+    q, kp, vp, table, lengths = _inputs(
+        case, torch.bfloat16, lengths=[512, 1280, 1024, 1536])
+    before = paged_attention.launches_tc
+    got = paged_attention(q, kp, vp, table, lengths, window=4096, q_span=256)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_tc == before + 1
+    want = paged_attention_plain(q.float(), kp.float(), vp.float(), table,
+                                 lengths, window=4096, q_span=256)
+    assert _one_ulp_excess(got, want) <= 0
 
 
 @pytest.mark.cuda
