@@ -19,9 +19,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               prefill chunk) and two more spans of >= 16 rows (the
               tensor-core kernel), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
               scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
-              F in {8, 32}, masked tails) and the CoCoA path's shapes at
-              K=16, F in {28, 256} with M cut to 4,096, fp32 at rtol/atol
-              1e-5.  weighted_merge: K in 1..16, N in {7, 5001, 276,266},
+              F in {8, 32}, masked tails), the CoCoA path's shapes at
+              K=16, F in {28, 256} with M cut to 4,096, a long chain
+              (K=2, M=32,768, F=28), and the one-warp kernel at narrow
+              rows (F=30; F=28 with x 4 bytes off alignment), fp32 at
+              rtol/atol 1e-5; every launch the launcher's rule sends to
+              the blocked kernel (F <= 64, F % 4 == 0, x 16-byte aligned)
+              must take it, no other.  weighted_merge: K in 1..16, N in {7, 5001, 5002,
+              5003, 4,100, 276,266, 276,267} (every row-alignment class),
               f32 at 1e-5 and bf16 at 3e-2.  flash_attention: the JAX
               kernel test's cases, its model-layout wrapper case and
               h2o-danube-1.8b's head geometry (KV=8, G=4, hd=80) at
@@ -44,9 +49,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. cocoa    — the paper's GLM at HIGGS's shape: CoCoA/SCD on the uni-task
               engine over 11,000,000 x 28 synthetic samples in 1,100
               chunks, lambda 1e-3, scaling in 16 -> 2 over 12 iterations
-              through the SCD kernel; then 6 iterations with
-              RebalancePolicy, 4 of 16 workers at twice the per-sample
-              time.  Gap, K, wall and kernel time per iteration.
+              through the SCD kernel, every launch on the blocked kernel;
+              then 6 iterations with RebalancePolicy, 4 of 16 workers at
+              twice the per-sample time.  Gap, K, wall and kernel time per
+              iteration.
 6. lsgd     — the paper's CNN at CIFAR-10's shape: local SGD (L=8, H=16,
               momentum 0.9, lr 1e-4 sqrt(K)) over 50,000 synthetic 32x32x3
               images in chunks of 50, K 16 -> 8 -> 16, 24 iterations
@@ -61,7 +67,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               inputs (|a - b| <= 2^-7 |b| + 1e-5); its one launch must
               be a tensor-core one; the kernel at the same shape in fp32
               against the plain version at 2e-5; then its time, its plain
-              version's, its bound and scaled_dot_product_attention's.
+              version's, its bound and scaled_dot_product_attention's, in
+              bf16 and in fp32.
 8. lm_train — the LM trainer `launch.train.train` on h2o-danube-1.8b at
               the 100m preset: 20 steps, workers 4 -> 2 at step 4,
               rebalancing, 2 of 4 workers at twice the per-sample time.
@@ -109,10 +116,16 @@ SLOW = [2.0] * 4 + [1.0] * 12  # per-sample times: 4 of 16 workers at 2x
 SCD_PATH_M = 4096  # the plain version steps M times from Python
 TOL_SCD = 1e-5
 TOL_MERGE = {"float32": 1e-5, "bfloat16": 3e-2}
-# the SCD chain model: per step, one FMA, a 5-level shuffle butterfly
-# (SHFL + FADD each) and ~20 dependent FMA-class ops (IEEE division,
-# clip, update); assumed latencies, not measured: SHFL 23, FMA-class 4
-SCD_CHAIN_CYCLES = 5 * (23 + 4) + 20 * 4
+# the chain model of the blocked SCD kernel (F <= 64, the path's F=28): per
+# step the q update (FFMA), grad (FFMA), the quotient (FMUL and two FFMA),
+# the clip (FADD.SAT), a_new - alpha (FADD), s (FMUL), then the broadcast
+# (SHFL.IDX).  Latencies measured with clock64 on one warp by
+# scripts/scd_chain_probe.py on an H100 80GB HBM3 (PERF.md): FMA-class
+# 4.25 cycles, SHFL.IDX 25.5 (assumed before they were measured: 4 and
+# 23); the step alone measured 57.6.  The one-warp kernel's model was
+# 5 * (23 + 4) + 20 * 4 = 215 cycles a step (its measured rate: ~445)
+SCD_CHAIN_CYCLES = 8 * 4.25 + 25.5
+SCD_LONG = (2, 32_768, 28)  # a long chain at the path's width
 SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
                   (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
                   (2, 2, 2, 32, 8, 6, 16, 4)]
@@ -472,21 +485,37 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def check_scd(torch, np, scd_pass, scd_pass_plain):
-    """The SCD kernel against its plain version: the JAX test's shapes and
-    the CoCoA path's (K=16, F in {28, 256}, M cut to SCD_PATH_M)."""
+def check_scd(torch, np, scd_pass, scd_pass_plain, takes_blocked):
+    """The SCD kernel against its plain version: the JAX test's shapes, the
+    CoCoA path's (K=16, F in {28, 256}, M cut to SCD_PATH_M), a long chain
+    (SCD_LONG), then two cases of the one-warp kernel at narrow rows: F=30
+    (not a multiple of 4) and F=28 with x a view 4 bytes past 16-byte
+    alignment.  Each launch `takes_blocked` sends to the blocked kernel
+    must take it, and no other."""
     rng = np.random.default_rng(1)
-    cases = [(k, m, f, int(rng.integers(0, 6)), False, 10.0)
+    cases = [(k, m, f, int(rng.integers(0, 6)), False, 10.0, False)
              for k in (1, 2, 3, 4) for m in (16, 64) for f in (8, 32)]
     lam_n = float(np.float32(COCOA["lam"]) * np.float32(COCOA["n"]))
-    cases += [(16, SCD_PATH_M, f, 7, True, lam_n) for f in (28, 256)]
+    cases += [(16, SCD_PATH_M, f, 7, True, lam_n, False) for f in (28, 256)]
+    cases += [(*SCD_LONG, 0, True, lam_n, False),
+              (16, SCD_PATH_M, 30, 7, True, lam_n, False),
+              (16, SCD_PATH_M, 28, 7, True, lam_n, True)]
     worst, out = 0.0, []
-    for K, M, F, masked, unit_rows, ln in cases:
+    for K, M, F, masked, unit_rows, ln, offset in cases:
         x, y, alpha, w, mask = scd_inputs(torch, np, rng, K, M, F, masked,
                                           unit_rows=unit_rows)
+        if offset:  # the same rows at a base 4 bytes past alignment
+            flat = torch.empty(x.numel() + 1, device=DEVICE)
+            flat[1:] = x.flatten()
+            x = flat[1:].view(K, M, F)
         sigma = torch.full((K,), float(K), device=DEVICE)
+        n_blocked = scd_pass.launches_blocked
         got = scd_pass(x, y, alpha, w, mask, ln, sigma)
         torch.cuda.synchronize()
+        blocked = scd_pass.launches_blocked - n_blocked
+        if blocked != takes_blocked(F, aligned=x.data_ptr() % 16 == 0):
+            fail(f"scd case K={K} M={M} F={F} offset={offset}: {blocked} "
+                 f"blocked launches")
         want = scd_pass_plain(x, y, alpha, w, mask, ln, sigma)
         err = 0.0
         for g, t in zip(got, want):
@@ -497,6 +526,7 @@ def check_scd(torch, np, scd_pass, scd_pass_plain):
         if masked and bool((got[1][:, M - masked:] != 0).any()):
             fail(f"scd case K={K} M={M} F={F}: masked rows moved")
         out.append({"K": K, "M": M, "F": F, "masked": masked,
+                    "x_offset_bytes": 4 * offset, "blocked": blocked,
                     "max_abs_err": err})
         worst = max(worst, err)
     return worst, out
@@ -509,7 +539,7 @@ def check_merge(torch, weighted_merge, weighted_merge_plain):
         dtype = getattr(torch, dtype_name)
         err = 0.0
         for K in range(1, 17):
-            for N in (7, 5001, 276_266):
+            for N in (7, 5001, 5002, 5003, 4_100, 276_266, 276_267):
                 u = torch.randn(K, N, device=DEVICE, generator=gen).to(dtype)
                 w = torch.rand(K, device=DEVICE, generator=gen)
                 got = weighted_merge(u, w)
@@ -583,11 +613,12 @@ def cocoa_phase(torch, np):
 
         real = kernel_timer(torch, ops, "scd_local_pass", log)
         try:
-            scd_pass.launches = 0
+            scd_pass.launches = scd_pass.launches_blocked = 0
             t0 = time.perf_counter()
             hist = eng.run(iters, step, solver.metric)
             run_s = time.perf_counter() - t0
             launches = scd_pass.launches
+            blocked = scd_pass.launches_blocked
         finally:
             ops.scd_local_pass = real
         for r, h in zip(rows, hist):
@@ -596,26 +627,26 @@ def cocoa_phase(torch, np):
         gaps = [h.metric for h in hist]
         if not all(math.isfinite(g) for g in gaps) or gaps[-1] >= gaps[0]:
             fail(f"cocoa {name}: the duality gap did not fall: {gaps}")
-        if launches != iters:
+        if launches != iters or blocked != launches:
             fail(f"cocoa {name}: {launches} scd launches in {iters} "
-                 f"iterations")
+                 f"iterations, {blocked} of them on the blocked kernel")
         if name == "scale_in" and hist[-1].n_workers != 2:
             fail(f"cocoa scale_in ended at K={hist[-1].n_workers}")
         if name == "rebalance" and \
                 rows[-1]["max_task_time"] >= rows[0]["max_task_time"]:
             fail("cocoa rebalance: the max task time did not fall")
-        results[name] = {"launches": launches, "run_s": run_s,
-                         "iterations": rows}
+        results[name] = {"launches": launches, "launches_blocked": blocked,
+                         "run_s": run_s, "iterations": rows}
         if name == "rebalance":  # one more K=16 iteration, profiled
             emit({"phase": "profile", "cell": "cocoa", "K": a.n_workers,
                   **profile_run(torch, lambda: solver.step(store, a),
-                                kernel="scd_kernel", attempts=3),
+                                kernel="scd_blocked_kernel", attempts=3),
                   "host_top": host_profile(
                       torch, lambda: solver.step(store, a))})
         emit({"phase": "cocoa", "run": name, "n": c["n"],
               "features": c["features"], "chunks": store.n_chunks,
               "lam": c["lam"], "data_s": data_s, "run_s": run_s,
-              "scd_launches": launches,
+              "scd_launches": launches, "scd_launches_blocked": blocked,
               "kernel_ms_total": sum(r["kernel_ms"] for r in rows),
               "iterations": rows,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -745,6 +776,7 @@ def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
         b_ms, b_by = bound(*scd_work(Kp, M, F))
         scd["path"].append({"K": Kp, "M": M, "F": F, "ms": ms,
                             "ns_per_step": ms * 1e6 / M,
+                            "cycles_per_step": ms * 1e-3 * clock / M,
                             "bound_ms": b_ms, "bound_by": b_by,
                             "chain_bound_ms": SCD_CHAIN_CYCLES * M / clock
                             * 1e3})
@@ -951,6 +983,23 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
     nbytes, flops = flash_work(np, B, S, KV * G, KV, hd, win, True, 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    # fp32 at the same shape: the CUDA-core kernel, its plain version, its
+    # bound at the fp32 CUDA-core peak and SDPA in fp32 (TF32 is off)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32 = {"ms": cuda_ms(torch, lambda: flash_attention(qf, kf, vf, **kw),
+                         2),
+           "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
+               qf, kf, vf, **kw)),
+           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               qf.view(B, KV * G, S, hd), kf.view(B, KV, S, hd),
+               vf.view(B, KV, S, hd), is_causal=True, enable_gqa=True), 2)}
+    nbytes32 = flash_work(np, B, S, KV * G, KV, hd, win, True, 4)[0]
+    t32_bytes = nbytes32 / HBM_BYTES_PER_S * 1e3
+    t32_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    f32.update(bound_ms=max(t32_bytes, t32_ops),
+               bound_by="bytes" if t32_bytes >= t32_ops else "operations")
+    del qf, kf, vf
+    torch.cuda.empty_cache()
     res = {"shape": {"B": B, "S": S, "KV": KV, "G": G, "hd": hd,
                      "window": win, "causal": True, "dtype": "bfloat16"},
            "launches": launches, "launches_tc": launches_tc,
@@ -964,7 +1013,8 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops,
-           "achieved_tflops": flops / min(kern1, kern2) / 1e9}
+           "achieved_tflops": flops / min(kern1, kern2) / 1e9,
+           "float32": f32}
     emit({"phase": "flash", **res})
     del q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
@@ -1164,6 +1214,7 @@ def main() -> None:
                                                      flash_attention_plain)
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_plain)
+    from repro_torch.kernels import scd as scd_mod
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine, synthetic_requests
@@ -1228,7 +1279,8 @@ def main() -> None:
                      f"err {e} > {TOL[dtype_name]}")
             err = max(err, e)
         worst[dtype_name] = err
-    scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain)
+    scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain,
+                                   scd_mod.takes_blocked)
     merge_err = check_merge(torch, weighted_merge, weighted_merge_plain)
     flash_err, flash_cases = check_flash(torch, flash_attention,
                                          flash_attention_plain, ops)
@@ -1445,6 +1497,9 @@ def main() -> None:
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"],
         "launches_rebalance": cocoa["rebalance"]["launches"],
+        "launches_blocked": cocoa["scale_in"]["launches_blocked"],
+        "launches_blocked_rebalance": cocoa["rebalance"][
+            "launches_blocked"],
         "launches_tc": None, "sass": sass["scd"],
         "max_abs_err": scd_err, "ms": scd_t["ms"],
         "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],

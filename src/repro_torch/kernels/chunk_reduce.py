@@ -7,10 +7,12 @@ _merge_kernel` (wrapper `weighted_merge`): the trainer's update merge
 fp32 and returned in u's dtype.
 
 The kernel (`csrc/chunk_reduce.cu`) is bound by bytes: it reads the (K, N)
-updates once.  A 1-D grid over N; each thread owns a few contiguous outputs,
-read with 16-byte loads where aligned, and loops over the K rows with the
-weights in shared memory; the tail is bound-checked, nothing is padded.  It
-takes float32 or bfloat16 updates and K <= 1024.  It is built from source
+updates once.  A 1-D grid over N; each thread owns 16 bytes of contiguous
+outputs and walks the K rows in chunks of up to 16 whose loads are all
+issued before their FMAs, with the weights in shared memory.  The loads are
+as wide as the rows' common alignment allows (16, 8, 4 or 2 bytes; the
+launcher picks the kernel instantiated for it); the tail is bound-checked,
+nothing is padded.  It takes float32 or bfloat16 updates and K <= 1024.  It is built from source
 with nvcc at first use (`kernels.build`) and loaded with ctypes.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA

@@ -35,6 +35,7 @@ from repro_torch.launch.elastic import ElasticTrainer
 from repro_torch.models import model as M
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
+from repro_torch.kernels import scd as scd_mod
 from repro_torch.kernels.scd import scd_pass, scd_pass_plain
 
 # (B, KV, G, hd, ps, P, window, q_span): the JAX kernel's self-test cases,
@@ -181,12 +182,22 @@ def test_paged_attention_kernel_refuses_cpu_fallback(cuda):
         paged_attention(q, kp, vp, table.cpu(), lengths)
 
 
-# (K, M, F, masked tail, lam*n): the JAX SCD test's shapes, the CoCoA
-# path's widths (F=28 at HIGGS's lambda*n, F=256) and the widest rows the
-# kernel takes (F=1024), plus an F that is not a multiple of 32
-SCD_CASES = [(1, 16, 8, 0, 10.0), (3, 64, 32, 5, 10.0), (4, 64, 8, 2, 10.0),
-             (16, 512, 28, 7, 11000.0), (16, 256, 256, 0, 11000.0),
-             (2, 64, 1024, 3, 100.0), (2, 96, 100, 1, 100.0)]
+# (K, M, F, masked tail, lam*n, x offset bytes): the JAX SCD test's
+# shapes, the CoCoA path's widths (F=28 at HIGGS's lambda*n, F=256) and the
+# widest rows the kernel takes (F=1024), plus an F that is not a multiple
+# of 32, then a long chain at the path's width and lambda*n (the blocked
+# kernel's base dots and Gram terms round differently from a direct dot:
+# held over 32,768 steps), M not a multiple of the 32-row block, the
+# blocked kernel's widest instantiation (F=64), a narrow F that is not a
+# multiple of 4, and x views 4 bytes past 16-byte alignment, which TMA
+# cannot stage (the last three take the one-warp kernel)
+SCD_CASES = [(1, 16, 8, 0, 10.0, 0), (3, 64, 32, 5, 10.0, 0),
+             (4, 64, 8, 2, 10.0, 0), (16, 512, 28, 7, 11000.0, 0),
+             (16, 256, 256, 0, 11000.0, 0), (2, 64, 1024, 3, 100.0, 0),
+             (2, 96, 100, 1, 100.0, 0), (2, 32_768, 28, 0, 11000.0, 0),
+             (3, 1001, 28, 9, 11000.0, 0), (2, 200, 64, 4, 100.0, 0),
+             (2, 200, 30, 3, 100.0, 0), (3, 1001, 28, 9, 11000.0, 4),
+             (2, 200, 64, 4, 100.0, 4)]
 
 
 def _scd_inputs(K, M, F, masked, seed=0):
@@ -208,12 +219,20 @@ def _scd_inputs(K, M, F, masked, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SCD_CASES)
 def test_scd_kernel_matches_plain(cuda, case):
-    K, M, F, masked, lam_n = case
+    K, M, F, masked, lam_n, offset = case
     x, y, alpha, w, mask, sigma = _scd_inputs(K, M, F, masked)
-    before = scd_pass.launches
+    if offset:  # the same rows in a contiguous view at base + offset
+        flat = torch.empty(x.numel() + offset // 4, device="cuda")
+        flat[offset // 4:] = x.flatten()
+        x = flat[offset // 4:].view(K, M, F)
+        assert x.data_ptr() % 16 == offset
+    before = scd_pass.launches, scd_pass.launches_blocked
     v, da = scd_pass(x, y, alpha, w, mask, lam_n, sigma)
     torch.cuda.synchronize()
-    assert scd_pass.launches == before + 1
+    # every launch the launcher's rule sends to the blocked kernel takes
+    # it, no other
+    assert (scd_pass.launches, scd_pass.launches_blocked) == (
+        before[0] + 1, before[1] + scd_mod.takes_blocked(F, not offset))
     v_want, da_want = scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
     torch.testing.assert_close(v, v_want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(da, da_want, rtol=1e-5, atol=1e-5)
@@ -228,14 +247,17 @@ def test_scd_kernel_refuses_rows_wider_than_its_registers(cuda):
         scd_pass(x, y, alpha, w, mask, 10.0, sigma)
 
 
-MERGE_CASES = [(K, N) for K in (1, 5, 16) for N in (1, 7, 5001, 276_266)]
+# every row-alignment class of the kernel: N = 1, 2, 3 (mod 4) and, for
+# bf16, N = 4 (mod 8) (4,100), at K around the 16/8/4/2/1-row chunks up to
+# the path's K = 16; then K > 16
+MERGE_NS = (5001, 5002, 5003, 276_266, 276_267, 4_100)
+MERGE_CASES = sorted(
+    {(K, N) for K in (1, 5, 16) for N in (1, 7, 5001, 276_266)}
+    | {(K, N) for K in (1, 7, 8, 9, 16) for N in MERGE_NS})
+MERGE_WIDE_CASES = [(K, N) for K in (17, 64, 1024) for N in MERGE_NS]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("K,N", MERGE_CASES)
-def test_weighted_merge_kernel_matches_plain(cuda, K, N, dtype, tol):
+def _merge_launch(K, N, dtype):
     gen = torch.Generator(device="cuda").manual_seed(K * N)
     u = torch.randn(K, N, device="cuda", generator=gen).to(dtype)
     w = torch.rand(K, device="cuda", generator=gen)
@@ -244,8 +266,34 @@ def test_weighted_merge_kernel_matches_plain(cuda, K, N, dtype, tol):
     torch.cuda.synchronize()
     assert weighted_merge.launches == before + 1
     assert got.dtype == dtype and got.shape == (N,)
+    return u, w, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("K,N", MERGE_CASES)
+def test_weighted_merge_kernel_matches_plain(cuda, K, N, dtype, tol):
+    u, w, got = _merge_launch(K, N, dtype)
     torch.testing.assert_close(got.float(),
                                weighted_merge_plain(u, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("K,N", MERGE_WIDE_CASES)
+def test_weighted_merge_kernel_matches_exact_sum_beyond_16_rows(
+        cuda, K, N, dtype, tol):
+    """K > 16 (no training path merges that many): held to the sum taken
+    in fp64, i.e. exactly, because at K = 1024 an fp32 sum in any order
+    (the plain version's own cuBLAS one included) is off by more than 1e-5
+    near zero crossings."""
+    u, w, got = _merge_launch(K, N, dtype)
+    torch.testing.assert_close(got.double(),
+                               torch.einsum("k,kn->n", w.double(),
+                                            u.double()),
                                rtol=tol, atol=tol)
 
 

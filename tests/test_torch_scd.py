@@ -2,8 +2,12 @@
 the JAX package's Pallas kernel in interpret mode and its oracle
 `ref.scd_pass_ref`, on the shapes of the JAX kernel's property test
 (K <= 4, M in {16, 64}, F in {8, 32}, masked tails), at its tolerance
-(rtol/atol 1e-5); and the CoCoA update dw_k = (v_end_k - w) / sigma_k
-against the JAX solver's `_scd_pass` dw."""
+(rtol/atol 1e-5); the CUDA blocked kernel's CPU twin
+`scd_pass_blocked_plain` against both at the same tolerance; and the CoCoA
+update dw_k = (v_end_k - w) / sigma_k against the JAX solver's `_scd_pass`
+dw."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +16,8 @@ import torch
 from repro.core.cocoa import _scd_pass
 from repro.kernels import ref, scd
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.scd import scd_pass, scd_pass_plain
+from repro_torch.kernels.scd import (scd_pass, scd_pass_blocked_plain,
+                                     scd_pass_plain)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -52,6 +57,38 @@ def test_scd_pass_matches_pallas_interpret_and_ref(case):
         np.testing.assert_allclose(da.numpy(), np.asarray(want_da), **TOL)
     if masked:
         assert np.all(da.numpy()[:, m - masked:] == 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scd(k, m, f, masked, seed):
+    """Inputs, and the JAX Pallas kernel's (interpret mode) and oracle's
+    outputs on them, once per shape."""
+    x, y, alpha, w, mask, sigma = _inputs(k, m, f, masked, seed)
+    jargs = [jnp.asarray(a) for a in (x, y, alpha, w, mask)]
+    pal = scd.scd_pass(*jargs, jnp.float32(10.0), jnp.asarray(sigma),
+                       interpret=True)
+    oracle = ref.scd_pass_ref(*jargs, jnp.float32(10.0), jnp.asarray(sigma))
+    return (x, y, alpha, w, mask, sigma), [tuple(np.asarray(t) for t in r)
+                                           for r in (pal, oracle)]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("f", [8, 28, 100])
+@pytest.mark.parametrize("m", [16, 100, 257])
+@pytest.mark.parametrize("block", [8, 32])
+def test_scd_blocked_twin_matches_pallas_interpret_and_ref(block, m, f, k):
+    """The blocked kernel's arithmetic (base dots, Gram terms, per-step
+    broadcast, zero-padded tail block) gives the sequential pass: M not a
+    multiple of the block included, masked tails exactly 0."""
+    masked = m // 8 + 1
+    inputs, wants = _jax_scd(k, m, f, masked, seed=m + f + k)
+    x, y, alpha, w, mask, sigma = (torch.from_numpy(a) for a in inputs)
+    v, da = scd_pass_blocked_plain(x, y, alpha, w, mask, 10.0, sigma,
+                                   block=block)
+    for want_v, want_da in wants:
+        np.testing.assert_allclose(v.numpy(), want_v, **TOL)
+        np.testing.assert_allclose(da.numpy(), want_da, **TOL)
+    assert np.all(da.numpy()[:, m - masked:] == 0.0)
 
 
 def test_scd_masked_samples_untouched():
