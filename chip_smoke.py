@@ -16,8 +16,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. kernels  — each kernel against its plain PyTorch version on the card.
               paged_attention: the JAX kernel's self-test cases plus the
               full-width h2o-danube-1.8b shapes (decode and a 256-token
-              prefill chunk) and two more spans of >= 16 rows (the
-              tensor-core kernel), fp32 at 2e-5 (TF32 off) and bf16 at 2e-2.
+              prefill chunk), two more spans of >= 16 rows (the
+              tensor-core kernel) and the split route's edge cases
+              (length 0, shorter than one run of keys, exactly P * ps, a
+              window starting inside a run, q_span 3 and 4), fp32 at 2e-5
+              (TF32 off) and bf16 at 2e-2; every launch must take the
+              route the launcher's rule names; the split route gives
+              bitwise-equal outputs on two calls.
               scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
               F in {8, 32}, masked tails), the CoCoA path's shapes at
               K=16, F in {28, 256} with M cut to 4,096, a long chain
@@ -38,10 +43,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               long ones), 32 new tokens each, scale events k 1 -> 2 -> 1.
               Launch counts are zeroed just before and read just after;
               every launch of >= 16 rows (the prefill chunks) must have
-              taken the tensor-core kernel and every decode launch not.
+              taken the tensor-core kernel and every decode launch (G
+              rows) the split route.
    profile  — the same run again under torch.profiler: device busy time,
               idle share, the largest kernels and the time of each
-              paged-attention kernel (tensor-core chunk, CUDA-core decode).
+              paged-attention kernel (tensor-core chunk, split decode).
 4. streams  — the same workload in fp32 through the kernel and through
               the gather path must give equal token streams; and a smoke
               size engine on the card must match the same engine on the
@@ -80,8 +86,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               suspended run against an uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
               yardstick at the main path's shapes (the paged shapes also
-              held within one bf16 ulp of the fp32 plain result), then the
-              `kernels` line.
+              held within one bf16 ulp of the fp32 plain result; their
+              times are profiler device time, since CUDA events over
+              back-to-back calls of the split route measure the host),
+              then the `kernels` line.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or outside
 a checkout of the repository, it exits non-zero before printing a result.
@@ -132,6 +140,14 @@ SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
 # spans of >= 16 rows at other head dims and windows (bf16: the
 # tensor-core kernel): QG 16 at hd 64 with a window, QG 64 at hd 128
 TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 40, 4), (2, 2, 1, 128, 16, 8, 0, 64)]
+# spans of <= 16 rows with their lengths (the split route, runs of 64
+# keys): length 0, shorter than a run, one run, exactly P * ps; a window
+# starting inside a run; q_span 3 (12 rows) and 4 (16 rows at hd 32)
+SPLIT_PAGED_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
+                     ((3, 2, 4, 80, 16, 16, 40, 1), [200, 77, 256]),
+                     ((3, 2, 4, 64, 16, 8, 0, 3), [3, 70, 128]),
+                     ((2, 2, 4, 32, 8, 20, 24, 4), [9, 160])]
+PAGED_TC_DIMS = (64, 80, 128)  # head dims of the paged tensor-core kernel
 # one bf16 ulp (8 significant bits) of the fp32 result, and an absolute
 # floor for outputs near zero
 ULP_REL, ULP_ABS = 2.0 ** -7, 1e-5
@@ -182,17 +198,39 @@ def sass_counts(lib: Path) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
+def paged_route(dtype_name, rows, hd) -> str:
+    """The paged launcher's rule: "tc" for bf16 spans of >= 16 rows at a
+    head dim the tensor-core kernel is built for, "split" for every other
+    span of <= 16 rows, "cuda_core" for the rest."""
+    if dtype_name == "bfloat16" and rows >= 16 and hd in PAGED_TC_DIMS:
+        return "tc"
+    return "split" if rows <= 16 else "cuda_core"
+
+
+def paged_counts(counted):
+    return (counted.launches, counted.launches_tc, counted.launches_split)
+
+
+def took(before, after) -> str:
+    """The route of the one launch between two `paged_counts`."""
+    d = [a - b for a, b in zip(after, before)]
+    if d[0] != 1:
+        return f"{d[0]} launches"
+    return {(0, 0): "cuda_core", (1, 0): "tc", (0, 1): "split"}.get(
+        (d[1], d[2]), f"counts {d}")
+
+
 def record_paged_launches(module):
     """Wrap `module._launch` (what the paged-attention wrapper calls for
-    CUDA tensors) so every launch logs (rows QG, 1 if it took the
-    tensor-core kernel); returns the log and a function that restores it."""
+    CUDA tensors) so every launch logs (rows QG, the route it took);
+    returns the log and a function that restores it."""
     real, counted = module._launch, module.paged_attention
     log = []
 
     def wrapped(q, *args, **kwargs):
-        before = counted.launches_tc
+        before = paged_counts(counted)
         out = real(q, *args, **kwargs)
-        log.append((q.shape[2], counted.launches_tc - before))
+        log.append((q.shape[2], took(before, paged_counts(counted))))
         return out
 
     module._launch = wrapped
@@ -401,9 +439,18 @@ def device_ms(torch, fn, iters):
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.count]
     if not dev:
-        fail("torch.profiler recorded no device time for the merge timing")
+        fail("torch.profiler recorded no device time for a kernel timing")
     return sum(e.self_device_time_total / e.count
                * max(1, round(e.count / iters)) for e in dev) / 1e3
+
+
+def rotating_device_ms(torch, fn, inputs, window, iters):
+    """`device_ms` of `fn` on the paged inputs in rotation (their pools
+    together exceed the L2 cache, so each call reads its pages from
+    HBM)."""
+    it = iter(range(1 << 30))
+    return device_ms(torch, lambda: call(
+        fn, inputs[next(it) % len(inputs)], window), iters)
 
 
 def host_profile(torch, run, n=8):
@@ -1260,23 +1307,33 @@ def main() -> None:
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         err = 0.0
-        cases = [(c, None) for c in SELFTEST_CASES + TC_PAGED_CASES] + [
-            ((s["B"], KV, G, hd, ps, P, cfg.sliding_window, s["Q"]), s)
-            for s in shapes.values()]
-        for case, full in cases:
+        cases = ([(c, None, None) for c in SELFTEST_CASES + TC_PAGED_CASES]
+                 + [(c, None, lens) for c, lens in SPLIT_PAGED_CASES]
+                 + [((s["B"], KV, G, hd, ps, P, cfg.sliding_window, s["Q"]),
+                     n_pages, s["lengths"]) for s in shapes.values()])
+        for case, pages, lens in cases:
             B, kv, g, d, p_s, pp, win, Q = case
             inp = paged_inputs(torch, np, rng, B, kv, g, d, p_s, pp, Q, dtype,
-                               n_pages=n_pages if full else None,
-                               lengths=full["lengths"] if full else None)
+                               n_pages=pages, lengths=lens)
+            before = paged_counts(paged_attention)
             got = call(paged_attention, inp, win)
             torch.cuda.synchronize()
+            route = took(before, paged_counts(paged_attention))
             want = call(paged_attention_plain, inp, win)
             e = float((got.float() - want.float()).abs().max())
             checks.append({"dtype": dtype_name, "case": list(case),
-                           "max_abs_err": e})
+                           "route": route, "max_abs_err": e})
             if not math.isfinite(e) or e > TOL[dtype_name]:
                 fail(f"paged_attention {dtype_name} case {case}: max abs "
                      f"err {e} > {TOL[dtype_name]}")
+            if route != paged_route(dtype_name, Q * g, d):
+                fail(f"paged_attention {dtype_name} case {case} took the "
+                     f"{route} route, not the "
+                     f"{paged_route(dtype_name, Q * g, d)} route")
+            if route == "split" and not torch.equal(
+                    got, call(paged_attention, inp, win)):
+                fail(f"paged_attention {dtype_name} case {case}: two calls "
+                     f"of the split route differ")
             err = max(err, e)
         worst[dtype_name] = err
     scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain,
@@ -1311,9 +1368,9 @@ def main() -> None:
     import repro_torch.kernels.paged_attention as paged_mod
     span_log, restore = record_paged_launches(paged_mod)
     paged_attention.launches = paged_attention.launches_tc = 0
+    paged_attention.launches_split = 0
     metrics = eng.run(reqs)
-    launches = paged_attention.launches
-    launches_tc = paged_attention.launches_tc
+    launches, launches_tc, launches_split = paged_counts(paged_attention)
     restore()
     s = metrics.summarize()
     dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
@@ -1324,12 +1381,15 @@ def main() -> None:
         fail(f"{launches} kernel launches for {dispatches} paged "
              f"dispatches of {cfg.num_layers} layers")
     # bf16 spans of >= 16 rows (the prefill chunks) take the tensor-core
-    # kernel; decode's G rows never do
-    wrong = [(qg, tc) for qg, tc in span_log if tc != (qg >= 16)]
-    if len(span_log) != launches or wrong or launches_tc != sum(
-            qg >= 16 for qg, _ in span_log) or not launches_tc:
-        fail(f"tensor-core launches: {launches_tc} of {launches}; "
-             f"misrouted (rows, tc): {wrong[:5]}")
+    # kernel; decode's G rows the split route
+    wrong = [(qg, r) for qg, r in span_log
+             if r != ("tc" if qg >= 16 else "split" if qg == G else "?")]
+    if len(span_log) != launches or wrong or not launches_tc \
+            or not launches_split \
+            or launches_tc + launches_split != launches:
+        fail(f"routes: {launches_tc} tensor-core and {launches_split} split "
+             f"launches of {launches}; misrouted (rows, route): "
+             f"{wrong[:5]}")
     if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32 \
             or not all(0 <= t < cfg.vocab_size for t in toks):
         fail(f"engine output wrong: {s['requests_finished']} finished, "
@@ -1349,6 +1409,7 @@ def main() -> None:
           "resize_moved_bytes": s["resize_moved_bytes_total"],
           "kernel_launches": launches,
           "kernel_launches_tensor_core": launches_tc,
+          "kernel_launches_split": launches_split,
           "launch_rows": sorted({qg for qg, _ in span_log}),
           "launches_per_dispatch": launches / dispatches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1438,36 +1499,47 @@ def main() -> None:
                                     P, sh["Q"], torch.bfloat16,
                                     n_pages=n_pages, lengths=sh["lengths"]))
         inp = rot[0]
-        n_tc = paged_attention.launches_tc
+        before = paged_counts(paged_attention)
         got = call(paged_attention, inp, cfg.sliding_window)
         torch.cuda.synchronize()
-        tc = paged_attention.launches_tc - n_tc
+        route = took(before, paged_counts(paged_attention))
         want = call(paged_attention_plain, dict(
             inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
             v_pages=inp["v_pages"].float()), cfg.sliding_window)
         ulp = one_ulp_excess(got, want)
-        if not math.isfinite(ulp) or ulp > 0 or tc != (shape_name == "chunk"):
+        if not math.isfinite(ulp) or ulp > 0 or route != (
+                "tc" if shape_name == "chunk" else "split"):
             fail(f"paged_attention {shape_name}: one-ulp excess {ulp}, "
-                 f"{tc} tensor-core launches")
+                 f"{route} route")
         del got, want, inp
         iters = 50
         nbytes, flops = work(np, rot[0], cfg.sliding_window, 2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         win = cfg.sliding_window
-        plain1 = time_ms(torch, paged_attention_plain, rot, win, iters)
-        kern1 = time_ms(torch, paged_attention, rot, win, iters)
-        kern2 = time_ms(torch, paged_attention, rot, win, iters)
-        plain2 = time_ms(torch, paged_attention_plain, rot, win, iters)
+        # device time (profiler): CUDA events over back-to-back calls
+        # measure the host's issue rate (~25 us a call) for a faster kernel
+        plain1 = rotating_device_ms(torch, paged_attention_plain, rot, win,
+                                    iters)
+        kern1 = rotating_device_ms(torch, paged_attention, rot, win, iters)
+        kern2 = rotating_device_ms(torch, paged_attention, rot, win, iters)
+        plain2 = rotating_device_ms(torch, paged_attention_plain, rot, win,
+                                    iters)
         timing[shape_name] = {
             "shape": {"B": sh["B"], "KV": KV, "QG": sh["Q"] * G, "hd": hd,
                       "page_size": ps, "P": P,
                       "live_tokens": int(np.sum(sh["lengths"]))},
+            "timer": "device time per call (torch.profiler)",
             "ms": min(kern1, kern2), "ms_runs": [kern1, kern2],
             "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
                                                                plain2],
-            "library_ms": time_ms(torch, lib, rot, win, iters),
-            "kernel": "tensor cores" if tc else "CUDA cores",
+            "library_ms": rotating_device_ms(torch, lib, rot, win, iters),
+            "events_ms": {  # back-to-back calls, bounded by the host
+                "kernel": time_ms(torch, paged_attention, rot, win, iters),
+                "plain": time_ms(torch, paged_attention_plain, rot, win,
+                                 iters),
+                "library": time_ms(torch, lib, rot, win, iters)},
+            "kernel": {"tc": "tensor cores", "split": "split-KV"}[route],
             "one_ulp_excess": ulp,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1484,6 +1556,10 @@ def main() -> None:
         "replaces_function": "src/repro/kernels/paged_attention.py"
                              "::_paged_kernel",
         "launches": launches, "launches_tc": launches_tc,
+        "launches_split": launches_split,
+        "routes": {"split (decode)": launches_split,
+                   "tensor cores (prefill chunks)": launches_tc,
+                   "CUDA cores": launches - launches_tc - launches_split},
         "sass": sass["paged_attention"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"],

@@ -22,7 +22,12 @@ Shapes (h2o-danube-1.8b: KV=8, G=4, hd=80, window 4096):
   gather plus SDPA (`chip_smoke.library_call`);
 - paged decode: B=8, QG=4 over the same pool.
 Paged times rotate over four pool copies (> 50 MB) so pages come from
-HBM.  Prints one JSON line per shape and exits non-zero if a check fails.
+HBM.  `ms_runs` are CUDA events over 50 calls back to back, which the
+host's issue rate bounds for a kernel under ~25 us; `device_ms_runs` are
+the kernel's device time per call from torch.profiler; `host_us` is the
+host's time to issue one call (the wrapper and the launch, 200 calls
+back to back before one synchronize).  Prints one JSON line per shape
+and exits non-zero if a check fails.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import argparse
 import json
 import math
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -110,9 +116,11 @@ def main() -> None:
                                lengths=lengths) for _ in range(4)]
         inp = rot[0]
         n0 = getattr(paged_attention, "launches_tc", None)
+        s0 = getattr(paged_attention, "launches_split", None)
         got = cs.call(paged_attention, inp, win)
         torch.cuda.synchronize()
         tc = None if n0 is None else paged_attention.launches_tc - n0
+        split = None if s0 is None else paged_attention.launches_split - s0
         f32 = dict(inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
                    v_pages=inp["v_pages"].float())
         want = cs.call(paged_attention_plain, f32, win)
@@ -121,12 +129,23 @@ def main() -> None:
         kern1 = cs.time_ms(torch, paged_attention, rot, win, 50)
         libt = cs.time_ms(torch, lib_call, rot, win, 50)
         kern2 = cs.time_ms(torch, paged_attention, rot, win, 50)
+        dev = [cs.rotating_device_ms(torch, fn, rot, win, 50)
+               for fn in (paged_attention, lib_call, paged_attention)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(200):
+            cs.call(paged_attention, rot[i % len(rot)], win)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
         nbytes, flops = cs.work(np, inp, win, 2)
         bound = max(nbytes / cs.HBM_BYTES_PER_S,
                     flops / cs.PEAK_FLOPS["bfloat16"]) * 1e3
         print(json.dumps({**head, "shape": f"paged {name} B={Bp} "
                           f"QG={Q * G} hd={hd}", "launches_tc": tc,
+                          "launches_split": split,
                           "ms_runs": [kern1, kern2], "library_ms": libt,
+                          "device_ms_runs": [dev[0], dev[2]],
+                          "library_device_ms": dev[1], "host_us": host_us,
                           "bound_ms": bound, "max_abs_err_vs_fp32": err,
                           "one_ulp_excess": ulp}), flush=True)
         if not math.isfinite(ulp) or ulp > 0:

@@ -11,50 +11,76 @@
 //   lengths  (B,) int32        live tokens including the span's own
 //   q_start  (B,) int32
 //   out      like q
-// Only the live pages ceil(len / ps) are visited.  Each row has its own
+// Only the live pages ceil(len / ps) are read.  Each row has its own
 // mask: causal k_pos <= q_abs, live tail k_pos < len, and, when window > 0,
 // q_abs - k_pos < window.  Masked scores are -1e30 (never -inf), softmax and
 // the PV product run in fp32 with an online softmax, and a row with
 // len == 0 is written as zeros.
 //
-// Design.  On the TPU the page axis is a sequential grid dimension that
-// carries the softmax state in VMEM scratch from one step to the next.  Here
-// one block owns (b, kv, tile of up to ROWS query rows) and loops over the
-// live pages itself; the block reads its own table entries and length (no
-// scalar prefetch).  Decode (QG = G rows) is one tile; a 256-token chunk at
-// G = 4 is 16 tiles that run in parallel.  Each step stages KEYS_PER_STEP
-// keys (whole pages) of K and V in shared memory as fp32, with 16-byte
-// loads that every thread issues before it converts any of them, so a step
-// waits on memory about once.  The threads form a TR x (THREADS / TR) grid,
-// TR = the tile's row count rounded up to a power of two, at most 16: a
-// long chunk gives each thread a 4 x 4 micro-tile of the scores (rows
-// tr + 16a, keys tc + 16c) and of the output (rows tr + 16a, dims
-// tc + 16e), so each shared-memory read feeds four FMAs; decode's 4 rows
-// give each thread one score and two output dims, so every thread works.
-// m and l live in shared memory (one warp per row updates them), the output
-// accumulator in registers.
+// On the TPU the page axis is a sequential grid dimension that carries the
+// softmax state in VMEM scratch from one step to the next.  Here each block
+// reads its own table entries and length (no scalar prefetch), and the
+// launcher (paged_attention_launch, which reports its choice) picks one of
+// three kernels:
 //
-// Bound.  Decode does ~4*G*hd flops per K/V row of 2*hd elements, far below
-// the card's ops:byte ridge: it is bound by the bytes of the live K/V pages
-// (2 * B * KV * live_tokens * hd * sizeof(T)).  A long prefill chunk reuses
-// each staged key for up to ROWS rows and is bound by its operations.
+// 1. Split-KV, for spans of at most 16 rows that the tensor-core kernel
+//    does not take: decode (QG = G rows) in bf16 and fp32, and short
+//    spans.  Bound: decode does ~4*G*hd flops per K/V row of 2*hd
+//    elements, far below the card's 295 ops/byte ridge, so it is bound by
+//    the bytes of the live K/V rows (2 * B * KV * live_tokens * hd *
+//    sizeof(T)): 11.3 MB, 3.4 us at 3.35 TB/s, at the served decode shape.
+//    The kernel it replaces (3. below) gave one block a whole sequence:
+//    (1, KV, B) = 64 blocks for 132 SMs at that shape, each walking its
+//    pages 64 keys a step with a round trip to memory per step, so the
+//    longest sequence set the time (0.10 ms).  Here the keys are cut into
+//    runs of SPLIT_KEYS and the grid is (KV, B, n_split), n_split =
+//    ceil(P * ps / SPLIT_KEYS) from the table's width (the host never
+//    reads the lengths): ~590 live blocks of 128 threads at that shape,
+//    all resident at once, the first runs (which every sequence has)
+//    dispatched first.  A block whose run no row can see (past the
+//    live tail, or before the window) returns at once.  A live block reads
+//    its table entries beside the length, then issues 16-byte cp.async
+//    gathers of all of its run's K and V rows in their own dtype (no fp32
+//    staging), so it waits on memory once; keys no row sees are
+//    zero-filled.  Each of 4 warps takes 16 keys: a lane holds one key
+//    against every other row (q read from shared memory as broadcast
+//    float4s), dots in fp32, a softmax over the warp's keys in registers
+//    (shuffles), then P V with each lane owning output dims; the warps'
+//    (m, l, acc) merge once in shared memory.  No tensor cores: at <= 16
+//    rows the bytes bound it.  A span whose visible keys lie in one run is
+//    written by that block; otherwise each run's partial (m, l,
+//    unnormalised acc, fp32) goes to a workspace, and the last run of each
+//    (b, kv) to finish (a __threadfence, then an atomicAdd on a per-(b, kv)
+//    counter that it resets) merges them in run order, not arrival order,
+//    so two calls give bitwise-equal outputs, in the same launch.  The
+//    counters must be zero at launch and are zero after it; two launches
+//    that share counters must not run at once (one stream).
 //
-// Two kernels, chosen by paged_attention_launch (which reports its choice):
-//   - bf16 spans of at least 16 rows (QG >= 16: chunked prefill, spec
-//     verify) with hd 64, 80 or 128 and 16-byte aligned q, pools and out
-//     run on the tensor cores (paged_attention_tc_kernel,
-//     with the warpgroup routines of attention_mma.cuh): a block of two
-//     warpgroups owns 128 rows of one (b, kv), each warpgroup 64 of them
-//     with q in registers, and walks 64-key steps from the first key its
-//     rows' windows reach to the last key its last row can see (causal).
-//     Each key is gathered through the block table by 16-byte cp.async
-//     copies (a pair of threads per 32-byte sector) into a 3-slot ring in
-//     the core-matrix layout wgmma reads, two steps ahead of the one the
-//     warpgroups compute on.  Only steps that cut through some row's
-//     causal, live-tail or window edge are masked.
-//   - everything else (decode's G rows, fp32, other hd) runs the kernel
-//     described above: fp32 on the CUDA cores.  Decode is bound by its
-//     bytes, not its products; its cure is split-KV, not tensor cores.
+// 2. Tensor cores, for bf16 spans of at least 16 rows (QG >= 16: chunked
+//    prefill, spec verify) with hd 64, 80 or 128 and 16-byte aligned q,
+//    pools and out (paged_attention_tc_kernel, with the warpgroup routines
+//    of attention_mma.cuh): a block of two warpgroups owns 128 rows of one
+//    (b, kv), each warpgroup 64 of them with q in registers, and walks
+//    64-key steps from the first key its rows' windows reach to the last
+//    key its last row can see (causal).  Each key is gathered through the
+//    block table by 16-byte cp.async copies (a pair of threads per 32-byte
+//    sector) into a 3-slot ring in the core-matrix layout wgmma reads, two
+//    steps ahead of the one the warpgroups compute on.  Only steps that
+//    cut through some row's causal, live-tail or window edge are masked.
+//    A long prefill chunk reuses each key for many rows and is bound by its
+//    operations.
+//
+// 3. CUDA cores, fp32, for the rest (fp32 spans of more than 16 rows, bf16
+//    spans at other head dims): one block owns (b, kv, tile of up to ROWS
+//    query rows) and loops over the live pages itself.  Each step stages
+//    KEYS_PER_STEP keys (whole pages) of K and V in shared memory as fp32,
+//    with 16-byte loads that every thread issues before it converts any of
+//    them.  The threads form a TR x (THREADS / TR) grid, TR = the tile's
+//    row count rounded up to a power of two, at most 16: each thread owns
+//    a 4 x 4 micro-tile of the scores (rows tr + 16a, keys tc + 16c) and
+//    of the output (rows tr + 16a, dims tc + 16e), so each shared-memory
+//    read feeds four FMAs.  m and l live in shared memory (one warp per row
+//    updates them), the output accumulator in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -370,6 +396,376 @@ int launch_rows(const void* q, const void* k, const void* v,
                            stream);
 }
 
+// ---- spans of <= 16 rows (decode) split across blocks ---------------------
+
+constexpr int SPLIT_KEYS = 64;  // keys per block: one run of the span's keys
+constexpr int SPLIT_WARPS = 4;
+constexpr int SPLIT_THREADS = 32 * SPLIT_WARPS;
+constexpr int SPLIT_ROWS = 16;  // the most rows the route takes
+constexpr int KPW = SPLIT_KEYS / SPLIT_WARPS;  // keys per warp
+constexpr int LG = 32 / KPW;  // lane groups: a warp's lanes hold KPW x LG
+constexpr int DPL = MAX_HD / 32;  // output dims per lane (d = lane + 32 e)
+constexpr size_t SMEM_MAX = 232448 - 1024;  // a block's, less static arrays
+static_assert(KPW <= 32 && 32 % KPW == 0, "a warp's keys tile its lanes");
+static_assert(SPLIT_KEYS <= SPLIT_THREADS, "a thread per key of a run");
+
+__host__ __device__ inline size_t max_size(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+// the split kernel's dynamic shared memory, byte offsets: the q tile (fp32,
+// rows_t rows, those past QG zero); K in its own dtype (rows padded by 16
+// bytes, so the 16-byte reads of a warp's distinct keys hit distinct
+// banks), later each warp's P V accumulator; V in its own dtype, later the
+// merge's (e, l) table of the live runs; each warp's probabilities; each
+// warp's m and l
+struct SplitSmem {
+  size_t k, v, p, ml, total;
+  __host__ __device__ SplitSmem(const Shape& s, int esize, int rows_t,
+                                int n_split) {
+    k = (size_t)rows_t * s.hd * 4;
+    v = k + max_size((size_t)SPLIT_KEYS * (s.hd + 16 / esize) * esize,
+                     (size_t)SPLIT_WARPS * s.QG * s.hd * 4);
+    p = v + max_size((size_t)SPLIT_KEYS * s.hd * esize,
+                     ((size_t)2 * n_split * s.QG * 4 + 15) / 16 * 16);
+    ml = p + (size_t)SPLIT_WARPS * rows_t * KPW * 4;
+    total = ml + (size_t)2 * SPLIT_WARPS * rows_t * 4;
+  }
+};
+
+// blocks per (b, kv): runs of SPLIT_KEYS keys over the table's width
+__host__ __device__ inline int split_count(const Shape& s) {
+  return (s.P * s.ps + SPLIT_KEYS - 1) / SPLIT_KEYS;
+}
+
+// One block per (kv head, sequence, run of SPLIT_KEYS keys); RPL rows per
+// lane group.  part holds, per (b, kv), n_split partials of QG x hd
+// unnormalised accumulators, then n_split x QG (m, l) pairs;
+// counters[b * KV + kv] counts the live runs that have written theirs
+// (zero between launches: the block that merges resets it).  The run is
+// the slowest grid dimension, so the blocks of the first runs, which
+// every live sequence has, are dispatched first.
+template <typename T, int RPL>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+paged_attention_split_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k_pages,
+                             const T* __restrict__ v_pages,
+                             const int32_t* __restrict__ table,
+                             const int32_t* __restrict__ lengths,
+                             const int32_t* __restrict__ q_start,
+                             T* __restrict__ out, float* __restrict__ part,
+                             int* __restrict__ counters, Shape s) {
+  using attn_mma::cp_async16;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int ROWS_T = LG * RPL;     // rows a lane's accumulators cover
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  __shared__ long long roff_s[SPLIT_KEYS];  // key rows in the pools, or -1
+  __shared__ int last_s;
+  const int kv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int QG = s.QG, hd = s.hd, ps = s.ps, G = s.G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t bkv = (size_t)b * s.KV + kv;
+  const int kb = split * SPLIT_KEYS;
+  // a thread per key of the run reads its table entry beside the length
+  // (neither waits on the other)
+  const int my_pos = kb + tid;
+  const int my_page = tid < SPLIT_KEYS && my_pos < s.P * ps
+                          ? table[(size_t)b * s.P + my_pos / ps]
+                          : 0;
+  const int length = lengths[b], qs0 = q_start[b];
+  T* o = out + bkv * QG * hd;
+  const int k_end = min(length, s.P * ps);  // keys past it are masked
+  // key k is visible to row r iff lo(r) <= k < hi(r); both grow with r
+  auto lo_of = [&](int r) {
+    return s.window > 0 ? qs0 + r / G - s.window + 1 : 0;
+  };
+  auto hi_of = [&](int r) { return min(k_end, qs0 + r / G + 1); };
+  const int k_lo = max(0, lo_of(0)), k_hi = hi_of(QG - 1);
+  if (length <= 0 || k_hi <= k_lo) {  // inactive row: zeros, from run 0
+    if (split == 0)
+      for (int i = tid; i < QG * hd; i += SPLIT_THREADS) store(o + i, 0.f);
+    return;
+  }
+  const int s_first = k_lo / SPLIT_KEYS, s_last = (k_hi - 1) / SPLIT_KEYS;
+  if (split < s_first || split > s_last) return;  // no row sees this run
+  const int n_live = s_last - s_first + 1;
+  // keys of the run some row sees; the rest of the run is zero-filled
+  const int ld_lo = max(kb, k_lo), ld_hi = min(kb + SPLIT_KEYS, k_hi);
+
+  const SplitSmem L(s, sizeof(T), ROWS_T, n_split);
+  const int kst = hd + VEC;
+  float* q_s = reinterpret_cast<float*>(split_smem);   // ROWS_T x hd
+  T* k_s = reinterpret_cast<T*>(split_smem + L.k);     // SPLIT_KEYS x kst
+  T* v_s = reinterpret_cast<T*>(split_smem + L.v);     // SPLIT_KEYS x hd
+  float* p_s = reinterpret_cast<float*>(split_smem + L.p);
+  float* m_s = reinterpret_cast<float*>(split_smem + L.ml);
+  float* l_s = m_s + SPLIT_WARPS * ROWS_T;  // both SPLIT_WARPS x ROWS_T
+
+  const size_t tok_stride = (size_t)s.KV * hd;  // one token row of a page
+  if (tid < SPLIT_KEYS) {  // -1 = absent in the table: the null page
+    const bool seen = my_pos >= ld_lo && my_pos < ld_hi;
+    roff_s[tid] = seen ? (long long)(((size_t)max(my_page, 0) * ps +
+                                      my_pos % ps) * tok_stride +
+                                     (size_t)kv * hd)
+                       : -1LL;
+  }
+  __syncthreads();
+  // every K and V row of the run at once, 16 bytes a copy, so the block
+  // waits on memory once: cw lanes (a power of two) per key row, a lane
+  // per 16-byte chunk
+  const int cpr = hd / VEC;
+  const int lg_cw = cpr <= 8 ? 3 : cpr <= 16 ? 4 : 5;
+  const int sub = lane >> lg_cw, ch = lane & ((1 << lg_cw) - 1);
+  const int kpp = 32 >> lg_cw;  // key rows a warp copies at once
+  if (ch < cpr)
+    for (int j = warp * kpp + sub; j < SPLIT_KEYS; j += SPLIT_WARPS * kpp) {
+      const long long off = roff_s[j];
+      const size_t src = off >= 0 ? (size_t)off + ch * VEC : 0;
+      cp_async16(k_s + j * kst + ch * VEC, k_pages + src, off >= 0);
+      cp_async16(v_s + j * hd + ch * VEC, v_pages + src, off >= 0);
+    }
+  attn_mma::cp_async_commit();
+  const T* qp = q + bkv * QG * hd;
+  for (int i = tid; i < ROWS_T * hd; i += SPLIT_THREADS)
+    q_s[i] = i < QG * hd ? to_f32(qp[i]) : 0.f;
+  attn_mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // scores: lane (jj, g) of warp w holds key w * KPW + jj against rows
+  // g, g + LG, ...; q is read as broadcast float4s; the loop over hd is
+  // unrolled to MAX_HD so its shared-memory reads are issued together
+  const int jj = lane % KPW, g = lane / KPW;
+  const int j = warp * KPW + jj, pos = kb + j;
+  float sc[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) sc[i] = 0.f;
+  const T* kr = k_s + j * kst;
+#pragma unroll
+  for (int d0 = 0; d0 < MAX_HD; d0 += VEC) {
+    if (d0 < hd) {
+      float kf[VEC];
+      unpack16(*reinterpret_cast<const uint4*>(kr + d0), kf, k_pages);
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const float* qr = q_s + (g + LG * i) * hd + d0;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          sc[i] = fmaf(qv.x, kf[e], sc[i]);
+          sc[i] = fmaf(qv.y, kf[e + 1], sc[i]);
+          sc[i] = fmaf(qv.z, kf[e + 2], sc[i]);
+          sc[i] = fmaf(qv.w, kf[e + 3], sc[i]);
+        }
+      }
+    }
+  }
+  // the warp's softmax over its keys, per row, in registers: masked
+  // scores are -1e30; a row none of whose keys here is visible gets
+  // m = -1e30 and p = 1, which the merges weigh by exp(-1e30 - m) = 0
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const int r = g + LG * i;
+    const int q_abs = qs0 + r / G;
+    bool ok = r < QG && pos <= q_abs && pos < k_end;
+    if (s.window > 0) ok = ok && q_abs - pos < s.window;
+    const float x = ok ? sc[i] * s.sm_scale : NEG_INF;
+    float m = x;
+#pragma unroll
+    for (int off = KPW / 2; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float p = expf(x - m);
+    float l = p;
+#pragma unroll
+    for (int off = KPW / 2; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    p_s[(warp * ROWS_T + r) * KPW + jj] = p;
+    if (jj == 0) {
+      m_s[warp * ROWS_T + r] = m;
+      l_s[warp * ROWS_T + r] = l;
+    }
+  }
+  __syncwarp();
+  // the warp's P V over its keys: lane owns dims lane + 32 e of every row
+  float acc[ROWS_T][DPL];
+#pragma unroll
+  for (int r = 0; r < ROWS_T; ++r)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < KPW; ++t) {
+    const T* vr = v_s + (warp * KPW + t) * hd;
+    float vx[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      vx[e] = d < hd ? to_f32(vr[d]) : 0.f;
+    }
+    const float* pr = p_s + warp * ROWS_T * KPW + t;
+#pragma unroll
+    for (int r = 0; r < ROWS_T; ++r) {
+      const float pv = pr[r * KPW];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[r][e] = fmaf(pv, vx[e], acc[r][e]);
+    }
+  }
+  __syncthreads();  // every warp is done with K: its space takes acc
+  float* acc_s = reinterpret_cast<float*>(split_smem + L.k);
+#pragma unroll
+  for (int r = 0; r < ROWS_T; ++r) {
+    if (r >= QG) break;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      const int d = lane + 32 * e;
+      if (d < hd) acc_s[(warp * QG + r) * hd + d] = acc[r][e];
+    }
+  }
+  __syncthreads();
+
+  // the warps' (m, l, acc), merged once: the run's partial, or the output
+  // when the span's visible keys lie in this one run
+  const bool single = n_live == 1;
+  float* pacc = part + (bkv * n_split + split) * QG * hd;
+  float* pml = part + (size_t)gridDim.x * gridDim.y * n_split * QG * hd +
+               (bkv * n_split + split) * QG * 2;
+  for (int i = tid; i < QG * hd; i += SPLIT_THREADS) {
+    const int r = i / hd;
+    float M = m_s[r];
+#pragma unroll
+    for (int w = 1; w < SPLIT_WARPS; ++w) M = fmaxf(M, m_s[w * ROWS_T + r]);
+    float Ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float f = expf(m_s[w * ROWS_T + r] - M);
+      Ls = fmaf(l_s[w * ROWS_T + r], f, Ls);
+      a = fmaf(acc_s[(w * QG + r) * hd + (i - r * hd)], f, a);
+    }
+    if (single) {
+      store(o + i, a / Ls);  // Ls >= 1: the max's own p is 1
+    } else {
+      pacc[i] = a;
+      if (i == r * hd) {
+        pml[2 * r] = M;
+        pml[2 * r + 1] = Ls;
+      }
+    }
+  }
+  if (single) return;
+  // the last live run of (b, kv) to finish merges all of them, in run
+  // order whichever finished last, so a call's output does not depend on
+  // the blocks' timing
+  // (the grid-barrier pattern: the block's writes, a barrier, then one
+  // thread's gpu-scope fence and atomic; the merging block fences again
+  // before it reads the partials through L2)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last_s = atomicAdd(counters + bkv, 1) == n_live - 1;
+    if (last_s) __threadfence();
+  }
+  __syncthreads();
+  if (!last_s) return;
+  // each row's (m, l) of the live runs, a warp per row with its lanes
+  // over the runs (loads in parallel), into V's space as
+  // e = exp(m - max m) and l
+  float* e_s = reinterpret_cast<float*>(split_smem + L.v);  // n_live x QG
+  float* lr_s = e_s + n_live * QG;                          // n_live x QG
+  const float2* bml = reinterpret_cast<const float2*>(
+                          part + (size_t)gridDim.x * gridDim.y * n_split *
+                                     QG * hd) +
+                      (bkv * n_split + s_first) * QG;
+  for (int r = warp; r < QG; r += SPLIT_WARPS) {
+    float mx = NEG_INF;
+    for (int i = lane; i < n_live; i += 32) {
+      const float2 ml = __ldcg(bml + i * QG + r);
+      e_s[i * QG + r] = ml.x;
+      lr_s[i * QG + r] = ml.y;
+      mx = fmaxf(mx, ml.x);
+    }
+    mx = warp_max(mx);
+    for (int i = lane; i < n_live; i += 32)
+      e_s[i * QG + r] = expf(e_s[i * QG + r] - mx);
+  }
+  __syncthreads();
+  // out = sum_s acc_s e_s / sum_s l_s e_s, both summed in run order; a
+  // thread per 4 output elements, its runs' loads unrolled 16 deep
+  const size_t stride4 = (size_t)QG * hd / 4;
+  const float4* bacc = reinterpret_cast<const float4*>(
+                           part + (bkv * n_split + s_first) * QG * hd);
+  for (int i = tid; i < QG * hd / 4; i += SPLIT_THREADS) {
+    const int r = 4 * i / hd;
+    float Ls = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float4 x = __ldcg(bacc + sp * stride4 + i);
+      const float f = e_s[sp * QG + r];
+      Ls = fmaf(lr_s[sp * QG + r], f, Ls);
+      a.x = fmaf(x.x, f, a.x);
+      a.y = fmaf(x.y, f, a.y);
+      a.z = fmaf(x.z, f, a.z);
+      a.w = fmaf(x.w, f, a.w);
+    }
+    T* oo = o + 4 * i;
+    store(oo, a.x / Ls);
+    store(oo + 1, a.y / Ls);
+    store(oo + 2, a.z / Ls);
+    store(oo + 3, a.w / Ls);
+  }
+  if (tid == 0) counters[bkv] = 0;  // ready for the next launch
+}
+
+template <typename T, int RPL>
+int launch_split(const void* q, const void* k, const void* v,
+                 const void* table, const void* lengths, const void* q_start,
+                 void* out, void* part, void* counters, int B,
+                 const Shape& s, cudaStream_t stream) {
+  const size_t smem = SplitSmem(s, sizeof(T), LG * RPL, split_count(s)).total;
+  auto kern = paged_attention_split_kernel<T, RPL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(s.KV, B, split_count(s));
+  kern<<<grid, SPLIT_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(q_start), static_cast<T*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), s);
+  return (int)cudaGetLastError();
+}
+
+// the split route's rule: spans of at most SPLIT_ROWS rows with 16-byte
+// page rows and pools, whose table of runs (every run's e and l per row)
+// fits the block's shared memory; -1 if it does not take the call
+template <typename T>
+int launch_split_rows(const void* q, const void* k, const void* v,
+                      const void* table, const void* lengths,
+                      const void* q_start, void* out, void* part,
+                      void* counters, int B, const Shape& s,
+                      cudaStream_t stream) {
+  const int rpl = (s.QG + LG - 1) / LG;  // rows per lane group
+  if (s.QG > SPLIT_ROWS || (s.hd * sizeof(T)) % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 ||
+      split_count(s) > 65535 ||
+      SplitSmem(s, sizeof(T), SPLIT_ROWS, split_count(s)).total > SMEM_MAX)
+    return -1;
+  if (part == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define PAGED_SPLIT(N)                                                    \
+  if constexpr (N * LG <= SPLIT_ROWS)                                     \
+    if (rpl <= N)                                                         \
+      return launch_split<T, N>(q, k, v, table, lengths, q_start, out,    \
+                                part, counters, B, s, stream)
+  PAGED_SPLIT(1);
+  PAGED_SPLIT(2);
+  PAGED_SPLIT(4);
+  PAGED_SPLIT(8);
+  PAGED_SPLIT(16);
+#undef PAGED_SPLIT
+  return -1;
+}
+
 // ---- bf16 spans of >= 16 rows on the tensor cores -----------------------
 
 constexpr int TC_WARPS = 8;
@@ -542,16 +938,26 @@ int launch_tc_hd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The split route's keys per run, for the wrapper, which sizes the
+// route's workspace from it.
+extern "C" int paged_attention_split_keys() { return SPLIT_KEYS; }
+
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched)
-// and sets *variant to the kernel it launched: 1 = the tensor-core kernel
-// (bf16, QG >= 16, hd 64, 80 or 128, 16-byte aligned q, pools and out), 0 = the CUDA-core kernel (every other call, decode
-// among them).  Needs hd <= 128 with 16-byte page rows, and
-// page_size <= 64.
+// and sets *variant to the kernel it launched:
+//   1 = the tensor-core kernel (bf16, QG >= 16, hd 64, 80 or 128,
+//       16-byte aligned q, pools and out);
+//   2 = the split kernel (every other span of QG <= 16 rows: decode; needs
+//       `part`, B * KV * ceil(P * page_size / SPLIT_KEYS) * QG * (hd + 2)
+//       floats, and `counters`, B * KV ints that are zero);
+//   0 = the CUDA-core kernel (fp32 spans of more than 16 rows, bf16 ones
+//       at other head dims).
+// Needs hd <= 128 with 16-byte page rows, and page_size <= 64.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* lengths, const void* q_start, void* out,
-    int B, int KV, int QG, int hd, int page_size, int P, int G, int window,
-    float sm_scale, int dtype, void* stream, int* variant) {
+    void* part, void* counters, int B, int KV, int QG, int hd,
+    int page_size, int P, int G, int window, float sm_scale, int dtype,
+    void* stream, int* variant) {
   *variant = 0;
   if (B <= 0 || KV <= 0 || QG <= 0 || hd <= 0 || hd > MAX_HD ||
       page_size <= 0 || page_size > KEYS_PER_STEP || P <= 0 || G <= 0 ||
@@ -568,16 +974,29 @@ extern "C" int paged_attention_launch(
   s.window = window;
   s.sm_scale = sm_scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int err = launch_tc_hd(q, k_pages, v_pages, table, lengths,
+                                 q_start, out, B, s, st);
+    if (err >= 0) {
+      *variant = 1;
+      return err;
+    }
+  }
+  const int err =
+      dtype == 0
+          ? launch_split_rows<float>(q, k_pages, v_pages, table, lengths,
+                                     q_start, out, part, counters, B, s, st)
+          : launch_split_rows<__nv_bfloat16>(q, k_pages, v_pages, table,
+                                             lengths, q_start, out, part,
+                                             counters, B, s, st);
+  if (err >= 0) {
+    *variant = 2;
+    return err;
+  }
   if (dtype == 0)
     return launch_rows<float>(q, k_pages, v_pages, table, lengths, q_start,
                               out, B, s, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int err = launch_tc_hd(q, k_pages, v_pages, table, lengths, q_start,
-                               out, B, s, st);
-  if (err >= 0) {
-    *variant = 1;
-    return err;
-  }
   return launch_rows<__nv_bfloat16>(q, k_pages, v_pages, table, lengths,
                                     q_start, out, B, s, st);
 }

@@ -17,7 +17,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from ..configs import get_config, smoke_variant
-from ..core import ElasticScalingPolicy, ScaleEvent
+from ..core import ElasticScalingPolicy, ScaleEvent, StragglerMitigationPolicy
+from ..obs import (Tracer, dominant_host_phase, format_attribution,
+                   host_overlap_ratio, phase_attribution)
 from ..serve import ServeEngine, poisson_arrivals, synthetic_requests
 from .train import scale_config
 
@@ -66,10 +68,18 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
           prompt_len: Tuple[int, int] = (8, 24),
           max_new_tokens: Tuple[int, int] = (4, 12),
           workers: int = 1, scale_events: Optional[str] = None,
-          kv_layout: str = "paged", page_size: int = 8,
-          prefix_share: Optional[bool] = None, paged_impl: str = "kernel",
-          device: str = "cuda", seed: int = 0) -> Dict:
-    """Run an open-loop serving workload; returns the metrics summary."""
+          straggler_policy: bool = False, kv_layout: str = "paged",
+          page_size: int = 8, prefix_share: Optional[bool] = None,
+          evict: Optional[bool] = None, paged_impl: str = "kernel",
+          device: str = "cuda", seed: int = 0,
+          trace_out: Optional[str] = None) -> Dict:
+    """Run an open-loop serving workload; returns the metrics summary.
+    `straggler_policy` adds a `StragglerMitigationPolicy` to the scale
+    schedule; `evict` lets priority admission park a lower-priority
+    decode's pages on the host (default on); `trace_out` enables tick-phase
+    tracing, writes a Chrome trace-event JSON file there (Perfetto-
+    loadable) and adds the per-phase host-vs-device attribution to the
+    summary."""
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if smoke else scale_config(cfg, scale)
     rng = np.random.default_rng(seed)
@@ -84,14 +94,25 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     else:
         sched = parse_scale_events(scale_events)
     policies = [ElasticScalingPolicy(sched)] if sched else []
+    if straggler_policy:
+        policies.append(StragglerMitigationPolicy())
+    tracer = Tracer(name=f"serve:{arch}") if trace_out else None
     engine = ServeEngine(cfg, capacity=capacity, cache_len=cache_len,
                          prefill_bucket=prefill_bucket, n_workers=workers,
                          policies=policies, kv_layout=kv_layout,
                          page_size=page_size, prefix_share=prefix_share,
-                         paged_impl=paged_impl, seed=seed, device=device)
+                         evict=evict, paged_impl=paged_impl, seed=seed,
+                         tracer=tracer, device=device)
     out = engine.run(reqs).summarize()
     out.update(arch=arch, capacity=capacity, device=str(engine.device),
                paged_impl=paged_impl)
+    if tracer is not None:
+        tracer.save(trace_out)
+        attr = phase_attribution(tracer)
+        out["attribution"] = attr
+        out["dominant_host_phase"] = dominant_host_phase(attr)
+        out["host_overlap_ratio"] = host_overlap_ratio(tracer)
+        out["trace_out"] = trace_out
     return out
 
 
@@ -117,6 +138,8 @@ def main() -> None:
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--scale-events", default=None,
                     help="'tick:workers,...'; default = k -> k+1 -> k mid-run")
+    ap.add_argument("--straggler-policy", action="store_true",
+                    help="add the straggler-mitigation policy")
     ap.add_argument("--kv-layout", default="paged", choices=["flat", "paged"],
                     help="paged = block-table KV pool + chunked prefill "
                          "(flat is not ported yet)")
@@ -125,6 +148,10 @@ def main() -> None:
     ap.add_argument("--prefix-share", default=None, choices=["on", "off"],
                     help="map shared prompt prefixes onto existing KV pages "
                          "(refcounted, copy-on-write; default on)")
+    ap.add_argument("--evict", default=None, choices=["on", "off"],
+                    help="priority admission may park a lower-priority "
+                         "in-flight decode's pages to host instead of "
+                         "queueing (default on)")
     ap.add_argument("--paged-impl", default="kernel",
                     choices=["kernel", "gather"],
                     help="paged attention through the CUDA kernel or through "
@@ -133,20 +160,26 @@ def main() -> None:
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="enable tick-phase tracing and write a Chrome "
+                         "trace-event JSON file (Perfetto-loadable); also "
+                         "prints the host/device attribution table")
     ap.add_argument("--json", action="store_true", help="print raw JSON")
     args = ap.parse_args()
 
+    onoff = lambda v: None if v is None else v == "on"  # noqa: E731
     out = serve(args.arch, smoke=args.smoke, scale=args.scale,
                 trace=args.trace, rate=args.rate, requests=args.requests,
                 capacity=args.capacity, cache_len=args.cache_len,
                 prefill_bucket=args.prefill_bucket,
                 prompt_len=args.prompt_len, max_new_tokens=args.max_new,
                 workers=args.workers, scale_events=args.scale_events,
+                straggler_policy=args.straggler_policy,
                 kv_layout=args.kv_layout, page_size=args.page_size,
-                prefix_share=(None if args.prefix_share is None
-                              else args.prefix_share == "on"),
-                paged_impl=args.paged_impl, device=args.device,
-                seed=args.seed)
+                prefix_share=onoff(args.prefix_share),
+                evict=onoff(args.evict), paged_impl=args.paged_impl,
+                device=args.device, seed=args.seed,
+                trace_out=args.trace_out)
     if args.json:
         print(json.dumps(out, indent=2))
         return
@@ -160,9 +193,18 @@ def main() -> None:
           f"p99 {_fmt_ms(out['tpot_p99_s'])}")
     print(f"  occupancy {out['occupancy_mean']:.2f} over {out['n_ticks']} "
           f"ticks; scale events {out['scale_events']}")
-    if out["shared_page_hits_total"]:
+    if out["shared_page_hits_total"] or out["parked_total"]:
         print(f"  kv: {out['shared_page_hits_total']} shared-page hits, "
-              f"{out['cow_breaks_total']} cow breaks")
+              f"{out['cow_breaks_total']} cow breaks, "
+              f"{out['parked_total']} parked / {out['restored_total']} "
+              f"restored ({out['kv_moved_bytes_total']} bytes moved)")
+    if "attribution" in out:
+        ratio = out.get("host_overlap_ratio")
+        print(f"  trace written to {out['trace_out']}; tick-time "
+              f"attribution (dominant host phase: "
+              f"{out['dominant_host_phase']}; host overlap ratio "
+              f"{'n/a' if ratio is None else f'{ratio:.2f}'}):")
+        print(format_attribution(out["attribution"]))
 
 
 if __name__ == "__main__":

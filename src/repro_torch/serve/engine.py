@@ -312,9 +312,37 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP queue A: {item})")
 
 
+# keywords of the JAX package's ServeEngine whose features are not ported
+# yet: their defaults (accepted) and the ROADMAP queue-A item that ports
+# them (any other value raises NotImplementedError naming it)
+_UNPORTED = {
+    "clock": (None, "faults and overload"),
+    "spec_k": (4, "speculative decoding"),
+    "drafter": (None, "speculative decoding"),
+    "draft_cfg": (None, "speculative decoding"),
+    "draft_params": (None, "speculative decoding"),
+    "decode_enabled": (True, "disaggregated serving"),
+    "retry_backoff": (1, "faults and overload"),
+    "retry_jitter": (True, "faults and overload"),
+    "slo_window": (64, "faults and overload"),
+    "tenant_burst": (None, "faults and overload"),
+    "admission": (None, "faults and overload"),
+    "ladder": (None, "faults and overload"),
+    "breaker": (None, "faults and overload"),
+}
+
+
 class ServeEngine:
     """Continuous-batching serving engine with Chicle-style elasticity
-    (paged KV layout, synchronous tick)."""
+    (paged KV layout, synchronous tick).
+
+    Takes every keyword of the JAX package's `ServeEngine`.  Those of
+    features not ported yet (`_UNPORTED`: the external clock, speculative
+    decoding, disaggregated prefill pools, retries, the overload knobs)
+    raise NotImplementedError naming their ROADMAP item unless left at
+    their defaults.  `max_cached_meshes` and `max_cached_fns` size the JAX
+    engine's jit caches; eager PyTorch keeps no such cache, so any value
+    is accepted and ignored."""
 
     def __init__(self, cfg: ModelConfig, *, capacity: int = 8,
                  cache_len: int = 64, prefill_bucket: int = 16,
@@ -322,23 +350,46 @@ class ServeEngine:
                  slots_per_chunk: int = 2, max_admit_per_tick: int = 4,
                  seed: int = 0, params: Optional[M.Transformer] = None,
                  tenant_weights: Optional[Dict[str, float]] = None,
+                 clock: Optional[Any] = None,
                  kv_layout: str = "paged", page_size: int = 8,
                  chunked_prefill: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
                  paged_impl: str = "kernel",
                  prefix_share: Optional[bool] = None,
                  evict: Optional[bool] = None,
-                 spec: str = "off",
+                 spec: str = "off", spec_k: int = 4,
+                 drafter: Optional[Any] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 draft_params: Optional[Any] = None,
                  debug_checks: bool = False,
+                 decode_enabled: bool = True,
                  overlap: bool = False,
                  fault_injector: Optional[Any] = None,
+                 retry_backoff: int = 1,
+                 retry_jitter: bool = True,
                  slo_ttft: Optional[float] = None,
                  slo_tpot: Optional[float] = None,
+                 slo_window: int = 64,
                  tenant_rate: Optional[Any] = None,
+                 tenant_burst: Optional[Any] = None,
                  queue_cap: Optional[int] = None,
+                 admission: Optional[Any] = None,
                  brownout: str = "off",
+                 ladder: Optional[Any] = None,
+                 breaker: Optional[Any] = None,
                  tracer: Optional[Tracer] = None,
+                 max_cached_meshes: int = 2, max_cached_fns: int = 16,
                  device="cuda"):
+        given = dict(clock=clock, spec_k=spec_k, drafter=drafter,
+                     draft_cfg=draft_cfg, draft_params=draft_params,
+                     decode_enabled=decode_enabled,
+                     retry_backoff=retry_backoff, retry_jitter=retry_jitter,
+                     slo_window=slo_window, tenant_burst=tenant_burst,
+                     admission=admission, ladder=ladder, breaker=breaker)
+        for name, value in given.items():
+            default, item = _UNPORTED[name]
+            if value is not None if default is None else value != default:
+                raise _unsupported(f"{name}={value!r}", item)
         if cfg.family != "dense":
             raise _unsupported(f"family {cfg.family!r}",
                                "remaining model families")

@@ -14,6 +14,8 @@ of the plain version run on the fp32-cast inputs,
 |got - want| <= 2^-7 |want| + 1e-5: the TPU kernels' P.V is fp32, so a
 kernel that rounded P to bf16 would miss it."""
 import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ import torch
 from repro_torch.configs import TrainConfig, get_config, smoke_variant
 from repro_torch.configs.chicle_paper import PAPER_LSGD
 from repro_torch.core import (Assignment, ChunkStore, CoCoASolver,
-                              LocalSGDSolver, UniTaskEngine)
+                              ElasticScalingPolicy, LocalSGDSolver, ScaleEvent,
+                              UniTaskEngine)
 from repro_torch.core.nets import loss_per_sample, mlp_apply, mlp_init
 from repro_torch.data import (make_classification, make_lm_tokens,
                               make_svm_data)
@@ -66,6 +69,17 @@ def _tc(dtype, rows, hd, dims):
     return dtype == torch.bfloat16 and rows >= 16 and hd in dims
 
 
+def _split(dtype, rows, hd):
+    """Whether the paged launcher's rule sends a call to the split route:
+    a span of at most 16 rows that the tensor-core kernel does not take."""
+    return rows <= 16 and not _tc(dtype, rows, hd, PAGED_TC_DIMS)
+
+
+def _paged_counts():
+    return (paged_attention.launches, paged_attention.launches_tc,
+            paged_attention.launches_split)
+
+
 def _one_ulp_excess(got, want):
     """max of |got - want| - (2^-7 |want| + 1e-5): <= 0 when every bf16
     element is within one ulp of the fp32 result."""
@@ -107,12 +121,13 @@ def _inputs(case, dtype, seed=0, lengths=None):
 def test_paged_attention_kernel_matches_plain(cuda, case, dtype, tol):
     win, Q = case[6], case[7]
     q, kp, vp, table, lengths = _inputs(case, dtype)
-    before = paged_attention.launches, paged_attention.launches_tc
+    before = _paged_counts()
     got = paged_attention(q, kp, vp, table, lengths, window=win, q_span=Q)
     torch.cuda.synchronize()
     tc = _tc(dtype, q.shape[2], q.shape[3], PAGED_TC_DIMS)
-    assert (paged_attention.launches, paged_attention.launches_tc) == (
-        before[0] + 1, before[1] + tc)
+    split = _split(dtype, q.shape[2], q.shape[3])
+    assert _paged_counts() == (before[0] + 1, before[1] + tc,
+                               before[2] + split)
     want = paged_attention_plain(q, kp, vp, table, lengths, window=win,
                                  q_span=Q)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -157,20 +172,98 @@ def test_paged_attention_tensor_core_spans(cuda, case):
     assert not got[lens == 0].any()
 
 
+# (B, KV, G, hd, ps, P, window, q_span), lengths: spans of <= 16 rows (the
+# split route, runs of 64 keys): an inactive row, a length shorter than one
+# run, exactly one run and exactly P * ps; a window whose first visible key
+# falls inside a run; q_span 3 and 4; hd 128 and hd 32 with pages of 8;
+# 16 rows at hd 64 (split in fp32, tensor cores in bf16); then the served
+# decode shape (h2o-danube-1.8b, one inactive row)
+SPLIT_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
+               ((3, 2, 4, 80, 16, 16, 40, 1), [200, 77, 256]),
+               ((3, 2, 4, 64, 16, 8, 0, 3), [3, 70, 128]),
+               ((2, 2, 4, 32, 8, 20, 24, 4), [9, 160]),
+               ((2, 2, 8, 128, 16, 8, 0, 1), [100, 33]),
+               ((2, 1, 16, 64, 4, 64, 0, 1), [1, 256]),
+               ((8, 8, 4, 80, 16, 128, 4096, 1), None)]
+
+
 @pytest.mark.cuda
-def test_paged_attention_decode_keeps_the_cuda_core_kernel(cuda):
-    """Decode (G rows), fp32 spans and bf16 spans at a head dim the
-    tensor-core kernel is not built for are not tensor-core launches."""
-    for case, dtype in (((8, 8, 4, 80, 16, 128, 4096, 1), torch.bfloat16),
-                        ((2, 2, 4, 64, 16, 8, 0, 4), torch.float32),
-                        ((2, 2, 4, 32, 16, 8, 0, 4), torch.bfloat16)):
+@pytest.mark.parametrize("case,lengths", SPLIT_CASES)
+def test_paged_attention_split_route_matches_plain(cuda, case, lengths):
+    """The split route against the plain version: fp32 at 2e-5, bf16 at
+    2e-2 and within one bf16 ulp of the plain version on the fp32-cast
+    inputs; length-0 rows are zeros."""
+    B, KV, G, hd, ps, P, win, Q = case
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, kp, vp, table, lens = _inputs(case, dtype, seed=sum(case),
+                                         lengths=lengths)
+        before = _paged_counts()
+        got = paged_attention(q, kp, vp, table, lens, window=win, q_span=Q)
+        torch.cuda.synchronize()
+        split = _split(dtype, Q * G, hd)
+        assert _paged_counts() == (before[0] + 1, before[1] + (not split),
+                                   before[2] + split)
+        want = paged_attention_plain(q, kp, vp, table, lens, window=win,
+                                     q_span=Q)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if dtype == torch.bfloat16:
+            want32 = paged_attention_plain(q.float(), kp.float(), vp.float(),
+                                           table, lens, window=win, q_span=Q)
+            assert _one_ulp_excess(got, want32) <= 0
+        assert not got[lens == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_split_route_is_deterministic(cuda, dtype):
+    """The runs' partials are merged in run order, not in the order the
+    blocks finish: two calls give bitwise-equal outputs."""
+    case = (8, 8, 4, 80, 16, 128, 4096, 1)
+    q, kp, vp, table, lengths = _inputs(case, dtype, seed=5)
+    before = paged_attention.launches_split
+    outs = [paged_attention(q, kp, vp, table, lengths, window=4096)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert paged_attention.launches_split == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_paged_attention_decode_takes_the_split_route(cuda):
+    """Decode (G rows) and other spans of at most 16 rows that the
+    tensor-core kernel does not take (fp32; bf16 at a head dim it is not
+    built for) take the split route, never the tensor cores; fp32 spans of
+    more than 16 rows, and bf16 ones at such a head dim, keep the CUDA-core
+    kernel."""
+    for case, dtype, route in (
+            ((8, 8, 4, 80, 16, 128, 4096, 1), torch.bfloat16, "split"),
+            ((8, 8, 4, 80, 16, 128, 4096, 1), torch.float32, "split"),
+            ((2, 2, 4, 64, 16, 8, 0, 4), torch.float32, "split"),
+            ((2, 2, 4, 32, 16, 8, 0, 4), torch.bfloat16, "split"),
+            ((2, 2, 4, 64, 16, 8, 0, 8), torch.float32, "cuda_core"),
+            ((2, 2, 4, 32, 16, 8, 0, 8), torch.bfloat16, "cuda_core")):
         q, kp, vp, table, lengths = _inputs(case, dtype)
-        before = paged_attention.launches, paged_attention.launches_tc
+        before = _paged_counts()
         paged_attention(q, kp, vp, table, lengths, window=case[6],
                         q_span=case[7])
         torch.cuda.synchronize()
-        assert (paged_attention.launches, paged_attention.launches_tc) == (
-            before[0] + 1, before[1])
+        assert _paged_counts() == (before[0] + 1, before[1],
+                                   before[2] + (route == "split"))
+
+
+@pytest.mark.cuda
+def test_paged_attention_split_route_refuses_misaligned_pools(cuda):
+    """Pools whose base is not 16-byte aligned (the route's cp.async
+    gathers) raise; a CUDA tensor never takes the plain version."""
+    q, kp, vp, table, lengths = _inputs(CASES[0], torch.float32)
+    flat = torch.zeros(kp.numel() + 1, device="cuda")
+    kp_off = flat[1:].view(kp.shape)
+    kp_off.copy_(kp)
+    before = _paged_counts()
+    with pytest.raises(ValueError):
+        paged_attention(q, kp_off, vp, table, lengths)
+    assert _paged_counts() == before
 
 
 @pytest.mark.cuda
@@ -353,6 +446,42 @@ def test_training_solvers_launch_their_kernels_every_iteration(cuda):
     for k, v in res["cpu"][1].items():
         torch.testing.assert_close(res["cuda"][1][k], v, rtol=1e-4,
                                    atol=1e-4)
+
+
+COCOA_FIXTURE = (Path(__file__).resolve().parent / "data"
+                 / "cocoa_history_f28.json")
+
+
+@pytest.mark.cuda
+def test_cocoa_gap_history_on_the_card_holds_the_jax_fixture(cuda):
+    """The port's CoCoA on the card, every pass through the blocked SCD
+    kernel (F=28), against the JAX package's gap history on the CPU at the
+    same shape and schedule (the fixture, written by
+    tests/test_torch_cocoa_history.py): equal K trajectory, and each gap
+    within 1e-3 relative plus 1e-6 absolute (the gap is the difference of
+    two fp32 values of ~0.69, known to a few of their 6e-8 ulps; the CPU
+    port differs by at most 4 ulps).  The worst difference is printed."""
+    obj = json.loads(COCOA_FIXTURE.read_text())
+    c, want = obj["shape"], obj["history"]
+    x, y = make_svm_data(c["n"], c["features"], seed=c["seed"])
+    store = ChunkStore({"x": x, "y": y}, chunk_size=c["chunk_size"])
+    a = Assignment(store.n_chunks, c["k0"], np.random.default_rng(0))
+    solver = CoCoASolver(store, lam=c["lam"], device="cuda")
+    unit = c["n"] // c["k0"]
+    pol = ElasticScalingPolicy([ScaleEvent(2 * i * unit, max(c["k0"] - 2 * i,
+                                                              2))
+                                for i in range(c["k0"] // 2)])
+    eng = UniTaskEngine(store, a, [pol], balance_processing=False)
+    before = scd_pass.launches, scd_pass.launches_blocked
+    hist = eng.run(c["iters"], solver.step, solver.metric)
+    assert (scd_pass.launches - before[0],
+            scd_pass.launches_blocked - before[1]) == (c["iters"],) * 2
+    assert [h.n_workers for h in hist] == [k for k, _ in want]
+    diff = [abs(h.metric - g) for h, (_, g) in zip(hist, want)]
+    print(f"cocoa gap history vs the JAX fixture: max abs diff "
+          f"{max(diff):.3e}, per iteration {[f'{d:.1e}' for d in diff]}")
+    for d, (_, g) in zip(diff, want):
+        assert d <= 1e-3 * abs(g) + 1e-6
 
 
 # (B, S, KV, G, hd, window, causal): tests/test_kernels.py's flash cases,

@@ -1,8 +1,11 @@
 """Paged attention in the PyTorch port vs the JAX package: the port's plain
 version against the Pallas kernel (interpret mode, as tests/test_paged.py
 runs it) and against `kernels.ref.paged_attention_ref`, on the kernel's
-self-test cases plus wider spans; and the wrapper's input checks.  The
-CUDA kernel itself is tested on the card by tests/test_torch_cuda.py.
+self-test cases plus wider spans; the split route's arithmetic
+(`paged_attention_split_plain`: runs of keys, per-run (m, l, acc), merged
+in run order) against the same, on those cases, the served decode shape
+and the route's edge cases; and the wrapper's input checks.  The CUDA
+kernels themselves are tested on the card by tests/test_torch_cuda.py.
 
 Tolerances are the reference's (tests/test_kernels.py): fp32 2e-5."""
 import jax.numpy as jnp
@@ -12,7 +15,9 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.paged_attention import paged_attention as jax_paged
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (SPLIT_KEYS,
+                                                 paged_attention,
+                                                 paged_attention_split_plain)
 
 # (B, KV, G, hd, ps, P, window, q_span): the five cases of the JAX kernel's
 # _selftest, then an hd that is not a power of two and a wide windowed span
@@ -25,18 +30,22 @@ CASES = SELFTEST_CASES + [(2, 2, 4, 80, 16, 4, 0, 1),
                           (2, 2, 4, 32, 8, 6, 12, 8)]
 
 
-def make_inputs(case, seed=0):
+def make_inputs(case, seed=0, lengths=None):
     """numpy inputs laid out as the JAX self-test lays them out: shuffled
-    physical pages, one inactive row in decode cases, -1 past live."""
+    physical pages, one inactive row in decode cases, -1 past live
+    (`lengths` given: those instead of random ones)."""
     B, KV, G, hd, ps, P, _, Q = case
     rng = np.random.default_rng(seed)
     N = B * P + 1
     q = rng.standard_normal((B, KV, Q * G, hd)).astype(np.float32)
     kp = rng.standard_normal((N, ps, KV, hd)).astype(np.float32)
     vp = rng.standard_normal((N, ps, KV, hd)).astype(np.float32)
-    lengths = rng.integers(Q, P * ps + 1, size=B).astype(np.int32)
-    if Q == 1:
-        lengths[rng.integers(B)] = 0
+    if lengths is not None:
+        lengths = np.asarray(lengths, np.int32)
+    else:
+        lengths = rng.integers(Q, P * ps + 1, size=B).astype(np.int32)
+        if Q == 1:
+            lengths[rng.integers(B)] = 0
     perm = rng.permutation(np.arange(1, N))
     table = np.full((B, P), -1, np.int32)
     used = 0
@@ -81,6 +90,58 @@ def test_explicit_q_start_matches_jax_ref():
         *jx, q_span=4, q_start=jnp.asarray(q_start)))
     got = paged_attention(*_torch(q, kp, vp, table, lengths), q_span=4,
                           q_start=torch.from_numpy(q_start)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+# (case, lengths) of the split route (spans of <= 16 rows): the served
+# decode shape (h2o-danube-1.8b: hd 80, page_size 16, P 128, window 4096,
+# one inactive row); then length 0, a length shorter than one run, one run
+# and exactly P * ps; a window whose first visible key falls inside a run;
+# q_span 3 (12 rows) and q_span 4 (16 rows)
+SPLIT_CASES = ([(c, None) for c in SELFTEST_CASES]
+               + [((8, 8, 4, 80, 16, 128, 4096, 1), None),
+                  ((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
+                  ((3, 2, 4, 80, 16, 16, 40, 1), [200, 77, 256]),
+                  ((3, 2, 4, 64, 16, 8, 0, 3), [3, 70, 128]),
+                  ((2, 2, 4, 32, 8, 20, 24, 4), [9, 160])])
+
+
+@pytest.mark.parametrize("split_keys", [SPLIT_KEYS, 8])
+@pytest.mark.parametrize("case,lengths", SPLIT_CASES)
+def test_split_arithmetic_matches_jax_kernel_and_ref(case, lengths,
+                                                     split_keys):
+    """The split route's arithmetic, at the kernel's runs of SPLIT_KEYS keys
+    and at runs of 8 (so the self-test cases' short tables are cut into
+    several runs too), against the JAX oracle, and on the self-test cases
+    against the Pallas kernel; length-0 rows are zeros."""
+    win, Q = case[6], case[7]
+    q, kp, vp, table, lengths = make_inputs(case, seed=sum(case),
+                                            lengths=lengths)
+    jx = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    got = paged_attention_split_plain(
+        *_torch(q, kp, vp, table, lengths), window=win, q_span=Q,
+        split_keys=split_keys).numpy()
+    want = np.asarray(ref.paged_attention_ref(*jx, window=win, q_span=Q))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    if case in SELFTEST_CASES:
+        want_kernel = np.asarray(jax_paged(*jx, window=win, q_span=Q,
+                                           interpret=True))
+        np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
+    assert not got[lengths == 0].any()
+
+
+def test_split_arithmetic_with_explicit_q_start():
+    """A span whose first query is not the contiguous tail (q_start given),
+    cut into runs of 8 keys, against the JAX oracle."""
+    case = (2, 2, 4, 32, 8, 4, 0, 4)
+    q, kp, vp, table, lengths = make_inputs(case, seed=3)
+    q_start = np.maximum(lengths - 6, 0).astype(np.int32)
+    jx = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    want = np.asarray(ref.paged_attention_ref(
+        *jx, q_span=4, q_start=jnp.asarray(q_start)))
+    got = paged_attention_split_plain(
+        *_torch(q, kp, vp, table, lengths), q_span=4,
+        q_start=torch.from_numpy(q_start), split_keys=8).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 

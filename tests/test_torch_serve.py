@@ -4,6 +4,8 @@ parameters and the same workloads: token streams and every wall-time-free
 `summarize()` counter must be equal.  The burst workloads run the JAX engine
 with evict=False; the mixed-priority ones run both engines with the default
 `evict` (on), so a high-priority arrival parks and later restores a decode."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -207,3 +209,97 @@ def test_park_excess_matches_the_jax_engine(model):
         assert ts[k] == js[k]
     assert ts["parked_total"] >= 1
     assert teng.pages.n_used == 0 and teng.mem.n_parked == 0
+
+
+# ---------------------------------------------------------------------------
+# the serve launcher and the engine's keywords
+# ---------------------------------------------------------------------------
+
+LAUNCH = dict(smoke=True, trace="burst", requests=6, capacity=4,
+              cache_len=32, prefill_bucket=8, prompt_len=(6, 14),
+              max_new_tokens=(3, 6), workers=2, kv_layout="paged",
+              page_size=8, seed=0)
+PARK_KEYS = ["parked_total", "restored_total", "kv_moved_bytes_total"]
+
+
+@pytest.mark.parametrize("option", ["straggler_policy", "evict_off",
+                                    "trace_out"])
+def test_launch_serve_options_match_the_jax_launcher(model, option,
+                                                     tmp_path, monkeypatch):
+    """`launch.serve.serve(...)` with --straggler-policy, --evict off or
+    --trace-out, against the JAX package's `serve(...)` at the same
+    arguments and weights: equal wall-time-free summary fields; the trace
+    file passes the port's Chrome-trace validator."""
+    from repro.launch.serve import serve as jax_serve
+    from repro_torch.launch import serve as port_launch
+    from repro_torch.obs import validate_chrome_trace
+    cfg, params, tcfg, tparams = model
+    kw = {"straggler_policy": dict(straggler_policy=True),
+          "evict_off": dict(evict=False),
+          "trace_out": dict(trace_out=str(tmp_path / "trace.json"))}[option]
+    monkeypatch.setattr(JM, "init_params", lambda *a, **k: params)
+    monkeypatch.setattr(TM, "init_params", lambda *a, **k: tparams)
+    js = jax_serve(ARCH, **LAUNCH, **kw)
+    ts = port_launch.serve(ARCH, **LAUNCH, **kw, device="cpu")
+    keys = COUNTERS + PARK_KEYS
+    assert {k: ts[k] for k in keys} == {k: js[k] for k in keys}
+    assert ts["requests_finished"] == LAUNCH["requests"]
+    if option == "trace_out":
+        assert ts["trace_out"] == kw["trace_out"]
+        # the JAX engine's "jit" phase (compiles) has no counterpart
+        assert set(ts["attribution"]) == set(js["attribution"]) - {"jit"}
+        with open(kw["trace_out"]) as fh:
+            counts = validate_chrome_trace(
+                json.load(fh), require_names=["schedule", "decode.dispatch"])
+        assert counts["decode.dispatch"] == ts["decode_dispatches"]
+
+
+def test_launch_serve_cli_takes_the_new_flags(monkeypatch, tmp_path):
+    """--straggler-policy, --evict on|off and --trace-out FILE reach
+    `serve(...)`."""
+    from repro_torch.launch import serve as port_launch
+    seen = {}
+
+    def fake_serve(arch, **kw):
+        seen.update(kw)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(port_launch, "serve", fake_serve)
+    trace = str(tmp_path / "t.json")
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--smoke", "--straggler-policy", "--evict", "off",
+        "--trace-out", trace, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        port_launch.main()
+    assert (seen["straggler_policy"], seen["evict"], seen["trace_out"]) \
+        == (True, False, trace)
+
+
+def test_engine_takes_every_keyword_of_the_jax_engine(model):
+    """The port's `ServeEngine.__init__` names every keyword of the JAX
+    package's with its default; an unported one raises NotImplementedError
+    (naming its ROADMAP queue-A item) when given another value, and is
+    accepted at its default."""
+    import inspect
+    from repro_torch.serve import engine as port_engine
+    ref = inspect.signature(ServeEngine.__init__).parameters
+    mine = inspect.signature(TServeEngine.__init__).parameters
+    assert set(ref) <= set(mine)
+    _, _, tcfg, tparams = model
+    small = dict(capacity=2, cache_len=16, prefill_bucket=8, device="cpu",
+                 params=tparams)
+    others = {"clock": lambda: 0.0, "spec_k": 2, "drafter": object(),
+              "draft_cfg": tcfg, "draft_params": {}, "decode_enabled": False,
+              "retry_backoff": 3, "retry_jitter": False, "slo_window": 8,
+              "tenant_burst": 2.0, "admission": object(),
+              "ladder": object(), "breaker": object()}
+    assert set(others) == set(port_engine._UNPORTED)
+    for name, value in others.items():
+        default, item = port_engine._UNPORTED[name]
+        assert mine[name].default == ref[name].default == default
+        with pytest.raises(NotImplementedError, match=item):
+            TServeEngine(tcfg, **small, **{name: value})
+        TServeEngine(tcfg, **small, **{name: default})
+    for name in ("max_cached_meshes", "max_cached_fns"):
+        assert mine[name].default == ref[name].default
+        TServeEngine(tcfg, **small, **{name: 1})
