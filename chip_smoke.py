@@ -15,8 +15,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               have some.
 2. kernels  — each kernel against its plain PyTorch version on the card.
               paged_attention: the JAX kernel's self-test cases plus the
-              full-width h2o-danube-1.8b shapes (decode and a 256-token
-              prefill chunk), two more spans of >= 16 rows (the
+              full-width h2o-danube-1.8b shapes (decode, a 256-token
+              prefill chunk and the speculative verify span of spec_k 4:
+              q_span 5, 20 rows), two more spans of >= 16 rows (the
               tensor-core kernel) and the split route's edge cases
               (length 0, shorter than one run of keys, exactly P * ps, a
               window starting inside a run, q_span 3 and 4), fp32 at 2e-5
@@ -48,10 +49,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    profile  — the same run again under torch.profiler: device busy time,
               idle share, the largest kernels and the time of each
               paged-attention kernel (tensor-core chunk, split decode).
-4. streams  — the same workload in fp32 through the kernel and through
-              the gather path must give equal token streams; and a smoke
+4. spec     — speculative decoding (spec="ngram", spec_k 4) on the
+              paged layout through the kernel at full h2o-danube-1.8b width,
+              bf16: 8 requests of motif-tiled (repetitive) prompts of
+              32-1536 tokens, 32 new tokens each; every verify launch (20
+              rows) must take the tensor-core kernel, verify launches
+              must equal layers x verify dispatches, all launches layers
+              x dispatches, and every request must finish.
+              Acceptance rate, tokens per dispatch, tokens/s, TTFT, TPOT,
+              beside the same workload with speculation off (the bf16
+              streams' first divergence and its top-2 margin, reported,
+              not gated); then the spec run again under torch.profiler.
+   streams  — the engine workload in fp32 through the kernel and through
+              the gather path must give equal token streams, and so must
+              speculative decoding through the kernel (the verify spans on
+              the CUDA-core kernel) and the flat KV layout; the spec
+              phase's repetitive burst in fp32 through the kernel, spec on
+              and off, must too, with some drafts rejected (rollback and
+              re-verify over rows that rejected drafts wrote); and a smoke
               size engine on the card must match the same engine on the
               CPU.
+   flat     — the flat KV layout at full width, bf16: h2o-danube-1.8b and
+              smollm-360m (15 heads over 5 KV heads, the flat head layout)
+              on the engine workload, every request finishing (each
+              after a warm-up run, then again under torch.profiler,
+              device activity only); then
+              spec="draft" on the flat layout with a 4-layer
+              h2o-danube-1.8b drafting for itself (draft params = the
+              target's).
 5. cocoa    — the paper's GLM at HIGGS's shape: CoCoA/SCD on the uni-task
               engine over 11,000,000 x 28 synthetic samples in 1,100
               chunks, lambda 1e-3, scaling in 16 -> 2 over 12 iterations
@@ -80,8 +105,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               rebalancing, 2 of 4 workers at twice the per-sample time.
 9. lm_elastic — ElasticTrainer on h2o-danube-1.8b at full width and depth
               (bf16, sgdm, remat) on batches of 8 x 4096 tokens from
-              ChunkBatchPipeline: 6 steps, K 4 -> 2 at step 3, suspended
-              to the host after step 3 and resumed (the state must come
+              ChunkBatchPipeline: 4 steps, K 4 -> 2 at step 2, suspended
+              to the host after step 2 and resumed (the state must come
               back bit for bit); then, under deterministic algorithms, a
               suspended run against an uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
@@ -115,6 +140,11 @@ ARCH = "h2o-danube-1.8b"
 DEVICE = "cuda"
 ENGINE = dict(capacity=8, page_size=16, cache_len=2048, prefill_bucket=64,
               prefill_chunk=256, kv_layout="paged")
+PROMPT_LEN = (32, 1536)  # the serving workloads' prompt lengths (8 x 32 new)
+FLAT = dict(capacity=8, cache_len=2048, prefill_bucket=64, kv_layout="flat")
+SPEC_K = 4  # the JAX engine's default draft depth
+FLAT_ARCH = "smollm-360m"
+DRAFT_LAYERS = 4  # depth of the draft arm's target (and draft) model
 # training path (phases cocoa and lsgd)
 COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
              iters=12, rebalance_iters=6)
@@ -168,10 +198,17 @@ FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
 LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
                 hetero="2.0x2", workers=4, seed=0)
 LM_ELASTIC = dict(batch=8, seq=4096, n_seqs=256, chunk_size=8, k0=4,
-                  scale_at=3, k1=2, steps=6, suspend_after=3, det_steps=2)
+                  scale_at=2, k1=2, steps=4, suspend_after=2, det_steps=2)
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since
+    the script started)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -351,17 +388,16 @@ def time_ms(torch, fn, inputs, window, iters):
 
 
 def profile_run(torch, run, kernel="paged_attention", attempts=1):
-    """Run `run()` under torch.profiler; return the device-time breakdown:
-    busy seconds (sum of kernel, memcpy and memset time on the card), the
-    wall seconds, the idle share, `kernel`'s share of the busy time and
-    the largest kernels by time.  The profiler can drop a window's device
-    records; a repeatable `run` gets up to `attempts` tries until `kernel`
-    shows in the trace."""
+    """Run `run()` under torch.profiler, device activity only; return the
+    device-time breakdown: busy seconds (sum of kernel, memcpy and memset
+    time on the card), the wall seconds, the idle share, `kernel`'s share
+    of the busy time and the largest kernels by time.  The profiler can
+    drop a window's device records; a repeatable `run` gets up to
+    `attempts` tries until `kernel` shows in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -394,12 +430,48 @@ def profile_run(torch, run, kernel="paged_attention", attempts=1):
 
 def requests(np, synthetic_requests, vocab):
     return synthetic_requests(8, vocab_size=vocab, arrivals=np.zeros(8),
-                              prompt_len=(32, 1536), max_new_tokens=(32, 32),
+                              prompt_len=PROMPT_LEN, max_new_tokens=(32, 32),
                               rng=np.random.default_rng(0))
+
+
+def repetitive_requests(np, Request, vocab, n=8, seed=1):
+    """Prompts that tile a short random motif (tests/test_spec.py's
+    `_repetitive`, prompt lookup's best case) at the engine workload's
+    lengths: 32-1536 prompt tokens, 32 new tokens each."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        motif = rng.integers(0, vocab, size=int(rng.integers(3, 5)))
+        plen = int(rng.integers(*PROMPT_LEN))
+        prompt = np.tile(motif, -(-plen // len(motif)))[:plen]
+        reqs.append(Request(rid=i, prompt=prompt.astype(np.int32),
+                            max_new_tokens=32))
+    return reqs
 
 
 def streams(metrics):
     return {r.rid: list(r.generated) for r in metrics.requests}
+
+
+def first_divergence(torch, np, M, cfg, params, got, want, prompts):
+    """None if the two stream dicts are equal; else the first request and
+    step where they differ, the two tokens, and the top-2 logit margin of
+    `params` after the common prefix (a near-tie shows as a small
+    margin)."""
+    if got == want:
+        return None
+    rid = min(r for r in got if got[r] != want[r])
+    a, b = got[rid], want[rid]
+    step = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                min(len(a), len(b)))
+    toks = torch.tensor(np.concatenate([prompts[rid], b[:step]]),
+                        device=DEVICE)[None]
+    with torch.inference_mode():
+        top2 = M.forward(cfg, params, toks)[0, -1].float().topk(2).values
+    return {"rid": rid, "step": step,
+            "got_token": a[step] if step < len(a) else None,
+            "want_token": b[step] if step < len(b) else None,
+            "top2_margin": float(top2[0] - top2[1])}
 
 
 # ---------------------------------------------------------------------------
@@ -431,8 +503,7 @@ def device_ms(torch, fn, iters):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1141,8 +1212,8 @@ def same_state(torch, a, b) -> bool:
 
 
 def lm_elastic_phase(torch, np):
-    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 6 steps of
-    8 x 4096 tokens, K 4 -> 2, suspended to the host after step 3 and
+    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 4 steps of
+    8 x 4096 tokens, K 4 -> 2, suspended to the host after step 2 and
     resumed; then a suspended run against an uninterrupted one under
     deterministic algorithms."""
     from repro_torch.configs import TrainConfig, get_config
@@ -1236,6 +1307,165 @@ def lm_elastic_phase(torch, np):
     return rows
 
 
+def spec_phase(torch, np, M, cfg, params, ServeEngine, Request, paged_mod):
+    """Speculative decoding through the kernel at full width, bf16: the
+    repetitive burst with spec off, then with spec="ngram" (launch counts
+    zeroed just before and read just after), then the spec run again under
+    the profiler."""
+    paged_attention = paged_mod.paged_attention
+    vocab = cfg.vocab_size
+    prompts = {r.rid: r.prompt for r in repetitive_requests(np, Request,
+                                                            vocab)}
+    off = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
+                      device=DEVICE, **ENGINE)
+    m_off = off.run(repetitive_requests(np, Request, vocab))
+    s_off = m_off.summarize()
+    del off
+    eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
+                      device=DEVICE, spec="ngram", spec_k=SPEC_K, **ENGINE)
+    span_log, restore = record_paged_launches(paged_mod)
+    paged_attention.launches = paged_attention.launches_tc = 0
+    paged_attention.launches_split = 0
+    metrics = eng.run(repetitive_requests(np, Request, vocab))
+    launches, launches_tc, launches_split = paged_counts(paged_attention)
+    restore()
+    s = metrics.summarize()
+    from repro_torch.models.attention import head_layout
+    rows = (SPEC_K + 1) * head_layout(cfg)[2]  # q_span x padded group
+    dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
+    if launches != cfg.num_layers * dispatches or launches <= 0:
+        fail(f"spec: {launches} kernel launches for {dispatches} paged "
+             f"dispatches of {cfg.num_layers} layers")
+    verify = [r for qg, r in span_log if qg == rows]
+    wrong = [(qg, r) for qg, r in span_log if r != "tc"]
+    if len(verify) != cfg.num_layers * s["decode_dispatches"] or wrong \
+            or len(span_log) != launches or launches_tc != launches:
+        fail(f"spec routes: {len(verify)} verify launches for "
+             f"{s['decode_dispatches']} verify dispatches of "
+             f"{cfg.num_layers} layers, {launches_tc} tensor-core of "
+             f"{launches}; misrouted "
+             f"(rows, route): {wrong[:5]}")
+    toks = [t for r in metrics.requests for t in r.generated]
+    if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32 \
+            or not all(0 <= t < vocab for t in toks) \
+            or not s["spec_drafted_total"]:
+        fail(f"spec output wrong: {s['requests_finished']} finished, "
+             f"{s['tokens_generated']} tokens, {s['spec_drafted_total']} "
+             f"drafted")
+    div = first_divergence(torch, np, M, cfg, params, streams(metrics),
+                           streams(m_off), prompts)
+    emit({"phase": "spec", "arch": ARCH, "dtype": cfg.dtype,
+          "paged_impl": "kernel", "spec": "ngram", "spec_k": SPEC_K,
+          **ENGINE, "prompt_lens": [r.prompt_len for r in metrics.requests],
+          "acceptance_rate": s["spec_acceptance_rate"],
+          "drafted": s["spec_drafted_total"],
+          "accepted": s["spec_accepted_total"],
+          "tokens_per_dispatch": s["tokens_per_dispatch"],
+          "tokens_per_s": s["tokens_per_s"], "ttft_p50_s": s["ttft_p50_s"],
+          "ttft_p99_s": s["ttft_p99_s"], "tpot_p50_s": s["tpot_p50_s"],
+          "wall_s": s["wall_s"], "n_ticks": s["n_ticks"],
+          "verify_dispatches": s["decode_dispatches"],
+          "prefill_dispatches": s["prefill_dispatches_total"],
+          "kernel_launches": launches,
+          "kernel_launches_tensor_core": launches_tc,
+          "verify_launches": len(verify), "verify_rows": rows,
+          "spec_off": {"tokens_per_dispatch": s_off["tokens_per_dispatch"],
+                       "tokens_per_s": s_off["tokens_per_s"],
+                       "ttft_p50_s": s_off["ttft_p50_s"],
+                       "tpot_p50_s": s_off["tpot_p50_s"],
+                       "wall_s": s_off["wall_s"],
+                       "decode_dispatches": s_off["decode_dispatches"]},
+          "bf16_streams_equal_spec_off": div is None,
+          "bf16_first_divergence": div})
+    del eng
+    prof_eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
+                           device=DEVICE, spec="ngram", spec_k=SPEC_K,
+                           **ENGINE)
+    emit({"phase": "profile", "cell": "spec", **profile_run(
+        torch, lambda: prof_eng.run(repetitive_requests(np, Request,
+                                                        vocab)))})
+    del prof_eng
+    return {"launches": launches, "launches_tc": launches_tc,
+            "verify_launches": len(verify)}
+
+
+def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
+             **kw):
+    """The engine workload on the flat layout; every request must finish
+    with its 32 tokens.  `profile(run)`, if given, runs it and returns the
+    profile.  -> (summary, streams, profile)."""
+    eng = ServeEngine(cfg, params=params, seed=0, device=DEVICE, **FLAT, **kw)
+    reqs = requests(np, synthetic_requests, cfg.vocab_size)
+    prof = None
+    if profile is None:
+        metrics = eng.run(reqs)
+    else:
+        box = {}
+        prof = profile(lambda: box.setdefault("m", eng.run(reqs)))
+        metrics = box["m"]
+    s = metrics.summarize()
+    toks = [t for r in metrics.requests for t in r.generated]
+    if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32 \
+            or not all(0 <= t < cfg.vocab_size for t in toks):
+        fail(f"flat {cfg.name}: {s['requests_finished']} finished, "
+             f"{s['tokens_generated']} tokens")
+    return s, streams(metrics), prof
+
+
+def flat_phase(torch, np, M, cfg, get_config, ServeEngine,
+               synthetic_requests):
+    """The flat KV layout at full width, bf16: h2o-danube-1.8b and
+    smollm-360m (a warm-up run, the measured run, then one under the
+    profiler, device activity only; no custom kernel runs here, so the
+    profile's share is the elementwise kernels'), then spec="draft" with a 4-layer danube drafting
+    for itself."""
+    from repro_torch.models import attention as attn
+    out = {}
+    for arch, c in ((ARCH, cfg), (FLAT_ARCH, get_config(FLAT_ARCH))):
+        params = M.init_params(c, torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE)
+        flat_run(np, ServeEngine, synthetic_requests, c, params)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        s, _, _ = flat_run(np, ServeEngine, synthetic_requests, c, params)
+        peak = torch.cuda.max_memory_allocated()
+        prof = flat_run(np, ServeEngine, synthetic_requests, c, params,
+                        profile=lambda run: profile_run(
+                            torch, run, kernel="elementwise"))[2]
+        out[arch] = {"layers": c.num_layers, "d_model": c.d_model,
+                     "heads": c.num_heads, "kv_heads": c.kv_heads(),
+                     "head_layout": attn.head_layout(c)[0],
+                     "tokens_per_s": s["tokens_per_s"],
+                     "ttft_p50_s": s["ttft_p50_s"],
+                     "tpot_p50_s": s["tpot_p50_s"], "wall_s": s["wall_s"],
+                     "n_ticks": s["n_ticks"],
+                     "admission_bytes": s["admission_bytes_total"],
+                     "peak_mem_gb": peak / 1e9,
+                     "profile": {k: prof.get(k) for k in (
+                         "wall_s", "device_busy_s", "device_idle_share",
+                         "top_kernels")}}
+        del params
+        torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=DRAFT_LAYERS)
+    params = M.init_params(small, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    s, _, _ = flat_run(np, ServeEngine, synthetic_requests, small, params,
+                       spec="draft", spec_k=SPEC_K, draft_cfg=small,
+                       draft_params=params)
+    if not s["spec_drafted_total"] or s["draft_dispatches"] <= 0:
+        fail(f"draft arm drafted {s['spec_drafted_total']} tokens in "
+             f"{s['draft_dispatches']} dispatches")
+    out["draft"] = {"arch": ARCH, "layers": DRAFT_LAYERS, "spec_k": SPEC_K,
+                    "acceptance_rate": s["spec_acceptance_rate"],
+                    "drafted": s["spec_drafted_total"],
+                    "tokens_per_dispatch": s["tokens_per_dispatch"],
+                    "draft_dispatches": s["draft_dispatches"],
+                    "tokens_per_s": s["tokens_per_s"],
+                    "tpot_p50_s": s["tpot_p50_s"], "wall_s": s["wall_s"]}
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "flat", **FLAT, "dtype": cfg.dtype, "runs": out})
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         sys.exit("chip_smoke: run it from a checkout of the repository "
@@ -1264,12 +1494,12 @@ def main() -> None:
     from repro_torch.kernels import scd as scd_mod
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
-    from repro_torch.serve import ServeEngine, synthetic_requests
+    from repro_torch.serve import Request, ServeEngine, synthetic_requests
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1301,6 +1531,9 @@ def main() -> None:
         "decode": dict(B=8, Q=1, lengths=rng.integers(33, 1569, size=8)),
         # one 256-token prefill chunk per row at page-aligned offsets
         "chunk": dict(B=4, Q=256, lengths=256 * rng.integers(1, 7, size=4)),
+        # a speculative verify span of spec_k + 1 positions in every slot
+        "verify": dict(B=8, Q=SPEC_K + 1,
+                       lengths=rng.integers(37, 1573, size=8)),
     }
     worst = {}
     checks = []
@@ -1420,10 +1653,15 @@ def main() -> None:
                                 ScaleEvent(25, 1)])], **ENGINE)
     emit({"phase": "profile", **profile_run(torch, lambda: prof_eng.run(
         requests(np, synthetic_requests, cfg.vocab_size)))})
-    del eng, prof_eng, params
+    del eng, prof_eng
+
+    # ---- 4. spec: speculative decoding through the kernel ----------------
+    spec = spec_phase(torch, np, M, cfg, params, ServeEngine, Request,
+                      paged_mod)
+    del params
     torch.cuda.empty_cache()
 
-    # ---- 4. streams: kernel == gather (fp32, full width); card == CPU ----
+    # ---- streams: kernel == gather == spec == flat (fp32); card == CPU ---
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = M.init_params(cfg32,
                              torch.Generator(device=DEVICE).manual_seed(0),
@@ -1435,21 +1673,51 @@ def main() -> None:
         got[impl] = streams(eng.run(requests(np, synthetic_requests,
                                              cfg.vocab_size)))
         del eng
-    if got["kernel"] != got["gather"]:
-        rid = min(r for r in got["kernel"]
-                  if got["kernel"][r] != got["gather"][r])
-        a, b = got["kernel"][rid], got["gather"][rid]
-        step = next(i for i in range(len(a)) if a[i] != b[i])
-        prompt = requests(np, synthetic_requests, cfg.vocab_size)[rid].prompt
-        toks_in = torch.tensor(np.concatenate([prompt, b[:step]]),
-                               device=DEVICE)[None]
-        with torch.inference_mode():
-            top2 = M.forward(cfg32, params32, toks_in)[0, -1].topk(2).values
-        emit({"phase": "streams", "equal": False, "rid": rid, "step": step,
-              "kernel_token": a[step], "gather_token": b[step],
-              "top2_margin": float(top2[0] - top2[1])})
-        fail(f"kernel and gather streams diverge at request {rid} step "
-             f"{step}")
+    eng = ServeEngine(cfg32, params=params32, paged_impl="kernel", seed=0,
+                      device=DEVICE, spec="ngram", spec_k=SPEC_K, **ENGINE)
+    m_spec = eng.run(requests(np, synthetic_requests, cfg.vocab_size))
+    got["spec"] = streams(m_spec)
+    del eng
+    # spec == spec-off on the repetitive burst, whose drafts are partly
+    # rejected: rollback, page trim and the re-verify over the KV rows that
+    # rejected drafts wrote all run through the kernel
+    repetitive = {}
+    for name, kw in (("off", {}), ("spec", dict(spec="ngram",
+                                                 spec_k=SPEC_K))):
+        eng = ServeEngine(cfg32, params=params32, paged_impl="kernel",
+                          seed=0, device=DEVICE, **kw, **ENGINE)
+        repetitive[name] = eng.run(repetitive_requests(np, Request,
+                                                       cfg.vocab_size))
+        del eng
+    spec_rep = repetitive["spec"].summarize()
+    if not 0 < spec_rep["spec_accepted_total"] \
+            < spec_rep["spec_drafted_total"]:
+        fail(f"fp32 repetitive burst: {spec_rep['spec_accepted_total']} of "
+             f"{spec_rep['spec_drafted_total']} drafts accepted; the gate "
+             f"needs some rejected")
+    div = first_divergence(
+        torch, np, M, cfg32, params32, streams(repetitive["spec"]),
+        streams(repetitive["off"]),
+        {r.rid: r.prompt for r in repetitive_requests(np, Request,
+                                                      cfg.vocab_size)})
+    if div is not None:
+        emit({"phase": "streams", "equal": False,
+              "vs_spec_off": "spec (repetitive)", **div})
+        fail(f"fp32 spec and spec-off streams of the repetitive burst "
+             f"diverge at request {div['rid']} step {div['step']}")
+    got["flat"] = flat_run(np, ServeEngine, synthetic_requests, cfg32,
+                           params32)[1]
+    prompts = {r.rid: r.prompt
+               for r in requests(np, synthetic_requests, cfg.vocab_size)}
+    for name in ("gather", "spec", "flat"):
+        div = first_divergence(torch, np, M, cfg32, params32, got[name],
+                               got["kernel"], prompts)
+        if div is not None:
+            emit({"phase": "streams", "equal": False, "vs_kernel": name,
+                  **div})
+            fail(f"{name} and kernel streams diverge at request "
+                 f"{div['rid']} step {div['step']}")
+    spec_fp32 = m_spec.summarize()
     del params32
     torch.cuda.empty_cache()
     small = smoke_variant(cfg)
@@ -1460,18 +1728,34 @@ def main() -> None:
     small_kw = dict(capacity=4, cache_len=64, prefill_bucket=16,
                     page_size=8, prefill_chunk=16, seed=0)
     on_card = streams(ServeEngine(small, device=DEVICE, paged_impl="kernel",
+                                  kv_layout="paged",
                                   **small_kw).run(small_reqs()))
     cpu_params = M.init_params(
         small, torch.Generator(device=DEVICE).manual_seed(0),
         DEVICE).to("cpu")
     on_cpu = streams(ServeEngine(small, device="cpu", params=cpu_params,
-                                 paged_impl="kernel",
+                                 paged_impl="kernel", kv_layout="paged",
                                  **small_kw).run(small_reqs()))
     if on_card != on_cpu:
         fail("smoke-size streams differ between the card and the CPU")
     emit({"phase": "streams", "equal": True, "full_width_fp32_tokens":
           sum(len(v) for v in got["kernel"].values()),
+          "equal_to_kernel": ["gather", "spec", "flat"],
+          "spec_fp32": {"acceptance_rate": spec_fp32["spec_acceptance_rate"],
+                        "tokens_per_dispatch":
+                            spec_fp32["tokens_per_dispatch"]},
+          "spec_fp32_repetitive_equal_spec_off": True,
+          "spec_fp32_repetitive": {
+              "acceptance_rate": spec_rep["spec_acceptance_rate"],
+              "drafted": spec_rep["spec_drafted_total"],
+              "accepted": spec_rep["spec_accepted_total"],
+              "tokens_per_dispatch": spec_rep["tokens_per_dispatch"]},
           "smoke_card_vs_cpu_tokens": sum(len(v) for v in on_card.values())})
+    torch.cuda.empty_cache()
+
+    # ---- flat: the flat KV layout at full width, bf16 --------------------
+    flat_phase(torch, np, M, cfg, get_config, ServeEngine,
+               synthetic_requests)
 
     # ---- 5. cocoa, 6. lsgd: the training path at full width --------------
     torch.cuda.reset_peak_memory_stats()
@@ -1507,8 +1791,8 @@ def main() -> None:
             inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
             v_pages=inp["v_pages"].float()), cfg.sliding_window)
         ulp = one_ulp_excess(got, want)
-        if not math.isfinite(ulp) or ulp > 0 or route != (
-                "tc" if shape_name == "chunk" else "split"):
+        if not math.isfinite(ulp) or ulp > 0 \
+                or route != paged_route("bfloat16", sh["Q"] * G, hd):
             fail(f"paged_attention {shape_name}: one-ulp excess {ulp}, "
                  f"{route} route")
         del got, want, inp
@@ -1539,7 +1823,8 @@ def main() -> None:
                 "plain": time_ms(torch, paged_attention_plain, rot, win,
                                  iters),
                 "library": time_ms(torch, lib, rot, win, iters)},
-            "kernel": {"tc": "tensor cores", "split": "split-KV"}[route],
+            "kernel": {"tc": "tensor cores", "split": "split-KV",
+                       "cuda_core": "CUDA cores"}[route],
             "one_ulp_excess": ulp,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1555,10 +1840,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/paged_attention.py:47",
         "replaces_function": "src/repro/kernels/paged_attention.py"
                              "::_paged_kernel",
-        "launches": launches, "launches_tc": launches_tc,
+        "launches": launches + spec["launches"],
+        "launches_by_path": {"engine": launches, "spec": spec["launches"]},
+        "launches_tc": launches_tc + spec["launches_tc"],
         "launches_split": launches_split,
         "routes": {"split (decode)": launches_split,
-                   "tensor cores (prefill chunks)": launches_tc,
+                   "tensor cores (engine prefill chunks)": launches_tc,
+                   "tensor cores (spec: chunks and verify)":
+                       spec["launches_tc"],
+                   "of which verify spans": spec["verify_launches"],
                    "CUDA cores": launches - launches_tc - launches_split},
         "sass": sass["paged_attention"],
         "max_abs_err": worst["float32"],
@@ -1608,7 +1898,7 @@ def main() -> None:
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"], "timing": flash}]})
     print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 
 

@@ -1,12 +1,15 @@
 """Serving CLI of the PyTorch port: a thin launcher over
-`repro_torch.serve.ServeEngine` (paged KV layout, synchronous tick).
+`repro_torch.serve.ServeEngine` (synchronous tick).
 
-Runs on the GPU unless `--device cpu` is given; `--paged-impl kernel`
-(default) runs attention through the CUDA paged-attention kernel,
-`--paged-impl gather` through a gather and plain attention.
+Runs on the GPU unless `--device cpu` is given.  `--kv-layout flat`
+(default) keeps one cache row per slot; `--kv-layout paged` pages the KV
+cache, and there `--paged-impl kernel` (default) runs attention through
+the CUDA paged-attention kernel, `--paged-impl gather` through a gather
+and plain attention.  `--spec ngram|draft` turns on speculative decoding
+with `--spec-k` drafts a tick.
 
-CLI: PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
-         --trace poisson --requests 16
+CLI: PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
+         --spec-k 4 [--kv-layout paged] --trace poisson --requests 16
 """
 from __future__ import annotations
 
@@ -68,18 +71,20 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
           prompt_len: Tuple[int, int] = (8, 24),
           max_new_tokens: Tuple[int, int] = (4, 12),
           workers: int = 1, scale_events: Optional[str] = None,
-          straggler_policy: bool = False, kv_layout: str = "paged",
-          page_size: int = 8, prefix_share: Optional[bool] = None,
+          straggler_policy: bool = False, kv_layout: str = "flat",
+          page_size: int = 8, spec: str = "off", spec_k: int = 4,
+          prefix_share: Optional[bool] = None,
           evict: Optional[bool] = None, paged_impl: str = "kernel",
           device: str = "cuda", seed: int = 0,
           trace_out: Optional[str] = None) -> Dict:
     """Run an open-loop serving workload; returns the metrics summary.
     `straggler_policy` adds a `StragglerMitigationPolicy` to the scale
-    schedule; `evict` lets priority admission park a lower-priority
-    decode's pages on the host (default on); `trace_out` enables tick-phase
-    tracing, writes a Chrome trace-event JSON file there (Perfetto-
-    loadable) and adds the per-phase host-vs-device attribution to the
-    summary."""
+    schedule; `spec` ("off", "ngram" or "draft") drafts `spec_k` tokens a
+    tick for one verify dispatch; `evict` lets priority admission park a
+    lower-priority decode's pages on the host (paged layout; default on
+    there); `trace_out` enables tick-phase tracing, writes a Chrome
+    trace-event JSON file there (Perfetto-loadable) and adds the
+    per-phase host-vs-device attribution to the summary."""
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if smoke else scale_config(cfg, scale)
     rng = np.random.default_rng(seed)
@@ -100,12 +105,13 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     engine = ServeEngine(cfg, capacity=capacity, cache_len=cache_len,
                          prefill_bucket=prefill_bucket, n_workers=workers,
                          policies=policies, kv_layout=kv_layout,
-                         page_size=page_size, prefix_share=prefix_share,
+                         page_size=page_size, spec=spec, spec_k=spec_k,
+                         prefix_share=prefix_share,
                          evict=evict, paged_impl=paged_impl, seed=seed,
                          tracer=tracer, device=device)
     out = engine.run(reqs).summarize()
     out.update(arch=arch, capacity=capacity, device=str(engine.device),
-               paged_impl=paged_impl)
+               kv_layout=kv_layout, paged_impl=paged_impl)
     if tracer is not None:
         tracer.save(trace_out)
         attr = phase_attribution(tracer)
@@ -140,18 +146,26 @@ def main() -> None:
                     help="'tick:workers,...'; default = k -> k+1 -> k mid-run")
     ap.add_argument("--straggler-policy", action="store_true",
                     help="add the straggler-mitigation policy")
-    ap.add_argument("--kv-layout", default="paged", choices=["flat", "paged"],
-                    help="paged = block-table KV pool + chunked prefill "
-                         "(flat is not ported yet)")
+    ap.add_argument("--kv-layout", default="flat", choices=["flat", "paged"],
+                    help="paged = block-table KV pool + chunked prefill")
     ap.add_argument("--page-size", type=int, default=8,
-                    help="tokens per KV page")
+                    help="tokens per KV page (paged layout)")
+    ap.add_argument("--spec", default="off", choices=["off", "ngram", "draft"],
+                    help="speculative decode drafter (lossless greedy); "
+                         "'draft' without trained draft params is a plumbing "
+                         "demo (~0 acceptance) — use the ServeEngine API's "
+                         "draft_params for real draft-model speculation")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed/verified per tick")
     ap.add_argument("--prefix-share", default=None, choices=["on", "off"],
                     help="map shared prompt prefixes onto existing KV pages "
-                         "(refcounted, copy-on-write; default on)")
+                         "(refcounted, copy-on-write; paged layout only; "
+                         "default: on when --kv-layout paged)")
     ap.add_argument("--evict", default=None, choices=["on", "off"],
                     help="priority admission may park a lower-priority "
                          "in-flight decode's pages to host instead of "
-                         "queueing (default on)")
+                         "queueing (paged layout only; default: on when "
+                         "--kv-layout paged)")
     ap.add_argument("--paged-impl", default="kernel",
                     choices=["kernel", "gather"],
                     help="paged attention through the CUDA kernel or through "
@@ -176,6 +190,7 @@ def main() -> None:
                 workers=args.workers, scale_events=args.scale_events,
                 straggler_policy=args.straggler_policy,
                 kv_layout=args.kv_layout, page_size=args.page_size,
+                spec=args.spec, spec_k=args.spec_k,
                 prefix_share=onoff(args.prefix_share),
                 evict=onoff(args.evict), paged_impl=args.paged_impl,
                 device=args.device, seed=args.seed,
@@ -183,7 +198,9 @@ def main() -> None:
     if args.json:
         print(json.dumps(out, indent=2))
         return
-    print(f"{out['arch']} on {out['device']} ({out['paged_impl']}): "
+    layout = out["kv_layout"] + (f", {out['paged_impl']}"
+                                 if out["kv_layout"] == "paged" else "")
+    print(f"{out['arch']} on {out['device']} ({layout}): "
           f"{out['requests_finished']}/{out['requests_total']} requests, "
           f"{out['tokens_generated']} tokens, "
           f"{out['tokens_per_s']:.1f} tok/s over {out['wall_s']:.2f}s")
@@ -193,6 +210,11 @@ def main() -> None:
           f"p99 {_fmt_ms(out['tpot_p99_s'])}")
     print(f"  occupancy {out['occupancy_mean']:.2f} over {out['n_ticks']} "
           f"ticks; scale events {out['scale_events']}")
+    if out["spec_drafted_total"]:
+        print(f"  spec: acceptance {out['spec_acceptance_rate']:.2f} "
+              f"({out['spec_accepted_total']}/{out['spec_drafted_total']} "
+              f"drafts), {out['tokens_per_dispatch']:.2f} tokens/dispatch "
+              f"over {out['decode_dispatches']} dispatches")
     if out["shared_page_hits_total"] or out["parked_total"]:
         print(f"  kv: {out['shared_page_hits_total']} shared-page hits, "
               f"{out['cow_breaks_total']} cow breaks, "

@@ -1,5 +1,6 @@
 """Top-level model API: parameters, full-sequence forward, the Chicle-
-weighted LM loss, prefill, and the paged-KV decode / chunked-prefill steps.
+weighted LM loss, prefill, the flat-cache decode and verify steps, and the
+paged-KV decode / verify / chunked-prefill steps.
 
 The parameters live in a `Transformer` module whose attribute tree is the
 JAX package's parameter pytree (same keys, blocks stacked along a leading
@@ -7,7 +8,8 @@ layer dim, Q heads padded as in JAX), so `params_from_numpy` carries a JAX
 tree across one to one.  The JAX package's `lax.scan` over blocks is a loop
 over layers here, and its `jax.checkpoint` of the block body is
 `torch.utils.checkpoint` per block.  Paged KV pools are plain tensors that
-the steps update in place.
+the steps update in place; so are the flat per-slot caches and their
+`k_pos`.
 """
 from __future__ import annotations
 
@@ -231,10 +233,13 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     """Forward over the prompt -> (last-token logits (B, 1, V), cache).
 
     The cache's rows {"blocks": {"k", "v": (nb, B, cache_len, KV, hd)}}
-    are zero-padded past S up to cache_len (the paged engine passes the
-    bucket length, and its insert chops the rows into pages).  true_len:
-    optional (B,) real prompt lengths of right-padded rows; the logits are
-    then taken at each row's true last token."""
+    are zero-padded past S up to cache_len (the flat engine passes its
+    cache_len; the paged engine the bucket length, and its insert chops the
+    rows into pages).  Without true_len, cache["k_pos"] is one shared
+    (cache_len,) vector (arange(S), -1 past it); true_len: optional (B,)
+    real prompt lengths of right-padded rows, the logits are then taken at
+    each row's true last token and k_pos is per row (B, cache_len), -1 past
+    each row's length (as `init_cache(per_slot=True)`)."""
     logits, rows = forward(cfg, params, tokens, window=window,
                            return_cache=True, q_block=q_block)
     S = tokens.shape[1]
@@ -242,11 +247,113 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     if cache_len > S:
         pad = (0, 0, 0, 0, 0, cache_len - S)  # the seq axis of (nb,B,S,KV,hd)
         rows = {k: torch.nn.functional.pad(v, pad) for k, v in rows.items()}
+    pos_row = torch.arange(cache_len, dtype=torch.int32,
+                           device=tokens.device)
     if true_len is None:
-        return logits[:, -1:], {"blocks": rows}
+        k_pos = torch.where(pos_row < S, pos_row, -1)
+        return logits[:, -1:], {"blocks": rows, "k_pos": k_pos}
+    k_pos = torch.where(pos_row[None] < true_len[:, None], pos_row[None], -1)
     last = (true_len.long() - 1)[:, None, None].expand(-1, 1,
                                                        logits.shape[-1])
-    return torch.gather(logits, 1, last), {"blocks": rows}
+    return torch.gather(logits, 1, last), {"blocks": rows, "k_pos": k_pos}
+
+
+# ---------------------------------------------------------------------------
+# Flat KV cache: one (cache_len,) row per sequence
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device, *,
+               per_slot: bool = False) -> Dict[str, Any]:
+    """Empty flat cache {"blocks": {"k", "v": (nb, B, cache_len, KV, hd)},
+    "k_pos"}.  per_slot: a per-ROW k_pos (B, cache_len) so every sequence
+    tracks its own fill depth (continuous-batching slot pools); else one
+    shared (cache_len,) vector for lockstep batches.  -1 marks an empty
+    position."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"flat cache supports dense; got {cfg.family!r}")
+    shape = (tfm.n_blocks(cfg), B, cache_len, cfg.kv_heads(),
+             cfg.head_dim_())
+    dt = torch_dtype(cfg)
+    kp_shape = (B, cache_len) if per_slot else (cache_len,)
+    return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)},
+            "k_pos": torch.full(kp_shape, -1, dtype=torch.int32,
+                                device=device)}
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, cache,
+                token: torch.Tensor, pos, *, window: Optional[int] = None,
+                ring: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One flat-cache decode step.  token: (B, 1) int; pos: a scalar (int
+    or 0-d tensor: a lockstep batch) or a (B,) vector of per-row positions
+    (slot pools, with the per-row k_pos of `init_cache(per_slot=True)` or
+    `prefill(true_len=...)`).  Writes at pos (pos % cache_len with `ring`,
+    else clamped to the last row).
+
+    Returns (logits (B, 1, V), cache); the cache's rows and k_pos are
+    updated in place."""
+    win = cfg.sliding_window if window is None else window
+    k_pos = cache["k_pos"]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_pos.device)
+    B = token.shape[0]
+    W = k_pos.shape[-1]
+    if k_pos.dim() == 2:  # per-row cache: each row tracks its own depth
+        posv = pos if pos.dim() else pos.expand(B)
+        idx = posv % W if ring else torch.clamp(posv, max=W - 1)
+        k_pos[torch.arange(B, device=k_pos.device), idx.long()] = posv
+        k_rows = k_pos
+    else:
+        if pos.dim():
+            raise ValueError(
+                "vector pos requires a per-row k_pos: build the cache with "
+                "init_cache(per_slot=True) or prefill(true_len=...)")
+        idx = pos % W if ring else torch.clamp(pos, max=W - 1)
+        k_pos[idx.long()] = pos
+        k_rows = k_pos[None]
+    x = params.embed[token.long()]
+    blocks = cache["blocks"]
+    for i, bp in enumerate(params.layers()):
+        x = tfm.block_decode(cfg, bp, x, pos, k_rows,
+                             {"k": blocks["k"][i], "v": blocks["v"][i]},
+                             window=win, ring=ring)
+    return _logits(params, x), cache
+
+
+def verify_step(cfg: ModelConfig, params: Transformer, cache,
+                tokens: torch.Tensor, pos: torch.Tensor,
+                n_new: torch.Tensor, *, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Flat-layout speculative verification: score a SPAN of Q candidate
+    tokens per row in ONE forward instead of Q sequential decodes.
+
+    tokens: (B, Q) int, [current token, draft_1..draft_{Q-1}] per row,
+    right-padded; pos: (B,) absolute position of each row's first token;
+    n_new: (B,) real tokens in the span (0 = inactive row, nothing
+    written).  Needs the per-row k_pos.  Position j's logits are those of
+    a sequential `decode_step` at that position: drafts past a mismatch
+    are causally invisible to earlier positions, so rollback is "ignore
+    the tail" (their k_pos entries stay, later than any query that could
+    see them).  Returns (logits (B, Q, V), cache), updated in place."""
+    B, Q = tokens.shape
+    win = cfg.sliding_window if window is None else window
+    k_pos = cache["k_pos"]
+    if k_pos.dim() != 2:
+        raise ValueError("verify_step needs a per-row k_pos: build the "
+                         "cache with init_cache(per_slot=True) or "
+                         "prefill(true_len=...)")
+    span = torch.arange(Q, dtype=torch.int32, device=tokens.device)
+    q_pos = pos.to(torch.int32)[:, None] + span
+    valid = span[None] < n_new[:, None]
+    tfm.span_scatter(k_pos, q_pos, q_pos, valid)
+    x = params.embed[tokens.long()]
+    blocks = cache["blocks"]
+    for i, bp in enumerate(params.layers()):
+        x = tfm.block_verify(cfg, bp, x, q_pos, valid, k_pos,
+                             {"k": blocks["k"][i], "v": blocks["v"][i]},
+                             window=win)
+    return _logits(params, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +404,34 @@ def paged_decode_step(cfg: ModelConfig, params: Transformer, cache,
     place."""
     x = params.embed[token.long()]
     q_pos = pos.to(torch.int32)[:, None]
+    x = _paged_layers(cfg, params, cache, x, q_pos, table, lengths, window,
+                      impl, cow)
+    return _logits(params, x), cache
+
+
+def paged_verify_step(cfg: ModelConfig, params: Transformer, cache,
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      table: torch.Tensor, lengths: torch.Tensor, *,
+                      window: Optional[int] = None, impl: str = "gather",
+                      cow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Paged-layout speculative verification: the (B, Q) span twin of
+    `paged_decode_step`, scoring every draft position in one dispatch
+    (through the paged-attention kernel with q_span = Q for
+    impl="kernel").
+
+    tokens: (B, Q) int, [current token, draft_1..draft_{Q-1}] per row;
+    pos: (B,) absolute position of each row's first token; table: (B, P)
+    block table; lengths: (B,) live tokens INCLUDING the span's real ones
+    (pos + n_new; 0 = inactive row).  Draft padding past a row's length
+    writes to the null page and is causally invisible to valid positions.
+    cow: optional (src, dst) copy-on-write page pairs (only the span's
+    first page can be shared).  Returns (logits (B, Q, V), cache); the
+    pools are updated in place."""
+    B, Q = tokens.shape
+    x = params.embed[tokens.long()]
+    q_pos = (pos.to(torch.int32)[:, None]
+             + torch.arange(Q, dtype=torch.int32, device=tokens.device))
     x = _paged_layers(cfg, params, cache, x, q_pos, table, lengths, window,
                       impl, cow)
     return _logits(params, x), cache

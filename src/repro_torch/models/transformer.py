@@ -1,5 +1,7 @@
-"""Dense transformer blocks: full-sequence apply (prefill) and the paged-KV
-step over new tokens (decode, Q=1, and one chunked-prefill chunk, Q>1).
+"""Dense transformer blocks: full-sequence apply (prefill), the flat-cache
+decode step (Q=1) and speculative verify span (Q>1) over a per-slot
+(B, cache_len) KV cache, and the paged-KV step over new tokens (decode,
+Q=1; verify span or one chunked-prefill chunk, Q>1).
 
 A block is self-attention + SwiGLU with pre-norms, the JAX package's
 'dense' block.  Other families are later slices of the port.
@@ -103,8 +105,9 @@ def block_decode_paged(cfg: ModelConfig, bp, x: torch.Tensor,
         kind, HP, g_pad = attn.head_layout(cfg)
         if kind != "grouped":
             raise NotImplementedError(
-                "the paged-attention kernel needs the grouped head layout "
-                "(ROADMAP queue A: flat layout)")
+                "the paged-attention kernel needs the grouped head layout; "
+                "a model with the flat head layout serves through "
+                "impl='gather' or the flat KV layout")
         from ..kernels.paged_attention import paged_attention
         KVh, hd = cfg.kv_heads(), cfg.head_dim_()
         # (B, Q, KV*g_pad, hd) -> (B, KV, Q*g_pad, hd): the kernel rides the
@@ -126,5 +129,105 @@ def block_decode_paged(cfg: ModelConfig, bp, x: torch.Tensor,
     else:
         raise ValueError(f"paged impl must be 'kernel' or 'gather', "
                          f"got {impl!r}")
+    x = x + attn.attn_out(bp["attn"], ctx)
+    return x + _mlp(bp, x)
+
+
+# ---------------------------------------------------------------------------
+# Flat (B, cache_len) per-slot KV cache: decode and speculative verify
+# ---------------------------------------------------------------------------
+
+
+def _write_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                 ring: bool) -> None:
+    """Write one new entry per row, in place.  pos: a 0-d tensor (lockstep
+    batch: every row at the same depth) or a (B,) vector (slot pools: each
+    row at its own depth).  The ring cache writes at pos % W; otherwise
+    the write clamps to the last row, as the JAX package's
+    dynamic_update_slice does."""
+    W = cache_k.shape[1]
+    idx = pos % W if ring else torch.clamp(pos, max=W - 1)
+    if pos.dim():
+        rows = torch.arange(k.shape[0], device=k.device)
+        cache_k[rows, idx.long()] = k[:, 0]
+        cache_v[rows, idx.long()] = v[:, 0]
+    else:
+        cache_k[:, idx.long()] = k[:, 0]
+        cache_v[:, idx.long()] = v[:, 0]
+
+
+def span_scatter(dst: torch.Tensor, new: torch.Tensor, q_pos: torch.Tensor,
+                 valid: torch.Tensor) -> None:
+    """dst[b, q_pos[b, j]] = new[b, j] in place for every valid j whose
+    position lies inside dst's W rows; nothing else changes (the JAX
+    package's out-of-bounds scatter with mode="drop").  q_pos[b] must be
+    consecutive (a span starting at q_pos[b, 0]).
+
+    torch has no drop mode, and clamping dropped writes onto a row could
+    collide with a real write there.  Each row instead rewrites a window
+    of min(Q, W) DISTINCT in-range positions that covers every in-range
+    position of its span: the span's value where one is written, the row's
+    old value elsewhere.  No host sync."""
+    B, Q = q_pos.shape
+    W = dst.shape[1]
+    L = min(Q, W)
+    start = torch.clamp(q_pos[:, 0], 0, W - L)
+    win = start[:, None] + torch.arange(L, device=dst.device)  # (B, L)
+    j = win - q_pos[:, :1]  # the span index that lands on each position
+    jc = j.clamp(0, Q - 1).long()
+    ok = (j >= 0) & (j < Q) & torch.gather(valid, 1, jc)
+    rows = torch.arange(B, device=dst.device)[:, None]
+    src = new[rows, jc]
+    old = dst[rows, win.long()]
+    ok = ok.reshape(ok.shape + (1,) * (src.dim() - 2))
+    dst[rows, win.long()] = torch.where(ok, src, old)
+
+
+def block_decode(cfg: ModelConfig, bp, x: torch.Tensor, pos: torch.Tensor,
+                 k_pos: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+                 window: int = 0, ring: bool = False) -> torch.Tensor:
+    """Flat-cache decode step of one token per row.  x: (B, 1, D); pos: a
+    0-d tensor or (B,) per-row positions; k_pos: (B, W) key positions of
+    the cache rows AFTER this step's write (-1 = empty).  cache: {"k", "v":
+    (B, W, KV, hd)} of this layer, updated in place.  Returns the block's
+    output x."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"flat decode supports dense; got "
+                                  f"{cfg.family!r}")
+    B = x.shape[0]
+    positions = (pos.reshape(B, 1) if pos.dim() else pos.expand(B, 1)
+                 ).to(torch.int32)
+    q, k, v = attn.qkv_project(cfg, bp["attn"], rms_norm(x, bp["ln1"]),
+                               positions)
+    _write_cache(cache["k"], cache["v"], k, v, pos, ring)
+    ctx = attn.decode_attention(cfg, q, cache["k"], cache["v"], positions,
+                                k_pos, window=window)
+    x = x + attn.attn_out(bp["attn"], ctx)
+    return x + _mlp(bp, x)
+
+
+def block_verify(cfg: ModelConfig, bp, x: torch.Tensor, q_pos: torch.Tensor,
+                 valid: torch.Tensor, k_pos: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], *, window: int = 0
+                 ) -> torch.Tensor:
+    """Flat-cache step over a SPAN of new tokens x: (B, Q, D) at per-row
+    positions q_pos: (B, Q), the speculative-verify twin of `block_decode`.
+
+    valid: (B, Q) marks real tokens; invalid positions (draft padding,
+    inactive rows) and positions past the cache write NOTHING
+    (`span_scatter`), and their outputs are garbage the caller discards.
+    Each valid query attends the row's earlier context plus the span's
+    earlier tokens (causal by absolute position through k_pos, which the
+    caller has already updated).  cache is updated in place."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"verify supports dense; got "
+                                  f"{cfg.family!r}")
+    q, k, v = attn.qkv_project(cfg, bp["attn"], rms_norm(x, bp["ln1"]),
+                               q_pos)
+    span_scatter(cache["k"], k, q_pos, valid)
+    span_scatter(cache["v"], v, q_pos, valid)
+    ctx = attn.decode_attention(cfg, q, cache["k"], cache["v"], q_pos, k_pos,
+                                window=window)
     x = x + attn.attn_out(bp["attn"], ctx)
     return x + _mlp(bp, x)

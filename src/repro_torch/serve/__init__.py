@@ -8,8 +8,11 @@
 - `memory`    — `KVMemoryManager`: prefix index, copy-on-write plans
 - `overload`  — admission / brownout / breaker policies (host-only; the
                 engine does not wire them in yet)
-- `engine`    — `ServeEngine`: the paged, synchronous serving loop on a
-                CUDA (or CPU) device, elastic across `resize(k)`
+- `spec`      — speculative decoding: n-gram and draft-model drafters,
+                greedy accept
+- `engine`    — `ServeEngine`: the synchronous serving loop (flat or paged
+                KV layout, optional speculative decoding) on a CUDA (or
+                CPU) device, elastic across `resize(k)`
 """
 from .engine import ServeEngine, ServeMetrics, TickRecord
 from .memory import KVMemoryManager
@@ -18,10 +21,11 @@ from .request import (Request, RequestState, poisson_arrivals,
                       synthetic_requests, trace_arrivals)
 from .scheduler import SlotScheduler
 from .slots import SlotPool
+from .spec import DraftModelDrafter, NgramDrafter, greedy_accept
 
 __all__ = [
-    "KVMemoryManager", "PageAllocator", "PageError", "Request",
-    "RequestState", "ServeEngine", "ServeMetrics", "SlotPool",
-    "SlotScheduler", "TickRecord", "poisson_arrivals", "synthetic_requests",
-    "trace_arrivals",
+    "DraftModelDrafter", "KVMemoryManager", "NgramDrafter", "PageAllocator",
+    "PageError", "Request", "RequestState", "ServeEngine", "ServeMetrics",
+    "SlotPool", "SlotScheduler", "TickRecord", "greedy_accept",
+    "poisson_arrivals", "synthetic_requests", "trace_arrivals",
 ]

@@ -1,27 +1,42 @@
-"""ServeEngine: continuous-batching decode over a paged KV pool, elastic
+"""ServeEngine: continuous-batching decode over a slotted KV pool, elastic
 across `resize(k)` events (PyTorch).
 
 One engine tick =
   scheduler phase : policies (scale/rebalance/straggler) -> admission ->
                     prefill (whole-prompt bucketed, or page-sized CHUNKS
                     for long prompts) + KV insert
-  solver phase    : ONE decode step over the whole pool (every active slot
-                    advances at its own position; empty slots are inert
-                    rows), bracketed by the assignment's
-                    begin/end_iteration ownership contract.
+  solver phase    : ONE decode (or speculative verify) step over the whole
+                    pool (every active slot advances at its own position;
+                    empty slots are inert rows), bracketed by the
+                    assignment's begin/end_iteration ownership contract.
 
-This is the paged, synchronous loop of the JAX package's engine: fixed-size
-token pages with per-slot block tables (`serve.pages.PageAllocator` via
-`serve.memory.KVMemoryManager`), prefix sharing with copy-on-write breaks
-fused into the decode step, admission that writes only the admitted
-request's pages, decode that reads only the pages live in this batch (table
-width bucketed to a power of two), and long prompts prefilled in chunks
-interleaved with decode.  `paged_impl="kernel"` runs attention through the
-paged-attention kernel, `"gather"` through a gather and plain attention.
-With `evict` (on by default, as in the JAX engine's paged layout) a
-higher-priority arrival that finds the pool full parks a strictly
-lower-priority decode: its live pages go to host memory in one gather and
-come back through admission in one scatter, with no re-prefill.
+This is the synchronous loop of the JAX package's engine, with its two KV
+layouts:
+
+- ``flat`` (the default, the reference oracle): one (capacity, cache_len)
+  row per slot with a per-row key-position vector.  Admission writes the
+  prefilled rows of the admitted slots and decode attends over all
+  cache_len positions.
+- ``paged``: fixed-size token pages with per-slot block tables
+  (`serve.pages.PageAllocator` via `serve.memory.KVMemoryManager`), prefix
+  sharing with copy-on-write breaks fused into the decode step, admission
+  that writes only the admitted request's pages, decode that reads only
+  the pages live in this batch (table width bucketed to a power of two),
+  and long prompts prefilled in chunks interleaved with decode.
+  `paged_impl="kernel"` (alias "pallas") runs attention through the
+  paged-attention kernel, `"gather"` (alias "xla") through a gather and
+  plain attention.  With `evict` (on by default on this layout) a
+  higher-priority arrival that finds the pool full parks a strictly
+  lower-priority decode: its live pages go to host memory in one gather
+  and come back through admission in one scatter, with no re-prefill.
+
+With ``spec="ngram"|"draft"`` (see `serve.spec`) the solver phase turns
+speculative: every slot proposes up to `spec_k` draft tokens a tick and
+ONE (B, Q=spec_k+1) verify dispatch scores them all; the longest matching
+draft prefix plus the model's own token is emitted, the same stream as
+sequential greedy decode at up to k+1 tokens per dispatch.  Rejected tails
+roll back on the host (positions; pages allocated only for rejected drafts
+return to the free list).
 
 The KV pools live on `device` (CUDA unless the caller asks for the CPU) and
 are updated in place.  `resize(k)` changes the logical worker count on the
@@ -32,13 +47,14 @@ goes to the device as ONE copy of a packed int32 staging tensor
 (`_MetaPacker`), counted per tick as `meta_transfers`.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the flat layout, speculative decoding, the overlapped tick, fault
-injection, overload control and the moe family.
+item): the overlapped tick, fault injection, overload control,
+disaggregated pools and the moe family.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +67,7 @@ from .memory import KVMemoryManager
 from .pages import PageAllocator, next_pow2
 from .request import Request, RequestState
 from .scheduler import SlotScheduler
+from .spec import DraftModelDrafter, NgramDrafter, greedy_accept
 
 
 @dataclasses.dataclass
@@ -317,10 +334,6 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
 # them (any other value raises NotImplementedError naming it)
 _UNPORTED = {
     "clock": (None, "faults and overload"),
-    "spec_k": (4, "speculative decoding"),
-    "drafter": (None, "speculative decoding"),
-    "draft_cfg": (None, "speculative decoding"),
-    "draft_params": (None, "speculative decoding"),
     "decode_enabled": (True, "disaggregated serving"),
     "retry_backoff": (1, "faults and overload"),
     "retry_jitter": (True, "faults and overload"),
@@ -332,15 +345,20 @@ _UNPORTED = {
 }
 
 
+# the JAX package's names for the two paged attention implementations
+_PAGED_IMPLS = {"kernel": "kernel", "gather": "gather", "pallas": "kernel",
+                "xla": "gather"}
+
+
 class ServeEngine:
     """Continuous-batching serving engine with Chicle-style elasticity
-    (paged KV layout, synchronous tick).
+    (flat or paged KV layout, synchronous tick).
 
     Takes every keyword of the JAX package's `ServeEngine`.  Those of
-    features not ported yet (`_UNPORTED`: the external clock, speculative
-    decoding, disaggregated prefill pools, retries, the overload knobs)
-    raise NotImplementedError naming their ROADMAP item unless left at
-    their defaults.  `max_cached_meshes` and `max_cached_fns` size the JAX
+    features not ported yet (`_UNPORTED`: the external clock,
+    disaggregated prefill pools, retries, the overload knobs) raise
+    NotImplementedError naming their ROADMAP item unless left at their
+    defaults.  `max_cached_meshes` and `max_cached_fns` size the JAX
     engine's jit caches; eager PyTorch keeps no such cache, so any value
     is accepted and ignored."""
 
@@ -351,7 +369,7 @@ class ServeEngine:
                  seed: int = 0, params: Optional[M.Transformer] = None,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  clock: Optional[Any] = None,
-                 kv_layout: str = "paged", page_size: int = 8,
+                 kv_layout: str = "flat", page_size: int = 8,
                  chunked_prefill: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
                  paged_impl: str = "kernel",
@@ -380,9 +398,7 @@ class ServeEngine:
                  tracer: Optional[Tracer] = None,
                  max_cached_meshes: int = 2, max_cached_fns: int = 16,
                  device="cuda"):
-        given = dict(clock=clock, spec_k=spec_k, drafter=drafter,
-                     draft_cfg=draft_cfg, draft_params=draft_params,
-                     decode_enabled=decode_enabled,
+        given = dict(clock=clock, decode_enabled=decode_enabled,
                      retry_backoff=retry_backoff, retry_jitter=retry_jitter,
                      slo_window=slo_window, tenant_burst=tenant_burst,
                      admission=admission, ladder=ladder, breaker=breaker)
@@ -396,11 +412,10 @@ class ServeEngine:
         if kv_layout not in ("flat", "paged"):
             raise ValueError(f"kv_layout must be 'flat' or 'paged', "
                              f"got {kv_layout!r}")
-        if kv_layout == "flat":
-            raise _unsupported("kv_layout='flat'", "flat layout")
-        if paged_impl not in ("kernel", "gather"):
-            raise ValueError(f"paged_impl must be 'kernel' or 'gather', "
-                             f"got {paged_impl!r}")
+        if paged_impl not in _PAGED_IMPLS:
+            raise ValueError(f"paged_impl must be 'kernel' or 'gather' "
+                             f"(or the JAX names 'pallas', 'xla'), got "
+                             f"{paged_impl!r}")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1 decode slot, "
                              f"got {capacity}")
@@ -408,8 +423,9 @@ class ServeEngine:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
         if cache_len < 1:
             raise ValueError(f"cache_len must be >= 1 token, got {cache_len}")
-        if spec != "off":
-            raise _unsupported(f"spec={spec!r}", "speculative decoding")
+        if spec not in ("off", "ngram", "draft"):
+            raise ValueError(f"spec must be 'off', 'ngram' or 'draft', "
+                             f"got {spec!r}")
         if overlap:
             raise _unsupported("overlap=True", "overlap on CUDA streams")
         if fault_injector is not None:
@@ -417,15 +433,31 @@ class ServeEngine:
         if (slo_ttft, slo_tpot, tenant_rate, queue_cap) != (None,) * 4 \
                 or brownout != "off":
             raise _unsupported("overload control", "faults and overload")
-        if page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if cache_len < page_size:
-            raise ValueError(
-                f"zero-page budget: cache_len {cache_len} < page_size "
-                f"{page_size} gives every slot 0 KV pages")
-        if cache_len % page_size or prefill_bucket % page_size:
-            raise ValueError("cache_len and prefill_bucket must be "
-                             "multiples of page_size")
+        paged = kv_layout == "paged"
+        if not paged:
+            if prefix_share:
+                raise ValueError("prefix_share requires kv_layout='paged' "
+                                 "(sharing maps block-table pages)")
+            if evict:
+                raise ValueError("evict requires kv_layout='paged' "
+                                 "(parking moves pages, not rows)")
+            if chunked_prefill:
+                raise ValueError("chunked_prefill requires kv_layout="
+                                 "'paged' (chunks append to pages in place)")
+        self.prefill_chunk = prefill_chunk or prefill_bucket
+        if paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if cache_len < page_size:
+                raise ValueError(
+                    f"zero-page budget: cache_len {cache_len} < page_size "
+                    f"{page_size} gives every slot 0 KV pages")
+            if cache_len % page_size or prefill_bucket % page_size:
+                raise ValueError("cache_len and prefill_bucket must be "
+                                 "multiples of page_size")
+            if self.prefill_chunk % page_size:
+                raise ValueError("prefill_chunk must be a multiple of "
+                                 "page_size")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -436,15 +468,16 @@ class ServeEngine:
         self.capacity = capacity
         self.cache_len = cache_len
         self.prefill_bucket = prefill_bucket
+        self.kv_layout = kv_layout
         self.page_size = page_size
-        self.paged_impl = paged_impl
-        self.prefix_share = True if prefix_share is None else bool(prefix_share)
-        self.evict = True if evict is None else bool(evict)
-        self.chunked_prefill = (True if chunked_prefill is None
+        self.paged_impl = _PAGED_IMPLS[paged_impl]
+        # KV memory manager defaults: on for the paged layout only (sharing
+        # and eviction never change token streams, only bytes moved)
+        self.prefix_share = (paged if prefix_share is None
+                             else bool(prefix_share))
+        self.evict = paged if evict is None else bool(evict)
+        self.chunked_prefill = (paged if chunked_prefill is None
                                 else bool(chunked_prefill))
-        self.prefill_chunk = prefill_chunk or prefill_bucket
-        if self.prefill_chunk % page_size:
-            raise ValueError("prefill_chunk must be a multiple of page_size")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = M.init_params(cfg, gen, self.device)
@@ -455,21 +488,61 @@ class ServeEngine:
             seed=seed, tenant_weights=tenant_weights, tracer=self.tracer)
         self.debug_checks = debug_checks
 
+        # speculative decode: each slot proposes spec_k drafts a tick and
+        # ONE (B, Q=spec_k+1) verify dispatch scores them all; the drafter
+        # never changes the token stream, only the acceptance rate
+        self.spec_k = int(spec_k) if (spec != "off" or drafter is not None) \
+            else 0
+        if self.spec_k <= 0:
+            self.drafter = None
+            self.spec_k = 0
+        elif drafter is not None:
+            self.drafter = drafter
+        elif spec == "draft":
+            if draft_params is None:
+                # a random draft model shares nothing with the target: the
+                # plumbing runs end to end but acceptance is ~0
+                warnings.warn(
+                    "spec='draft' without draft_params uses a randomly "
+                    "initialized draft model — acceptance will be ~0 and "
+                    "speculation slower than spec='off'; pass draft_params "
+                    "(a trained/distilled draft model) or use spec='ngram'",
+                    stacklevel=2)
+                if draft_cfg is None:
+                    draft_cfg = dataclasses.replace(
+                        cfg, name=cfg.name + "-draft",
+                        num_layers=max(1, cfg.num_layers // 2))
+            self.drafter = DraftModelDrafter(draft_cfg or cfg, draft_params,
+                                             seed=seed, device=self.device)
+        else:  # spec == "ngram"
+            self.drafter = NgramDrafter()
+
         self.max_pages_per_slot = cache_len // page_size
-        n_pages = capacity * self.max_pages_per_slot + 1  # +1: null page
-        self.mem = KVMemoryManager(n_pages, page_size,
-                                   prefix_share=self.prefix_share,
-                                   tracer=self.tracer)
-        self.pages: PageAllocator = self.mem.pages
-        self.blocks = M.init_paged_cache(cfg, n_pages, page_size,
-                                         self.device)["blocks"]
+        if paged:
+            n_pages = capacity * self.max_pages_per_slot + 1  # +1: null page
+            self.mem: Optional[KVMemoryManager] = KVMemoryManager(
+                n_pages, page_size, prefix_share=self.prefix_share,
+                tracer=self.tracer)
+            self.pages: Optional[PageAllocator] = self.mem.pages
+            self.blocks = M.init_paged_cache(cfg, n_pages, page_size,
+                                             self.device)["blocks"]
+            self.k_pos = None
+        else:
+            self.mem = None
+            self.pages = None
+            cache = M.init_cache(cfg, capacity, cache_len, self.device,
+                                 per_slot=True)
+            self.blocks = cache["blocks"]
+            self.k_pos = cache["k_pos"]
+        self._pool_bytes = sum(t.numel() * t.element_size()
+                               for t in self.blocks.values())
         # host-side per-slot stream state
         self.next_tok = np.zeros((capacity, 1), np.int32)
         self._meta = _MetaPacker(self.device)
         self._tick_meta = 0  # packed metadata transfers this tick
         # rolling KV-stats snapshot: tick deltas are measured against the
         # previous tick's end
-        self._kv_prev = self.mem.stats()
+        self._kv_prev = self.mem.stats() if self.mem is not None else None
         self._by_slot: Dict[int, Request] = {}
         self._prefilling: Dict[int, Tuple[Request, int]] = {}  # slot->(req,off)
         self.metrics = ServeMetrics()
@@ -491,8 +564,11 @@ class ServeEngine:
         pages of slots whose worker changed count as moved state."""
         moved = [s for s in live
                  if self.scheduler.worker_of_slot(s) != before[s]]
-        nbytes = sum(self.pages.n_pages_of(s) for s in moved) \
-            * self._page_bytes
+        if self.pages is not None:
+            nbytes = sum(self.pages.n_pages_of(s) for s in moved) \
+                * self._page_bytes
+        else:  # flat rows: a moved slot drags its whole cache row
+            nbytes = len(moved) * (self._pool_bytes // self.capacity)
         self.metrics.resize_moves.append(
             (self._tick, k, len(moved), int(nbytes)))
 
@@ -502,7 +578,7 @@ class ServeEngine:
         assignment rebalances with minimal churn and the pages of slots
         whose worker changed are recorded as moved state
         (`metrics.resize_moves`), the cost a per-worker page pool would
-        pay."""
+        pay.  Speculation state follows the pool (`drafter.on_resize`)."""
         if k < 1:
             raise ValueError(
                 f"resize(k) needs at least one worker, got k={k}")
@@ -510,6 +586,8 @@ class ServeEngine:
             live, before = self._slot_workers()
             self.scheduler.set_workers(k)
             self._record_resize_moves(k, live, before)
+        if self.drafter is not None:
+            self.drafter.on_resize(self.device)
         self.k = k
 
     # --- device steps -----------------------------------------------------
@@ -527,13 +605,25 @@ class ServeEngine:
         return self._meta.pack(arrays)
 
     def _prefill_step(self, toks: np.ndarray, true_len: torch.Tensor):
-        """Whole-prompt prefill of right-padded rows at bucket length ->
-        (first tokens, K rows, V rows (nb, n, bucket, KV, hd))."""
+        """Whole-prompt prefill of right-padded rows -> (first tokens,
+        cache): rows (nb, n, L, KV, hd) at L = the bucket length (paged:
+        the insert chops them into pages) or cache_len (flat), and their
+        per-row k_pos."""
         tokens = torch.from_numpy(toks).to(self.device)
-        logits, cache = M.prefill(self.cfg, self.params, tokens,
-                                  cache_len=toks.shape[1], true_len=true_len)
-        nxt = logits[:, -1].argmax(-1).to(torch.int32)
-        return nxt, cache["blocks"]["k"], cache["blocks"]["v"]
+        logits, cache = M.prefill(
+            self.cfg, self.params, tokens,
+            cache_len=(toks.shape[1] if self.pages is not None
+                       else self.cache_len), true_len=true_len)
+        return logits[:, -1].argmax(-1).to(torch.int32), cache
+
+    def _insert_rows(self, slots: torch.Tensor, cache: Dict[str, Any]
+                     ) -> None:
+        """Flat admission: write the prefilled rows and their k_pos rows
+        into the pool at `slots`, in place."""
+        idx = slots.long()
+        for name, rows in cache["blocks"].items():
+            self.blocks[name][:, idx] = rows
+        self.k_pos[idx] = cache["k_pos"]
 
     def _insert(self, rows_k: torch.Tensor, rows_v: torch.Tensor,
                 page_ids: torch.Tensor) -> None:
@@ -559,21 +649,53 @@ class ServeEngine:
             impl=self.paged_impl)
         return last[:, -1].argmax(-1).to(torch.int32)
 
-    def _decode_step(self, meta: torch.Tensor) -> torch.Tensor:
+    def _unpack_paged(self, meta: torch.Tensor, q: int):
+        """(tokens (cap, q), pos, table, lengths, cow) from a paged step's
+        packed metadata: tokens, pos, table, lengths, cow_src, cow_dst."""
         cap = self.capacity
-        w = meta.shape[0] // cap - 5  # table width
-        tok = meta[:cap].reshape(cap, 1)
-        pos = meta[cap: 2 * cap]
-        table = meta[2 * cap: cap * (2 + w)].reshape(cap, w)
-        lengths = meta[cap * (2 + w): cap * (3 + w)]
-        cow_src = meta[cap * (3 + w): cap * (4 + w)]
-        cow_dst = meta[cap * (4 + w):]
+        w = meta.shape[0] // cap - q - 4  # table width
+        tok = meta[:cap * q].reshape(cap, q)
+        pos = meta[cap * q: cap * (q + 1)]
+        table = meta[cap * (q + 1): cap * (q + 1 + w)].reshape(cap, w)
+        lengths = meta[cap * (q + 1 + w): cap * (q + 2 + w)]
+        cow_src = meta[cap * (q + 2 + w): cap * (q + 3 + w)]
+        cow_dst = meta[cap * (q + 3 + w):]
         # without prefix sharing no page can reach refcount 2: skip the copy
         cow = (cow_src, cow_dst) if self.prefix_share else None
-        logits, _ = M.paged_decode_step(
-            self.cfg, self.params, {"blocks": self.blocks}, tok, pos, table,
-            lengths, impl=self.paged_impl, cow=cow)
+        return tok, pos, table, lengths, cow
+
+    def _flat_cache(self) -> Dict[str, Any]:
+        return {"blocks": self.blocks, "k_pos": self.k_pos}
+
+    def _decode_step(self, meta: torch.Tensor) -> torch.Tensor:
+        """One decode step from packed metadata -> next tokens (cap,)."""
+        if self.pages is None:
+            cap = self.capacity
+            logits, _ = M.decode_step(self.cfg, self.params,
+                                      self._flat_cache(),
+                                      meta[:cap].reshape(cap, 1), meta[cap:])
+        else:
+            tok, pos, table, lengths, cow = self._unpack_paged(meta, 1)
+            logits, _ = M.paged_decode_step(
+                self.cfg, self.params, {"blocks": self.blocks}, tok, pos,
+                table, lengths, impl=self.paged_impl, cow=cow)
         return logits[:, -1].argmax(-1).to(torch.int32)
+
+    def _verify_step(self, meta: torch.Tensor, q: int) -> torch.Tensor:
+        """One verify step over spans of q tokens from packed metadata ->
+        the model's greedy token at every span position (cap, q)."""
+        if self.pages is None:
+            cap = self.capacity
+            logits, _ = M.verify_step(
+                self.cfg, self.params, self._flat_cache(),
+                meta[:cap * q].reshape(cap, q),
+                meta[cap * q: cap * (q + 1)], meta[cap * (q + 1):])
+        else:
+            tok, pos, table, lengths, cow = self._unpack_paged(meta, q)
+            logits, _ = M.paged_verify_step(
+                self.cfg, self.params, {"blocks": self.blocks}, tok, pos,
+                table, lengths, impl=self.paged_impl, cow=cow)
+        return logits.argmax(-1).to(torch.int32)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -594,8 +716,8 @@ class ServeEngine:
         return min(next_pow2(max(n, 1)), self.capacity)
 
     def _release(self, req: Request, now: float) -> None:
-        """Finish a request: return its pages and its slot."""
-        if req.slot is not None:
+        """Finish a request: return its pages (paged) and its slot."""
+        if self.mem is not None and req.slot is not None:
             self.mem.release_slot(req.slot)
         self.scheduler.release(req, now)
 
@@ -606,6 +728,8 @@ class ServeEngine:
         on return), free its pages and slot, and re-queue the request
         (state PARKED) for a later restore through admission.  Returns the
         bytes moved."""
+        if self.mem is None:
+            raise RuntimeError("park requires kv_layout='paged'")
         req = self._by_slot.pop(slot, None)
         if req is None:
             raise KeyError(f"slot {slot} has no decoding request")
@@ -699,7 +823,7 @@ class ServeEngine:
         direct: List[Request] = []
         nbytes = 0
         for r in admitted:
-            if self.mem.has_parked(r.rid):
+            if self.mem is not None and self.mem.has_parked(r.rid):
                 nbytes += self._restore_slot(r)
             # submit() already rejected prompt+max_new > cache_len, so the
             # chunked table can never outgrow max_pages_per_slot
@@ -720,23 +844,36 @@ class ServeEngine:
             for i, r in enumerate(group):
                 toks[i, : r.prompt_len] = r.prompt
                 lens[i] = r.prompt_len
-            with trc.span("prefill.dispatch", bucket=bucket, n=n):
-                nxt, rows_k, rows_v = self._prefill_step(
-                    toks, self._pack_meta(lens))
-            bpp = bucket // self.page_size
-            page_ids = np.zeros(n * bpp, np.int32)  # 0 -> null page
-            real = 0
-            with trc.span("prefix_index", n=n):
-                for i, r in enumerate(group):
-                    # shared prefix pages keep id 0 in write_ids: nothing is
-                    # written, the block table points at the existing pages
-                    plan = self.mem.admit_slot(r.slot, r.prompt)
-                    page_ids[i * bpp: i * bpp + len(plan.write_ids)] = \
-                        plan.write_ids
-                    real += len(plan.table) - plan.shared_pages
-            with trc.span("prefill.insert", track="prefill"):
-                self._insert(rows_k, rows_v, self._pack_meta(page_ids))
-            nbytes += real * self._page_bytes
+            if self.pages is None:
+                with trc.span("prefill.dispatch", bucket=bucket, n=n):
+                    # one transfer: the lengths, then the admitted slots
+                    meta = self._pack_meta(
+                        lens, np.asarray([r.slot for r in group], np.int32))
+                    nxt, cache = self._prefill_step(toks, meta[:n])
+                    self._insert_rows(meta[n:], cache)
+                # the JAX engine's counter: its at[].set rebuilds the whole
+                # pool (here only the admitted rows are written)
+                nbytes += self._pool_bytes
+            else:
+                with trc.span("prefill.dispatch", bucket=bucket, n=n):
+                    nxt, cache = self._prefill_step(toks,
+                                                    self._pack_meta(lens))
+                bpp = bucket // self.page_size
+                page_ids = np.zeros(n * bpp, np.int32)  # 0 -> null page
+                real = 0
+                with trc.span("prefix_index", n=n):
+                    for i, r in enumerate(group):
+                        # shared prefix pages keep id 0 in write_ids:
+                        # nothing is written, the block table points at
+                        # the existing pages
+                        plan = self.mem.admit_slot(r.slot, r.prompt)
+                        page_ids[i * bpp: i * bpp + len(plan.write_ids)] = \
+                            plan.write_ids
+                        real += len(plan.table) - plan.shared_pages
+                with trc.span("prefill.insert", track="prefill"):
+                    self._insert(cache["blocks"]["k"], cache["blocks"]["v"],
+                                 self._pack_meta(page_ids))
+                nbytes += real * self._page_bytes
             # settle at prefill's own sync point (the first tokens; the
             # insert is queued before the copy, so it is done too)
             with trc.span("prefill.device_wait", cat="device",
@@ -860,11 +997,14 @@ class ServeEngine:
         # device completion, as in the JAX engine
         t0 = time.perf_counter()
         with self.tracer.span("decode.dispatch", n=len(active)):
-            table, lengths, cow_src, cow_dst = self._paged_batch_inputs(
-                active, np.ones(self.capacity, np.int32))
-            nxt = self._decode_step(self._pack_meta(
-                self.next_tok, np.asarray(pos_np, np.int32), table, lengths,
-                cow_src, cow_dst))
+            pos = np.asarray(pos_np, np.int32)
+            if self.pages is None:
+                nxt = self._decode_step(self._pack_meta(self.next_tok, pos))
+            else:
+                table, lengths, cow_src, cow_dst = self._paged_batch_inputs(
+                    active, np.ones(self.capacity, np.int32))
+                nxt = self._decode_step(self._pack_meta(
+                    self.next_tok, pos, table, lengths, cow_src, cow_dst))
         with self.tracer.span("device_wait", cat="device", track="decode"):
             nxt_np = nxt.cpu().numpy()
         t_step = time.perf_counter() - t0
@@ -881,6 +1021,79 @@ class ServeEngine:
                 del self._by_slot[slot]
                 self._release(req, now)
         return emitted, t_step
+
+    def _spec(self, active: List[int]) -> Tuple[int, float, int, int, int]:
+        """One speculative solver phase: propose up to `spec_k` drafts per
+        active slot, ONE (B, Q) verify dispatch over all k+1 positions,
+        then the greedy-prefix emit and the rejected tail's rollback (pages
+        allocated only for rejected drafts go back to the free list).
+        Returns (tokens emitted, step seconds, drafted, accepted, drafter
+        device dispatches); the stream equals sequential greedy decode."""
+        k = self.spec_k
+        Q = k + 1
+        sched = self.scheduler
+        pos_np = sched.pool.pos
+        # drafting is part of the solver phase: the step time that feeds
+        # decode_s and the per-worker policy feedback starts here
+        t0 = time.perf_counter()
+        with self.tracer.span("draft", n=len(active), k=k):
+            contexts = [np.concatenate(
+                [np.asarray(self._by_slot[s].prompt, np.int64),
+                 np.asarray(self._by_slot[s].generated, np.int64)])
+                for s in active]
+            proposals = self.drafter.propose(contexts, k)
+            toks = np.zeros((self.capacity, Q), np.int32)
+            n_new = np.zeros(self.capacity, np.int32)
+            drafts: Dict[int, np.ndarray] = {}
+            for i, slot in enumerate(active):
+                r = self._by_slot[slot]
+                # draft budget: never past the KV capacity or the request's
+                # remaining tokens (wasted verification positions)
+                budget = min(k, self.cache_len - 1 - int(pos_np[slot]),
+                             r.max_new_tokens - r.n_generated - 1)
+                d = np.asarray(proposals[i], np.int64)[: max(budget, 0)]
+                drafts[slot] = d
+                toks[slot, 0] = self.next_tok[slot, 0]
+                toks[slot, 1: 1 + len(d)] = d
+                n_new[slot] = 1 + len(d)
+        with self.tracer.span("verify.dispatch", n=len(active)):
+            pos = np.asarray(pos_np, np.int32)
+            if self.pages is None:
+                vtok = self._verify_step(self._pack_meta(toks, pos, n_new), Q)
+            else:
+                table, lengths, cow_src, cow_dst = self._paged_batch_inputs(
+                    active, n_new)
+                vtok = self._verify_step(self._pack_meta(
+                    toks, pos, table, lengths, cow_src, cow_dst), Q)
+        with self.tracer.span("device_wait", cat="device", track="verify"):
+            vtok_np = vtok.cpu().numpy()
+        t_step = time.perf_counter() - t0
+        sched.end_iteration()
+        now = self._now()
+        emitted = drafted = accepted = 0
+        with self.tracer.span("rollback", n=len(active)):
+            for slot in active:
+                req = self._by_slot[slot]
+                d = drafts[slot]
+                m = greedy_accept(d, vtok_np[slot])
+                drafted += len(d)
+                accepted += m
+                for j in range(m + 1):
+                    tok = int(vtok_np[slot, j])
+                    req.generated.append(tok)
+                    self.next_tok[slot, 0] = tok
+                    sched.pool.pos[slot] += 1
+                    emitted += 1
+                    if req.done():
+                        break
+                if req.done():
+                    del self._by_slot[slot]
+                    self._release(req, now)
+                elif self.mem is not None:
+                    # rollback: pages allocated only for rejected drafts
+                    self.mem.trim(slot, int(sched.pool.pos[slot]))
+        return (emitted, t_step, drafted, accepted,
+                getattr(self.drafter, "dispatches_per_propose", 0))
 
     def _finish_at_capacity(self) -> None:
         """A slot whose next write position is past the cache can't store
@@ -928,13 +1141,18 @@ class ServeEngine:
             admission_bytes += chunk_bytes
         self._finish_at_capacity()
 
-        # ---- solver phase: one pool-wide decode step ----
+        # ---- solver phase: one pool-wide decode (or spec-verify) step ----
         emitted = 0
         t_step = 0.0
+        drafted = accepted = draft_disp = 0
         active = sorted(self._by_slot)
         if active:
             sched.begin_iteration()
-            emitted, t_step = self._decode(active)
+            if self.drafter is not None:
+                emitted, t_step, drafted, accepted, draft_disp = \
+                    self._spec(active)
+            else:
+                emitted, t_step = self._decode(active)
         else:
             sched.sim_time += 1.0  # idle ticks still advance time
             if admitted or n_chunks:
@@ -949,9 +1167,11 @@ class ServeEngine:
             # live tokens need, refcounts equal true reader counts, and the
             # prefix index points only at live pages
             sched.pool.check_invariants()
-            live = {s: int(sched.pool.pos[s]) for s in self._by_slot}
-            live.update({s: off for s, (_, off) in self._prefilling.items()})
-            self.mem.check(live)
+            if self.mem is not None:
+                live = {s: int(sched.pool.pos[s]) for s in self._by_slot}
+                live.update({s: off for s, (_, off)
+                             in self._prefilling.items()})
+                self.mem.check(live)
 
         # modeled per-worker timing attribution feeds the policy feedback
         # loop (load-proportional split of the step)
@@ -963,10 +1183,19 @@ class ServeEngine:
             "per_sample_times": {w: t_step / total
                                  for w in range(sched.n_workers)},
         }
-        kv1 = self.mem.stats()
-        self.metrics.kv_stats = kv1
-        self._kv_prev = kv1
-        delta = lambda k: kv1[k] - kv0[k]  # noqa: E731
+        kv = {}
+        if kv0 is not None:
+            kv1 = self.mem.stats()
+            self.metrics.kv_stats = kv1
+            self._kv_prev = kv1
+            delta = lambda k: kv1[k] - kv0[k]  # noqa: E731
+            kv = dict(shared_page_hits=delta("shared_page_hits"),
+                      cow_breaks=delta("cow_breaks"),
+                      parked=delta("parked_total"),
+                      restored=delta("restored_total"),
+                      kv_moved_bytes=(delta("park_bytes")
+                                      + delta("restore_bytes")),
+                      shared_extra_pages=kv1["shared_extra"])
         rec = TickRecord(tick=self._tick, now=self._now(),
                          n_active=len(self._by_slot),
                          n_workers=sched.n_workers,
@@ -976,15 +1205,11 @@ class ServeEngine:
                          admission_bytes=admission_bytes,
                          prefill_chunks=n_chunks,
                          prefill_dispatches=n_chunk_dispatch,
-                         page_occupancy=self.pages.occupancy(),
-                         shared_page_hits=delta("shared_page_hits"),
-                         cow_breaks=delta("cow_breaks"),
-                         parked=delta("parked_total"),
-                         restored=delta("restored_total"),
-                         kv_moved_bytes=(delta("park_bytes")
-                                         + delta("restore_bytes")),
-                         shared_extra_pages=kv1["shared_extra"],
-                         meta_transfers=self._tick_meta)
+                         page_occupancy=(self.pages.occupancy()
+                                         if self.pages is not None else 0.0),
+                         spec_drafted=drafted, spec_accepted=accepted,
+                         draft_dispatches=draft_disp,
+                         meta_transfers=self._tick_meta, **kv)
         self.metrics.ticks.append(rec)
         if trc.enabled:
             trc.count("serve.ticks")

@@ -42,11 +42,13 @@ from repro_torch.kernels import scd as scd_mod
 from repro_torch.kernels.scd import scd_pass, scd_pass_plain
 
 # (B, KV, G, hd, ps, P, window, q_span): the JAX kernel's self-test cases,
-# then the full-width h2o-danube-1.8b decode and chunk shapes
+# then the full-width h2o-danube-1.8b decode, chunk and speculative verify
+# (spec_k 4: q_span 5, QG 20; bf16 on the tensor cores, fp32 on the CUDA
+# cores) shapes
 CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
          (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
          (2, 2, 2, 32, 8, 6, 16, 4), (8, 8, 4, 80, 16, 128, 4096, 1),
-         (2, 8, 4, 80, 16, 128, 4096, 256)]
+         (2, 8, 4, 80, 16, 128, 4096, 256), (8, 8, 4, 80, 16, 128, 4096, 5)]
 
 
 @pytest.fixture
@@ -136,12 +138,15 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype, tol):
 
 # (B, KV, G, hd, ps, P, window, q_span) of bf16 spans of >= 16 rows (the
 # tensor-core kernel): QG 16, 64 and 1024, hd 64, 80 and 128, a window
-# that starts inside a key step, and lengths whose last page is ragged
+# that starts inside a key step, and lengths whose last page is ragged;
+# then the served speculative verify span (h2o-danube-1.8b, spec_k 4:
+# q_span 5, QG 20)
 TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 0, 4), (2, 2, 4, 80, 16, 16, 0, 16),
                   (2, 2, 1, 128, 16, 8, 0, 64),
                   (2, 2, 4, 64, 16, 16, 40, 16),
                   (2, 8, 4, 80, 16, 128, 4096, 256),
-                  (2, 2, 8, 64, 8, 40, 0, 2)]
+                  (2, 2, 8, 64, 8, 40, 0, 2),
+                  (8, 8, 4, 80, 16, 128, 4096, 5)]
 
 
 @pytest.mark.cuda

@@ -75,8 +75,8 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         ServeEngine(cfg, kv_layout="paged")
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="flat"), dict(spec="ngram"),
-                                dict(overlap=True),
+@pytest.mark.parametrize("kw", [dict(decode_enabled=False),
+                                dict(brownout="auto"), dict(overlap=True),
                                 dict(fault_injector=object()),
                                 dict(queue_cap=4)])
 def test_unported_options_raise(kw):
