@@ -20,7 +20,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               q_span 5, 20 rows), two more spans of >= 16 rows (the
               tensor-core kernel) and the split route's edge cases
               (length 0, shorter than one run of keys, exactly P * ps, a
-              window starting inside a run, q_span 3 and 4), fp32 at 2e-5
+              window starting inside a run, q_span 3 and 4) and the
+              full-width verify span at the ladder's spec_shrink (spec_k
+              2: q_span 3, 12 rows), fp32 at 2e-5
               (TF32 off) and bf16 at 2e-2; every launch must take the
               route the launcher's rule names; the split route gives
               bitwise-equal outputs on two calls.
@@ -60,6 +62,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               beside the same workload with speculation off (the bf16
               streams' first divergence and its top-2 margin, reported,
               not gated); then the spec run again under torch.profiler.
+   faults   — crash recovery and overload control at the same width
+              (paged, kernel, two workers).  (a) fp32 (TF32 off): the
+              engine burst with a crash while long prompts are mid-
+              chunked-prefill, a straggler set and cleared, and a crash
+              mid-decode; every stream must equal the fault-free fp32
+              kernel stream, 2 crashes, 2 recoveries, nothing shed.  (b)
+              fp32 on the tick clock (one tick one second): 24
+              motif-tiled requests, 4 a tick from 3 tenants, spec ngram
+              k 4, the auto brownout ladder, a circuit breaker, SLO
+              targets, a bounded queue, a token bucket and a 3-crash
+              storm, through the kernel and through the gather path:
+              equal streams, states and event lists; finished streams
+              equal spec-off's; the ladder reaches spec_off and returns
+              to 0; verify launches of q_span 5 and 3 (20 and 12 rows)
+              equal layers x the verify dispatches at levels 0 and 1.
+              (c) the same in bf16 on the real clock: tokens/s, goodput,
+              TTFT, TPOT, rejected, shed, recovery ticks, the highest
+              brownout level (reported), every launch on its route; then
+              its first 32 ticks again under torch.profiler.
    streams  — the engine workload in fp32 through the kernel and through
               the gather path must give equal token streams, and so must
               speculative decoding through the kernel (the verify spans on
@@ -145,6 +166,33 @@ FLAT = dict(capacity=8, cache_len=2048, prefill_bucket=64, kv_layout="flat")
 SPEC_K = 4  # the JAX engine's default draft depth
 FLAT_ARCH = "smollm-360m"
 DRAFT_LAYERS = 4  # depth of the draft arm's target (and draft) model
+# the faults phase: (a) crash recovery on the engine burst over two
+# workers: a crash while the first long prompts are mid-chunked-prefill on
+# worker 1, a straggler (worker 0 at 2x) set and cleared, then a crash of
+# the last worker mid-decode; (b)/(c) overload control on a repetitive
+# burst of 28 requests, 6 arriving a tick, half of them from tenant t0
+# (whose token bucket, 2 a second, refuses some), with a 3-crash storm
+# that trips the circuit breaker: fresh admissions pause, the queue and
+# the crash victims back up past twice the slots, the brownout ladder
+# (one hot tick a step up, two cool ticks a step down, capped at
+# spec_off: chunk_cap's one-page chunks would stretch the long prompts'
+# prefill past the TTFT target) climbs, then walks back to level 0 as
+# the queue drains.
+# The SLO targets (ticks) are met by every finish, so the queue alone
+# drives the ladder and its way down is not held by a missed target.
+FAULT_WORKERS = 2
+CRASH_PLAN = dict(prefill_crash=1, slow=(3, 0, 2.0), clear=(6, 0),
+                  decode_crash=14)
+OVERLOAD = dict(n=28, per_tick=6, storm_at=3, storm_n=3, storm_every=2,
+                slo_ttft=100.0, slo_tpot=4.0, queue_cap=20,
+                tenant_rate=2.0, tenant_burst=2.0, max_ticks=400,
+                ladder=dict(up_patience=1, down_patience=2, max_level=2))
+# (c) on the real clock, where a tick takes tens of ms: the SLO targets in
+# seconds, and t0's bucket refilled at 20 a second (its burst of 2 stays,
+# so it refuses part of t0's 3 a tick)
+OVERLOAD_WALL = dict(slo_ttft=3.0, slo_tpot=0.1, tenant_rate=20.0,
+                     tenant_burst=2.0)
+PROFILE_TICKS = 32  # (c)'s profiled window: the storm and the breaker
 # training path (phases cocoa and lsgd)
 COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
              iters=12, rebalance_iters=6)
@@ -1389,6 +1437,291 @@ def spec_phase(torch, np, M, cfg, params, ServeEngine, Request, paged_mod):
             "verify_launches": len(verify)}
 
 
+def overload_requests(np, Request, vocab):
+    """The overload workload: motif-tiled prompts (the spec phase's first 8,
+    then 20 more), tenants t0 t1 t0 t2 in turn, and the tick each one
+    arrives at (6 a tick)."""
+    reqs = repetitive_requests(np, Request, vocab, n=OVERLOAD["n"])
+    for i, r in enumerate(reqs):
+        r.tenant = ("t0", "t1", "t0", "t2")[i % 4]
+    return reqs, [i // OVERLOAD["per_tick"] for i in range(len(reqs))]
+
+
+def overload_engine(ServeEngine, faults, overload, cfg, params, impl, *,
+                    knobs, now=None):
+    """The overload configuration: spec="ngram", spec_k 4, brownout="auto"
+    with the OVERLOAD ladder, a circuit breaker, SLO targets, a bounded
+    queue, a per-tenant token bucket and a 3-crash storm, over two
+    workers.  `knobs` holds the SLO targets and the token bucket's rate
+    and burst (ticks on the tick clock, seconds on the real one).  With a
+    one-element list `now` the engine reads its clock there (the tick
+    clock `drive_open_loop` sets); else it runs on the real clock."""
+    o = OVERLOAD
+    inj = faults.FaultInjector(faults.FaultPlan(faults.crash_storm(
+        o["storm_at"], o["storm_n"], o["storm_every"])))
+    return ServeEngine(cfg, params=params, paged_impl=impl, seed=0,
+                       device=DEVICE, n_workers=FAULT_WORKERS, spec="ngram",
+                       spec_k=SPEC_K, brownout="auto",
+                       ladder=overload.DegradationLadder(**o["ladder"]),
+                       breaker=overload.CircuitBreaker(),
+                       queue_cap=o["queue_cap"], fault_injector=inj, **knobs,
+                       clock=None if now is None else (lambda: now[0]),
+                       **ENGINE)
+
+
+def drive_open_loop(eng, reqs, due, now=None,
+                    max_ticks=OVERLOAD["max_ticks"]):
+    """Submit each request at its tick (stamped with the engine's clock, so
+    the token buckets see its arrival) and tick until every request is
+    done or `max_ticks` ticks have run: the open-loop client of the
+    overload runs.  With the tick clock's list `now`, one tick is one
+    simulated second: `now[0]` is the tick's number while it runs."""
+    order = sorted(range(len(reqs)), key=lambda i: due[i])
+    nxt = 0
+    while (nxt < len(order) or eng.scheduler.has_pending or eng._by_slot
+           or eng._prefilling or eng._retrying) and eng._tick < max_ticks:
+        if now is not None:
+            now[0] = float(eng._tick)
+        batch = []
+        while nxt < len(order) and due[order[nxt]] <= eng._tick:
+            r = reqs[order[nxt]]
+            r.arrival_time = eng._now()
+            batch.append(r)
+            nxt += 1
+        eng.submit(batch)
+        eng.tick()
+    if now is not None:
+        now[0] = float(eng._tick)
+    eng.metrics.wall_s = eng._now()
+    return eng.metrics
+
+
+def verify_levels(metrics, layers):
+    """Verify dispatches by ladder level: a tick that emitted tokens at
+    level 0 ran a spec_k 4 verify (q_span 5), at level 1 (spec_shrink) a
+    spec_k 2 one (q_span 3); levels >= 2 decode.  -> {q_span: paged
+    launches that many dispatches make}."""
+    spans = {0: SPEC_K + 1, 1: SPEC_K // 2 + 1}
+    out = {q: 0 for q in spans.values()}
+    for t in metrics.ticks:
+        if t.tokens_emitted and t.brownout_level in spans:
+            out[spans[t.brownout_level]] += layers
+    return out
+
+
+def overload_summary(s, metrics):
+    return {k: s[k] for k in (
+        "requests_finished", "rejected_requests", "shed_requests",
+        "crashes_total", "retries_total", "recoveries", "recovery_events",
+        "recovery_ticks_mean", "brownout_events", "brownout_level_max",
+        "breaker_events", "slo_met", "goodput", "tokens_generated",
+        "spec_drafted_total", "spec_accepted_total", "n_ticks",
+        "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tokens_per_s",
+        "wall_s")}
+
+
+def faults_phase(torch, np, cfg32, params32, want32, ServeEngine, Request,
+                 synthetic_requests, faults, overload, paged_mod,
+                 bf16_params):
+    """Crash recovery and overload control at full width.  (a) fp32 crash
+    recovery on the engine burst: streams equal the fault-free fp32
+    kernel streams `want32`.  (b) fp32 overload on the tick clock, once
+    through the kernel and once through the gather path: equal streams,
+    event lists and counts; finished streams equal spec-off's; the ladder
+    reaches spec_off and returns to 0; verify launches at q_span 5 and 3
+    equal layers x the verify dispatches at ladder levels 0 and 1.  (c)
+    the same knobs in bf16 on the real clock (reported; every launch on
+    its route), then again for its first PROFILE_TICKS ticks (the storm
+    and the breaker's cycle) under the profiler, device activity only.
+    `bf16_params()` makes the bf16 weights when (c) needs them.  -> the
+    launches of each run and of each route, and the 12-row verify
+    launches."""
+    paged_attention = paged_mod.paged_attention
+    from repro_torch.models.attention import head_layout
+    vocab = cfg32.vocab_size
+    G = head_layout(cfg32)[2]  # the padded group: rows = q_span x G
+    hd = cfg32.head_dim_()
+    layers = cfg32.num_layers
+    launches = {}  # run -> (launches, tensor cores, split-KV)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def zero():
+        paged_attention.launches = paged_attention.launches_tc = 0
+        paged_attention.launches_split = 0
+
+    def check_routes(log, dtype_name, where):
+        wrong = [(qg, r) for qg, r in log
+                 if r != paged_route(dtype_name, qg, hd)]
+        if wrong:
+            fail(f"faults {where}: misrouted (rows, route): {wrong[:5]}")
+
+    # ---- (a) crash recovery, fp32 -----------------------------------------
+    c = CRASH_PLAN
+    plan = faults.FaultPlan([faults.worker_crash(c["prefill_crash"]),
+                             faults.worker_slow(*c["slow"]),
+                             faults.worker_slow(*c["clear"], 1.0),
+                             faults.worker_crash(c["decode_crash"])])
+    eng = ServeEngine(cfg32, params=params32, paged_impl="kernel", seed=0,
+                      device=DEVICE, n_workers=FAULT_WORKERS,
+                      fault_injector=faults.FaultInjector(plan), **ENGINE)
+    # run()'s loop (every arrival is at 0), which notes before each crash
+    # tick what the crash will take: the highest live worker's slots
+    victims = []
+    log, restore = record_paged_launches(paged_mod)
+    zero()
+    eng.submit(requests(np, synthetic_requests, vocab))
+    while eng.scheduler.has_pending or eng._by_slot or eng._prefilling \
+            or eng._retrying:
+        if eng._tick in (c["prefill_crash"], c["decode_crash"]):
+            w = eng.scheduler.n_workers - 1
+            slots = set(eng.scheduler.slots_of_worker(w))
+            victims.append({"tick": eng._tick, "worker": w,
+                            "mid_prefill": len(slots & set(eng._prefilling)),
+                            "decoding": len(slots & set(eng._by_slot))})
+        eng.tick()
+    launches["crash"] = paged_counts(paged_attention)
+    restore()
+    m = eng.metrics
+    m.wall_s = eng._now()
+    s = m.summarize()
+    check_routes(log, "float32", "(a)")
+    if streams(m) != want32:
+        bad = sorted(r for r, v in streams(m).items() if v != want32[r])
+        fail(f"faults (a): fp32 streams of requests {bad} differ from the "
+             f"fault-free kernel run")
+    if (s["crashes_total"], s["recoveries"], s["shed_requests"]) != (2, 2, 0) \
+            or len(victims) != 2 or not victims[0]["mid_prefill"] \
+            or not victims[1]["decoding"] or eng._slow_factors \
+            or launches["crash"][0] <= 0:
+        fail(f"faults (a): crashes {s['crashes_total']}, recoveries "
+             f"{s['recoveries']}, shed {s['shed_requests']}, victims "
+             f"{victims}, slow factors {eng._slow_factors}, "
+             f"{launches['crash'][0]} launches")
+    part_a = {"victims": victims, "fault_events": [list(e) for e in
+                                                   m.fault_events],
+              "recovery_events": s["recovery_events"],
+              "retries_total": s["retries_total"],
+              "n_ticks": s["n_ticks"],
+              "kernel_launches": launches["crash"][0],
+              "streams_equal_fault_free": True}
+    del eng, m
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (b) overload on the tick clock, fp32: kernel == gather ----------
+    runs = {}
+    knobs = {k: OVERLOAD[k] for k in ("slo_ttft", "slo_tpot", "tenant_rate",
+                                      "tenant_burst")}
+    for impl in ("kernel", "gather"):
+        now = [0.0]
+        eng = overload_engine(ServeEngine, faults, overload, cfg32, params32,
+                              impl, knobs=knobs, now=now)
+        log, restore = record_paged_launches(paged_mod)
+        zero()
+        m = drive_open_loop(eng, *overload_requests(np, Request, vocab), now)
+        n = paged_counts(paged_attention)
+        restore()
+        runs[impl] = (m, m.summarize(), log, n)
+        del eng
+    (mk, sk, logk, nk), (mg, sg, _, ng) = runs["kernel"], runs["gather"]
+    launches["overload_fp32"] = nk
+    nk, ng = nk[0], ng[0]
+    keys = ("requests_finished", "rejected_requests", "shed_requests",
+            "brownout_events", "breaker_events", "recovery_events",
+            "crashes_total", "retries_total", "n_ticks")
+    record = lambda mm: {r.rid: (r.state.name, list(r.generated))  # noqa
+                         for r in mm.requests}
+    if record(mk) != record(mg) or any(sk[k] != sg[k] for k in keys) \
+            or ng != 0:
+        diff = [k for k in keys if sk[k] != sg[k]]
+        fail(f"faults (b): kernel and gather overload runs differ "
+             f"({diff or 'streams or states'}; gather launched {ng})")
+    done = {r.rid: list(r.generated) for r in mk.requests
+            if r.state.name == "FINISHED"}
+    # the spec-off streams of the finished requests, fault- and load-free
+    ref = ServeEngine(cfg32, params=params32, paged_impl="kernel", seed=0,
+                      device=DEVICE, **ENGINE)
+    spec_off = streams(ref.run([r for r in overload_requests(
+        np, Request, vocab)[0] if r.rid in done]))
+    del ref
+    if any(v != spec_off[rid] for rid, v in done.items()) or not done:
+        bad = sorted(rid for rid, v in done.items() if v != spec_off[rid])
+        fail(f"faults (b): finished streams of {bad} differ from the "
+             f"spec-off run")
+    levels = [lvl for _, lvl, _ in mk.brownout_events]
+    if max(levels, default=0) < 2 or levels[-1:] != [0]:
+        fail(f"faults (b): brownout events {mk.brownout_events}: the ladder "
+             f"must reach spec_off (2) and return to 0")
+    check_routes(logk, "float32", "(b)")
+    want_spans = verify_levels(mk, layers)
+    got_spans = {q: sum(1 for qg, _ in logk if qg == q * G)
+                 for q in want_spans}
+    if got_spans != want_spans or not all(want_spans.values()):
+        fail(f"faults (b): verify launches by q_span {got_spans}, want "
+             f"{want_spans} (layers x verify dispatches at levels 0, 1)")
+    part_b = {**overload_summary(sk, mk), "knobs": knobs,
+              "queue_cap": OVERLOAD["queue_cap"],
+              "kernel_launches": nk,
+              "verify_launches_by_rows": {q * G: n for q, n in
+                                          got_spans.items()},
+              "routes": sorted({(qg, r) for qg, r in logk}),
+              "kernel_equals_gather": True,
+              "finished_equal_spec_off": len(done)}
+    del runs, mk, mg
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (c) the same knobs in bf16 on the real clock (reported) ---------
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params16 = bf16_params()
+    eng = overload_engine(ServeEngine, faults, overload, cfg16, params16,
+                          "kernel", knobs=OVERLOAD_WALL)
+    log, restore = record_paged_launches(paged_mod)
+    zero()
+    m = drive_open_loop(eng, *overload_requests(np, Request, vocab))
+    launches["overload_bf16"] = paged_counts(paged_attention)
+    restore()
+    s = m.summarize()
+    check_routes(log, "bfloat16", "(c)")
+    want_spans = verify_levels(m, layers)
+    got_spans = {q: sum(1 for qg, _ in log if qg == q * G)
+                 for q in want_spans}
+    if got_spans != want_spans:
+        fail(f"faults (c): verify launches by q_span {got_spans}, want "
+             f"{want_spans}")
+    toks = [t for r in m.requests for t in r.generated]
+    if not all(0 <= t < vocab for t in toks) or not s["requests_finished"]:
+        fail(f"faults (c): {s['requests_finished']} finished")
+    del eng
+    prof_eng = overload_engine(ServeEngine, faults, overload, cfg16,
+                               params16, "kernel", knobs=OVERLOAD_WALL)
+    prof = profile_run(torch, lambda: drive_open_loop(
+        prof_eng, *overload_requests(np, Request, vocab),
+        max_ticks=PROFILE_TICKS))
+    del prof_eng, params16
+    seconds["c"] = time.perf_counter() - t0
+    part_c = {**overload_summary(s, m), "knobs_s": OVERLOAD_WALL,
+              "recovery_ticks": [e[1] for e in m.recovery_events],
+              "kernel_launches": launches["overload_bf16"][0],
+              "verify_launches_by_rows": {q * G: n for q, n in
+                                          got_spans.items()},
+              "routes": sorted({(qg, r) for qg, r in log}),
+              "profile": prof}
+    emit({"phase": "faults", "arch": ARCH, **ENGINE,
+          "n_workers": FAULT_WORKERS, "crash_plan": CRASH_PLAN,
+          "overload": OVERLOAD, "a_crash_recovery_fp32": part_a,
+          "b_overload_tick_clock_fp32": part_b,
+          "c_overload_wall_clock_bf16": part_c, "seconds": seconds})
+    n, tc, split = (sum(v[i] for v in launches.values()) for i in range(3))
+    return {"launches": n, "by_run": {k: v[0] for k, v in launches.items()},
+            "launches_tc": tc, "launches_split": split,
+            "verify_12_rows": part_b["verify_launches_by_rows"].get(
+                (SPEC_K // 2 + 1) * G, 0)
+            + part_c["verify_launches_by_rows"].get((SPEC_K // 2 + 1) * G,
+                                                    0)}
+
+
 def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
              **kw):
     """The engine workload on the flat layout; every request must finish
@@ -1494,7 +1827,9 @@ def main() -> None:
     from repro_torch.kernels import scd as scd_mod
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
+    from repro_torch import faults as faults_mod
     from repro_torch.serve import Request, ServeEngine, synthetic_requests
+    from repro_torch.serve import overload as overload_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1534,6 +1869,10 @@ def main() -> None:
         # a speculative verify span of spec_k + 1 positions in every slot
         "verify": dict(B=8, Q=SPEC_K + 1,
                        lengths=rng.integers(37, 1573, size=8)),
+        # the verify span at the ladder's spec_shrink (spec_k 2: q_span 3,
+        # 12 rows, the split route in both dtypes)
+        "verify_shrink": dict(B=8, Q=SPEC_K // 2 + 1,
+                              lengths=rng.integers(35, 1571, size=8)),
     }
     worst = {}
     checks = []
@@ -1718,8 +2057,6 @@ def main() -> None:
             fail(f"{name} and kernel streams diverge at request "
                  f"{div['rid']} step {div['step']}")
     spec_fp32 = m_spec.summarize()
-    del params32
-    torch.cuda.empty_cache()
     small = smoke_variant(cfg)
     small_reqs = lambda: synthetic_requests(  # noqa: E731
         6, vocab_size=small.vocab_size, arrivals=np.zeros(6),
@@ -1751,6 +2088,15 @@ def main() -> None:
               "accepted": spec_rep["spec_accepted_total"],
               "tokens_per_dispatch": spec_rep["tokens_per_dispatch"]},
           "smoke_card_vs_cpu_tokens": sum(len(v) for v in on_card.values())})
+    torch.cuda.empty_cache()
+
+    # ---- faults: crash recovery and overload control at full width -------
+    fault = faults_phase(
+        torch, np, cfg32, params32, got["kernel"], ServeEngine, Request,
+        synthetic_requests, faults_mod, overload_mod, paged_mod,
+        lambda: M.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(0), DEVICE))
+    del params32
     torch.cuda.empty_cache()
 
     # ---- flat: the flat KV layout at full width, bf16 --------------------
@@ -1840,16 +2186,26 @@ def main() -> None:
         "replaces": "src/repro/kernels/paged_attention.py:47",
         "replaces_function": "src/repro/kernels/paged_attention.py"
                              "::_paged_kernel",
-        "launches": launches + spec["launches"],
-        "launches_by_path": {"engine": launches, "spec": spec["launches"]},
-        "launches_tc": launches_tc + spec["launches_tc"],
-        "launches_split": launches_split,
+        "launches": launches + spec["launches"] + fault["launches"],
+        "launches_by_path": {"engine": launches, "spec": spec["launches"],
+                             "faults": fault["by_run"]},
+        "launches_tc": launches_tc + spec["launches_tc"]
+        + fault["launches_tc"],
+        "launches_split": launches_split + fault["launches_split"],
         "routes": {"split (decode)": launches_split,
                    "tensor cores (engine prefill chunks)": launches_tc,
                    "tensor cores (spec: chunks and verify)":
                        spec["launches_tc"],
                    "of which verify spans": spec["verify_launches"],
-                   "CUDA cores": launches - launches_tc - launches_split},
+                   "tensor cores (faults)": fault["launches_tc"],
+                   "split (faults: decode and verify)":
+                       fault["launches_split"],
+                   "of which verify spans of 12 rows (spec_shrink)":
+                       fault["verify_12_rows"],
+                   "CUDA cores": launches + spec["launches"]
+                   + fault["launches"] - launches_tc - launches_split
+                   - spec["launches_tc"] - fault["launches_tc"]
+                   - fault["launches_split"]},
         "sass": sass["paged_attention"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"],

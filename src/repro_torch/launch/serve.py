@@ -6,10 +6,16 @@ Runs on the GPU unless `--device cpu` is given.  `--kv-layout flat`
 cache, and there `--paged-impl kernel` (default) runs attention through
 the CUDA paged-attention kernel, `--paged-impl gather` through a gather
 and plain attention.  `--spec ngram|draft` turns on speculative decoding
-with `--spec-k` drafts a tick.
+with `--spec-k` drafts a tick.  `--chaos` injects faults on the tick clock
+(crashes, slow workers); `--slo-ttft`/`--slo-tpot` set SLO targets,
+`--tenant-rate`/`--queue-cap` bound admission, and `--brownout auto` arms
+the degradation ladder (and, with `--chaos`, the crash-storm circuit
+breaker).
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
          --spec-k 4 [--kv-layout paged] --trace poisson --requests 16
+     PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+         --workers 2 --chaos "crash@t=5,slow@t=3:w0:2.0" --brownout auto
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ import numpy as np
 
 from ..configs import get_config, smoke_variant
 from ..core import ElasticScalingPolicy, ScaleEvent, StragglerMitigationPolicy
+from ..faults import FaultInjector, parse_chaos
 from ..obs import (Tracer, dominant_host_phase, format_attribution,
                    host_overlap_ratio, phase_attribution)
-from ..serve import ServeEngine, poisson_arrivals, synthetic_requests
+from ..serve import (CircuitBreaker, ServeEngine, poisson_arrivals,
+                     synthetic_requests)
 from .train import scale_config
 
 
@@ -75,6 +83,10 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
           page_size: int = 8, spec: str = "off", spec_k: int = 4,
           prefix_share: Optional[bool] = None,
           evict: Optional[bool] = None, paged_impl: str = "kernel",
+          chaos: Optional[str] = None,
+          slo_ttft: Optional[float] = None, slo_tpot: Optional[float] = None,
+          tenant_rate: Optional[float] = None, queue_cap: Optional[int] = None,
+          brownout: str = "off",
           device: str = "cuda", seed: int = 0,
           trace_out: Optional[str] = None) -> Dict:
     """Run an open-loop serving workload; returns the metrics summary.
@@ -82,9 +94,12 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     schedule; `spec` ("off", "ngram" or "draft") drafts `spec_k` tokens a
     tick for one verify dispatch; `evict` lets priority admission park a
     lower-priority decode's pages on the host (paged layout; default on
-    there); `trace_out` enables tick-phase tracing, writes a Chrome
-    trace-event JSON file there (Perfetto-loadable) and adds the
-    per-phase host-vs-device attribution to the summary."""
+    there); `chaos` is a fault spec on the tick clock (`parse_chaos`);
+    `slo_ttft`/`slo_tpot`, `tenant_rate`, `queue_cap` and `brownout` are
+    the engine's overload knobs, and `brownout="auto"` with `chaos` also
+    arms a `CircuitBreaker`; `trace_out` enables tick-phase tracing,
+    writes a Chrome trace-event JSON file there (Perfetto-loadable) and
+    adds the per-phase host-vs-device attribution to the summary."""
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if smoke else scale_config(cfg, scale)
     rng = np.random.default_rng(seed)
@@ -102,16 +117,28 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     if straggler_policy:
         policies.append(StragglerMitigationPolicy())
     tracer = Tracer(name=f"serve:{arch}") if trace_out else None
+    injector = (FaultInjector(parse_chaos(chaos), tracer=tracer)
+                if chaos else None)
+    # overload control: brownout=auto arms the degradation ladder, and with
+    # chaos scripted too it arms the crash-storm circuit breaker
+    breaker = CircuitBreaker() if brownout == "auto" and chaos else None
     engine = ServeEngine(cfg, capacity=capacity, cache_len=cache_len,
                          prefill_bucket=prefill_bucket, n_workers=workers,
                          policies=policies, kv_layout=kv_layout,
                          page_size=page_size, spec=spec, spec_k=spec_k,
                          prefix_share=prefix_share,
-                         evict=evict, paged_impl=paged_impl, seed=seed,
-                         tracer=tracer, device=device)
+                         evict=evict, paged_impl=paged_impl,
+                         fault_injector=injector, slo_ttft=slo_ttft,
+                         slo_tpot=slo_tpot, tenant_rate=tenant_rate,
+                         queue_cap=queue_cap, brownout=brownout,
+                         breaker=breaker, seed=seed, tracer=tracer,
+                         device=device)
     out = engine.run(reqs).summarize()
     out.update(arch=arch, capacity=capacity, device=str(engine.device),
                kv_layout=kv_layout, paged_impl=paged_impl)
+    if injector is not None:
+        out["chaos"] = chaos
+        out["faults_injected"] = injector.summary()
     if tracer is not None:
         tracer.save(trace_out)
         attr = phase_attribution(tracer)
@@ -170,6 +197,28 @@ def main() -> None:
                     choices=["kernel", "gather"],
                     help="paged attention through the CUDA kernel or through "
                          "a gather and plain attention")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection spec on the tick clock, e.g. "
+                         "'crash@t=5', 'crash@t=5:w1', 'slow@t=3:w0:2.0', "
+                         "'p_crash=0.02'; comma-separate multiple events")
+    ap.add_argument("--slo-ttft", type=float, default=None, metavar="S",
+                    help="TTFT SLO target in seconds; enables the rolling "
+                         "attainment tracker + goodput accounting")
+    ap.add_argument("--slo-tpot", type=float, default=None, metavar="S",
+                    help="per-output-token SLO target in seconds")
+    ap.add_argument("--tenant-rate", type=float, default=None, metavar="R",
+                    help="token-bucket admission: R requests/s per tenant "
+                         "(burst defaults to max(R, 1)); excess arrivals "
+                         "are REJECTED with a retry-after hint")
+    ap.add_argument("--queue-cap", type=int, default=None, metavar="N",
+                    help="bounded admission queue: arrivals beyond N queued "
+                         "requests are REJECTED (backpressure)")
+    ap.add_argument("--brownout", default="off", choices=["off", "auto"],
+                    help="graceful-degradation ladder driven by SLO "
+                         "attainment + queue pressure (spec shrink -> spec "
+                         "off -> chunk cap -> park low-prio -> shed late); "
+                         "with --chaos also arms the crash-storm circuit "
+                         "breaker")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -193,6 +242,9 @@ def main() -> None:
                 spec=args.spec, spec_k=args.spec_k,
                 prefix_share=onoff(args.prefix_share),
                 evict=onoff(args.evict), paged_impl=args.paged_impl,
+                chaos=args.chaos, slo_ttft=args.slo_ttft,
+                slo_tpot=args.slo_tpot, tenant_rate=args.tenant_rate,
+                queue_cap=args.queue_cap, brownout=args.brownout,
                 device=args.device, seed=args.seed,
                 trace_out=args.trace_out)
     if args.json:
@@ -220,6 +272,22 @@ def main() -> None:
               f"{out['cow_breaks_total']} cow breaks, "
               f"{out['parked_total']} parked / {out['restored_total']} "
               f"restored ({out['kv_moved_bytes_total']} bytes moved)")
+    if "faults_injected" in out:
+        print(f"  chaos: injected {out['faults_injected']}; "
+              f"{out['recoveries']} recoveries "
+              f"(mean {out['recovery_ticks_mean'] or 0:.1f} ticks), "
+              f"{out['retries_total']} retries, "
+              f"{out['shed_requests']} shed")
+    if out.get("goodput") is not None or out.get("rejected_requests"):
+        gp = out.get("goodput")
+        print(f"  overload: goodput "
+              f"{'n/a' if gp is None else f'{gp:.2f}'} "
+              f"({out.get('slo_met') or 0}/{out['requests_finished']} "
+              f"finished met SLO), {out['rejected_requests']} rejected, "
+              f"{out['shed_requests']} shed, brownout max level "
+              f"{out['brownout_level_max']}"
+              + (f", breaker {out['breaker_events']}"
+                 if out.get("breaker_events") else ""))
     if "attribution" in out:
         ratio = out.get("host_overlap_ratio")
         print(f"  trace written to {out['trace_out']}; tick-time "

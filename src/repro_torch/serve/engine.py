@@ -46,9 +46,20 @@ dispatch's metadata (tokens, positions, block table, lengths, COW pairs)
 goes to the device as ONE copy of a packed int32 staging tensor
 (`_MetaPacker`), counted per tick as `meta_transfers`.
 
+Faults and overload control follow the JAX engine.  A `FaultInjector`
+is polled at the top of every tick: `crash_worker` drops every slot and
+page of the lost worker and restarts its requests from the prompt after a
+jittered exponential backoff (greedy re-execution gives the fault-free
+stream), or sheds them once their retry budget is spent; `worker_slow`
+scales the worker's modeled task time.  Token-bucket and bounded-queue
+admission reject with a retry-after hint, an `SLOTracker` scores every
+finish, the brownout `DegradationLadder` shrinks then drops speculation,
+caps the prefill chunk, parks and sheds, and a `CircuitBreaker` holds
+fresh admissions through a crash storm.  With an external `clock` the
+engine runs on simulated time (one tick, one second, in the tests).
+
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the overlapped tick, fault injection, overload control,
-disaggregated pools and the moe family.
+item): the overlapped tick, disaggregated pools and the moe family.
 """
 from __future__ import annotations
 
@@ -61,9 +72,11 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..faults import FaultEvent, FaultInjector
 from ..models import model as M
-from ..obs import MetricsRegistry, NULL_TRACER, Tracer, meets_slo
+from ..obs import MetricsRegistry, NULL_TRACER, SLOTracker, Tracer, meets_slo
 from .memory import KVMemoryManager
+from .overload import AdmissionController, CircuitBreaker, DegradationLadder
 from .pages import PageAllocator, next_pow2
 from .request import Request, RequestState
 from .scheduler import SlotScheduler
@@ -333,15 +346,7 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
 # yet: their defaults (accepted) and the ROADMAP queue-A item that ports
 # them (any other value raises NotImplementedError naming it)
 _UNPORTED = {
-    "clock": (None, "faults and overload"),
     "decode_enabled": (True, "disaggregated serving"),
-    "retry_backoff": (1, "faults and overload"),
-    "retry_jitter": (True, "faults and overload"),
-    "slo_window": (64, "faults and overload"),
-    "tenant_burst": (None, "faults and overload"),
-    "admission": (None, "faults and overload"),
-    "ladder": (None, "faults and overload"),
-    "breaker": (None, "faults and overload"),
 }
 
 
@@ -355,12 +360,11 @@ class ServeEngine:
     (flat or paged KV layout, synchronous tick).
 
     Takes every keyword of the JAX package's `ServeEngine`.  Those of
-    features not ported yet (`_UNPORTED`: the external clock,
-    disaggregated prefill pools, retries, the overload knobs) raise
-    NotImplementedError naming their ROADMAP item unless left at their
-    defaults.  `max_cached_meshes` and `max_cached_fns` size the JAX
-    engine's jit caches; eager PyTorch keeps no such cache, so any value
-    is accepted and ignored."""
+    features not ported yet (`_UNPORTED`: disaggregated prefill pools;
+    `overlap=True`) raise NotImplementedError naming their ROADMAP item
+    unless left at their defaults.  `max_cached_meshes` and
+    `max_cached_fns` size the JAX engine's jit caches; eager PyTorch keeps
+    no such cache, so any value is accepted and ignored."""
 
     def __init__(self, cfg: ModelConfig, *, capacity: int = 8,
                  cache_len: int = 64, prefill_bucket: int = 16,
@@ -382,7 +386,7 @@ class ServeEngine:
                  debug_checks: bool = False,
                  decode_enabled: bool = True,
                  overlap: bool = False,
-                 fault_injector: Optional[Any] = None,
+                 fault_injector: Optional[FaultInjector] = None,
                  retry_backoff: int = 1,
                  retry_jitter: bool = True,
                  slo_ttft: Optional[float] = None,
@@ -391,21 +395,16 @@ class ServeEngine:
                  tenant_rate: Optional[Any] = None,
                  tenant_burst: Optional[Any] = None,
                  queue_cap: Optional[int] = None,
-                 admission: Optional[Any] = None,
+                 admission: Optional[AdmissionController] = None,
                  brownout: str = "off",
-                 ladder: Optional[Any] = None,
-                 breaker: Optional[Any] = None,
+                 ladder: Optional[DegradationLadder] = None,
+                 breaker: Optional[CircuitBreaker] = None,
                  tracer: Optional[Tracer] = None,
                  max_cached_meshes: int = 2, max_cached_fns: int = 16,
                  device="cuda"):
-        given = dict(clock=clock, decode_enabled=decode_enabled,
-                     retry_backoff=retry_backoff, retry_jitter=retry_jitter,
-                     slo_window=slo_window, tenant_burst=tenant_burst,
-                     admission=admission, ladder=ladder, breaker=breaker)
-        for name, value in given.items():
-            default, item = _UNPORTED[name]
-            if value is not None if default is None else value != default:
-                raise _unsupported(f"{name}={value!r}", item)
+        default, item = _UNPORTED["decode_enabled"]
+        if decode_enabled != default:
+            raise _unsupported(f"decode_enabled={decode_enabled!r}", item)
         if cfg.family != "dense":
             raise _unsupported(f"family {cfg.family!r}",
                                "remaining model families")
@@ -426,13 +425,11 @@ class ServeEngine:
         if spec not in ("off", "ngram", "draft"):
             raise ValueError(f"spec must be 'off', 'ngram' or 'draft', "
                              f"got {spec!r}")
+        if brownout not in ("off", "auto"):
+            raise ValueError(f"brownout must be 'off' or 'auto', "
+                             f"got {brownout!r}")
         if overlap:
             raise _unsupported("overlap=True", "overlap on CUDA streams")
-        if fault_injector is not None:
-            raise _unsupported("fault_injector", "faults and overload")
-        if (slo_ttft, slo_tpot, tenant_rate, queue_cap) != (None,) * 4 \
-                or brownout != "off":
-            raise _unsupported("overload control", "faults and overload")
         paged = kv_layout == "paged"
         if not paged:
             if prefix_share:
@@ -478,14 +475,37 @@ class ServeEngine:
         self.evict = paged if evict is None else bool(evict)
         self.chunked_prefill = (paged if chunked_prefill is None
                                 else bool(chunked_prefill))
+        # the jittered retry backoff's draws (the JAX engine's generator)
+        self.rng = np.random.default_rng(seed)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = M.init_params(cfg, gen, self.device)
         self.params = params.to(self.device)
+        # overload control (all off by default, and then the engine is the
+        # same as one without these knobs): token-bucket and bounded-queue
+        # admission live in the scheduler; the SLO tracker scores finishes;
+        # the degradation ladder and the circuit breaker act in tick
+        if admission is None and (tenant_rate is not None
+                                  or queue_cap is not None):
+            admission = AdmissionController(
+                tenant_rate=tenant_rate, tenant_burst=tenant_burst,
+                queue_cap=queue_cap,
+                drain_rate=float(max_admit_per_tick))
+        self.slo = (SLOTracker(ttft_target=slo_ttft, tpot_target=slo_tpot,
+                               window=slo_window, tracer=self.tracer)
+                    if (slo_ttft is not None or slo_tpot is not None)
+                    else None)
+        self.ladder = (ladder if ladder is not None
+                       else DegradationLadder() if brownout == "auto"
+                       else None)
+        self.breaker = breaker
         self.scheduler = SlotScheduler(
             capacity, n_workers=n_workers, slots_per_chunk=slots_per_chunk,
             policies=policies, max_admit_per_tick=max_admit_per_tick,
-            seed=seed, tenant_weights=tenant_weights, tracer=self.tracer)
+            seed=seed, tenant_weights=tenant_weights, admission=admission,
+            tracer=self.tracer)
+        # external simulation clock; None = wall clock
+        self._clock = clock
         self.debug_checks = debug_checks
 
         # speculative decode: each slot proposes spec_k drafts a tick and
@@ -545,7 +565,27 @@ class ServeEngine:
         self._kv_prev = self.mem.stats() if self.mem is not None else None
         self._by_slot: Dict[int, Request] = {}
         self._prefilling: Dict[int, Tuple[Request, int]] = {}  # slot->(req,off)
+        # fault tolerance: the injector is polled at the top of every tick;
+        # crash victims wait on the host in _retrying (ready_tick, req)
+        # until their exponential backoff expires, then re-queue
+        self.fault_injector = fault_injector
+        self.retry_backoff = max(1, int(retry_backoff))
+        # jitter spreads one crash's victims over distinct ticks; drawn
+        # from the engine rng, so it is deterministic per seed and changes
+        # timing only, never a stream
+        self.retry_jitter = bool(retry_jitter)
+        self._retrying: List[Tuple[int, Request]] = []
+        self._slow_factors: Dict[int, float] = {}
+        self._recovering: List[Dict[str, Any]] = []
+        self._tick_faults = {"crashes": 0, "retries": 0, "shed": 0}
         self.metrics = ServeMetrics()
+        self.metrics.slo_ttft = slo_ttft
+        self.metrics.slo_tpot = slo_tpot
+        # the ladder degrades and restores these; the base values are the
+        # level-0 configuration it walks back to
+        self._base_spec_k = self.spec_k
+        self._base_drafter = self.drafter
+        self._base_prefill_chunk = self.prefill_chunk
         self._tick = 0
         self._t0: Optional[float] = None
         self._last_stats: Dict = {}
@@ -720,6 +760,13 @@ class ServeEngine:
         if self.mem is not None and req.slot is not None:
             self.mem.release_slot(req.slot)
         self.scheduler.release(req, now)
+        if self.slo is not None:
+            # score the finish against its targets (per-request overrides
+            # win); the tracker traces slo.miss and feeds the ladder
+            self.slo.observe(rid=req.rid, tenant=req.tenant,
+                             ttft=req.ttft(), tpot=req.tpot(),
+                             ttft_target=req.slo_ttft,
+                             tpot_target=req.slo_tpot)
 
     # --- eviction: park / restore (page-granular preemption) --------------
     def park(self, slot: int) -> int:
@@ -798,6 +845,223 @@ class ServeEngine:
             self.scheduler.pool.pos[req.slot] = seq.live_tokens
             self._by_slot[req.slot] = req
         return plan.moved_bytes
+
+    # --- fault injection + crash recovery ---------------------------------
+    def _backoff_ticks(self, retries: int) -> int:
+        """Exponential crash-retry backoff, jittered by uniform(0.5, 1.5)
+        from the engine rng: one crash's victims spread their re-admission
+        over distinct ticks instead of stampeding back as one cohort.
+        Deterministic per seed; at least one tick either way."""
+        base = self.retry_backoff * (1 << (retries - 1))
+        if self.retry_jitter:
+            return max(1, int(round(base * float(self.rng.uniform(0.5,
+                                                                  1.5)))))
+        return base
+
+    def apply_fault(self, ev: FaultEvent) -> None:
+        """Route one injected fault.  Serve-level kinds only: revoke_lease
+        (cluster scope) and handoff_drop (disagg scope) are ignored here,
+        so one FaultPlan can span every layer."""
+        if ev.kind == "worker_crash":
+            self.crash_worker(ev.target if ev.target is None
+                              else int(ev.target))
+        elif ev.kind == "worker_slow":
+            w = self.k - 1 if ev.target is None else int(ev.target)
+            self.set_worker_slow(w, ev.factor)
+
+    def set_worker_slow(self, worker: int, factor: float) -> None:
+        """Straggler injection: `worker`'s modeled task time scales by
+        `factor` until cleared with factor 1.0; feeds the same per-worker
+        timing stats `StragglerMitigationPolicy` watches."""
+        if factor == 1.0:
+            self._slow_factors.pop(worker, None)
+        else:
+            self._slow_factors[worker] = float(factor)
+        self.metrics.fault_events.append((self._tick, "worker_slow", worker))
+
+    def crash_worker(self, worker: Optional[int] = None) -> List[Request]:
+        """Abrupt loss of one logical worker (default: the highest-id live
+        worker): every slot and KV page on it is gone.  Its requests,
+        mid-prefill and mid-decode alike, restart from the prompt (greedy
+        decode re-executes the fault-free stream) through RETRYING with
+        exponential backoff, or are shed to EXPIRED once their retry budget
+        is spent.  The pool shrinks to the survivors through `resize` (a
+        k=1 crash cold-starts a replacement worker).  Returns the
+        victims."""
+        sched = self.scheduler
+        if worker is None:
+            worker = sched.n_workers - 1
+        if not 0 <= worker < sched.n_workers:
+            raise ValueError(f"crash_worker: worker {worker} not in live "
+                             f"set 0..{sched.n_workers - 1}")
+        now = self._now()
+        self.metrics.fault_events.append((self._tick, "worker_crash", worker))
+        self._tick_faults["crashes"] += 1
+        with self.tracer.span("recovery.crash", track="faults",
+                              worker=worker):
+            victims: List[Request] = []
+            for slot in sched.slots_of_worker(worker):
+                req = self._by_slot.pop(slot, None)
+                if req is None:
+                    ent = self._prefilling.pop(slot, None)
+                    req = ent[0] if ent is not None else None
+                if req is None:
+                    continue
+                # the dead worker's pages are unreachable: free them and
+                # drop the prefix-index entries that pointed at them
+                # (host-parked payloads are copies and survive)
+                if self.mem is not None:
+                    self.mem.release_slot(slot)
+                sched.pool.free(slot)
+                req.slot = None
+                victims.append(req)
+            for req in victims:
+                req.generated = []
+                req.t_first_token = None
+                req.retries += 1
+                if req.retries > req.max_retries:
+                    self._shed(req, now, reason="retries")
+                else:
+                    req.state = RequestState.RETRYING
+                    ready = self._tick + self._backoff_ticks(req.retries)
+                    self._retrying.append((ready, req))
+                    self._tick_faults["retries"] += 1
+                    self.tracer.count("serve.retries_total")
+            if victims:
+                self._recovering.append(
+                    {"tick": self._tick, "n": len(victims),
+                     "pending": {r.rid: r for r in victims}})
+            self.resize(max(1, self.k - 1))
+            # logical workers renumber on shrink: factors past the new k
+            # die with their worker ids
+            self._slow_factors = {w: f for w, f in self._slow_factors.items()
+                                  if w < self.k}
+        return victims
+
+    def _shed(self, req: Request, now: float, *, reason: str) -> None:
+        """Terminal load shed: EXPIRED, never re-queued.  A parked host
+        payload is dropped, a held slot and its pages released."""
+        if self.mem is not None and self.mem.has_parked(req.rid):
+            self.mem.take_parked(req.rid)
+        if req.slot is not None:
+            if self.mem is not None:
+                self.mem.release_slot(req.slot)
+            self.scheduler.pool.free(req.slot)
+            req.slot = None
+        req.state = RequestState.EXPIRED
+        req.t_finished = now
+        self._tick_faults["shed"] += 1
+        self.tracer.instant("shed", track="faults", rid=req.rid,
+                            reason=reason)
+        self.tracer.count("serve.shed_requests")
+
+    def _requeue_retries(self) -> None:
+        """Move backoff-expired crash victims back into the admission
+        queue; their original arrival time keeps them near the front of
+        their tenant's queue."""
+        due = [ent for ent in self._retrying if ent[0] <= self._tick]
+        if not due:
+            return
+        self._retrying = [ent for ent in self._retrying
+                          if ent[0] > self._tick]
+        with self.tracer.span("recovery.requeue", track="faults",
+                              n=len(due)):
+            for _, req in due:
+                req.state = RequestState.QUEUED
+                self.scheduler.submit(req)
+
+    def _shed_expired(self, now: float) -> None:
+        """Deadline shedding: queued or retrying requests past their
+        deadline are EXPIRED instead of (re-)admitted.  In-flight decodes
+        run to completion; admission is the shedding point."""
+        for req in self.scheduler.shed_expired(now):
+            self._shed(req, now, reason="deadline")
+        keep: List[Tuple[int, Request]] = []
+        for rdy, req in self._retrying:
+            if req.deadline is not None \
+                    and now - req.arrival_time > req.deadline:
+                self._shed(req, now, reason="deadline")
+            else:
+                keep.append((rdy, req))
+        self._retrying = keep
+
+    # --- graceful degradation (brownout ladder) ---------------------------
+    def _apply_degradation(self, level: int) -> None:
+        """Reconfigure for a ladder level, as a function of (base
+        configuration, level) alone, so walking back down restores level 0
+        exactly.  Every action trades quality (latency, batching), never
+        content: greedy decode at any level gives the streams of an engine
+        configured that way from the start."""
+        k = self._base_spec_k
+        drafter = self._base_drafter
+        chunk = self._base_prefill_chunk
+        if level >= 1:  # spec_shrink: halve the draft depth
+            k = max(1, k // 2) if k else 0
+        if level >= 2:  # spec_off: no speculative drafting at all
+            drafter = None
+        if level >= 3 and self.chunked_prefill:
+            chunk = self.page_size  # chunk_cap: the narrowest legal chunk
+        restored = drafter is not None and self.drafter is None
+        self.drafter = drafter
+        self.spec_k = k if drafter is not None else 0
+        self.prefill_chunk = chunk
+        if restored:
+            # resize() skips a detached drafter: follow the pool's device
+            # on the way back up
+            drafter.on_resize(self.device)
+
+    def _brownout_actions(self, now: float) -> None:
+        """Per-tick work of the ladder's top levels (the lower levels are
+        reconfiguration, applied once per transition)."""
+        lvl = self.ladder.level
+        sched = self.scheduler
+        if lvl >= 4 and self.mem is not None and self.evict:
+            # park_low: free a slot for a strictly higher-priority waiter
+            # before the pool is full (admission's preempt hook waits for a
+            # full pool)
+            heads = [q[0] for q in sched._queues.values()
+                     if q and q[0].arrival_time <= now]
+            if heads:
+                top = max(h.priority for h in heads)
+                victim = self._pick_victim()
+                if victim is not None \
+                        and self._by_slot[victim].priority < top:
+                    self.park(victim)
+                    self.tracer.instant("degrade.park", track="overload",
+                                        slot=victim)
+        if lvl >= 5 and self.slo is not None \
+                and self.slo.ttft_target is not None:
+            # shed_late: a queued request already past its TTFT target is a
+            # certain miss; shed it.  Parked and retrying work is exempt (it
+            # holds restorable state)
+            late = sched.pop_older_than(
+                now, self.slo.ttft_target,
+                pred=lambda r: (r.state is RequestState.QUEUED
+                                and r.retries == 0))
+            for r in late:
+                self._shed(r, now, reason="brownout")
+
+    def _settle_recoveries(self) -> None:
+        """Close recovery windows: a crash's victims are recovered when
+        each has emitted its first token again or been shed; the window's
+        tick count is the recovery latency."""
+        still: List[Dict[str, Any]] = []
+        for rec in self._recovering:
+            rec["pending"] = {
+                rid: r for rid, r in rec["pending"].items()
+                if not (r.state is RequestState.EXPIRED
+                        or (r.n_generated > 0
+                            and r.state in (RequestState.DECODING,
+                                            RequestState.FINISHED)))}
+            if rec["pending"]:
+                still.append(rec)
+            else:
+                rticks = self._tick - rec["tick"]
+                self.metrics.recovery_events.append(
+                    (rec["tick"], rticks, rec["n"]))
+                self.tracer.instant("recovery.done", track="faults",
+                                    crash_tick=rec["tick"], ticks=rticks)
+        self._recovering = still
 
     def _start_decoding(self, req: Request, nxt: int, now: float) -> None:
         """PREFILL -> DECODING (or immediate finish) once the first token
@@ -944,6 +1208,8 @@ class ServeEngine:
 
     # --- main loop --------------------------------------------------------
     def _now(self) -> float:
+        if self._clock is not None:
+            return float(self._clock())
         if self._t0 is None:
             self._t0 = time.perf_counter()
         return time.perf_counter() - self._t0
@@ -956,7 +1222,18 @@ class ServeEngine:
                 raise ValueError(
                     f"request {r.rid}: prompt {r.prompt_len} + max_new "
                     f"{r.max_new_tokens} exceeds cache_len {self.cache_len}")
-            self.scheduler.submit(r)
+            ok, verdict = self.scheduler.try_submit(r)
+            if not ok:
+                # backpressure: terminal REJECTED with a retry-after hint,
+                # never queued, counted apart from sheds
+                r.state = RequestState.REJECTED
+                r.retry_after = verdict.retry_after
+                r.t_finished = r.arrival_time
+                self.tracer.instant("admission.reject", track="overload",
+                                    rid=r.rid, tenant=r.tenant,
+                                    reason=verdict.reason,
+                                    retry_after=verdict.retry_after)
+                self.tracer.count("serve.rejected")
             self.metrics.requests.append(r)
 
     def _paged_batch_inputs(self, active: List[int], n_new: np.ndarray
@@ -1115,6 +1392,50 @@ class ServeEngine:
         tick_t0 = time.perf_counter() if trc.enabled else 0.0
         self._tick_meta = 0  # packed host->device transfers this tick
 
+        # ---- fault phase: injected faults land BEFORE the scheduler, so a
+        # crash on the tick of a scale event has a fixed order (crash ->
+        # retry requeue -> deadline shed -> policies) ----
+        if self.fault_injector is not None:
+            for ev in self.fault_injector.poll(self._tick):
+                self.apply_fault(ev)
+        if self._retrying and not (self.breaker is not None
+                                   and self.breaker.state == "open"):
+            # an OPEN breaker holds crash victims in backoff too: re-
+            # admitting them mid-storm only feeds the next crash; they
+            # drain at half-open, when the probe window watches for a
+            # re-fault
+            self._requeue_retries()
+        self._shed_expired(now)
+
+        # ---- overload-control phase: the breaker watches the fault counts
+        # since the last tick (injected and external crash_worker calls
+        # alike); the ladder re-evaluates its level from rolling SLO
+        # attainment and queue pressure ----
+        if self.breaker is not None:
+            tr = self.breaker.update(
+                self._tick,
+                self._tick_faults["crashes"] + self._tick_faults["retries"])
+            if tr is not None:
+                self.metrics.breaker_events.append((self._tick, tr))
+                trc.instant(f"breaker.{tr}", track="overload",
+                            tick=self._tick)
+                trc.count("serve.breaker_transitions")
+        if self.ladder is not None:
+            prev = self.ladder.level
+            att = self.slo.attainment() if self.slo is not None else None
+            lvl = self.ladder.update(att, sched.n_arrived(now),
+                                     self.capacity)
+            if lvl != prev:
+                name = DegradationLadder.LEVELS[lvl]
+                self.metrics.brownout_events.append((self._tick, lvl, name))
+                trc.instant("degrade.enter" if lvl > prev
+                            else "degrade.exit", track="overload",
+                            level=lvl, label=name)
+                trc.count("serve.degrade_transitions")
+                trc.gauge("serve.brownout_level", lvl)
+                self._apply_degradation(lvl)
+            self._brownout_actions(now)
+
         # ---- scheduler phase: policies may rescale/rebalance the pool ----
         with trc.span("schedule", k=sched.n_workers):
             stats: Dict = dict(self._last_stats)
@@ -1132,8 +1453,18 @@ class ServeEngine:
         # priority admission: a full pool parks a strictly lower-priority
         # in-flight decode (pages to host) instead of queueing the arrival
         with trc.span("admit"):
+            limit = allow = None
+            if self.breaker is not None:
+                lim = self.breaker.admit_limit()
+                if lim == 0:
+                    # open: recovery traffic only; crash victims re-admit
+                    # so recovery drains, fresh load waits out the storm
+                    allow = lambda r: r.retries > 0  # noqa: E731
+                elif lim is not None:
+                    limit = lim  # half-open probe budget
             admitted = sched.admit(
-                now, preempt=self._preempt_for if self.evict else None)
+                now, preempt=self._preempt_for if self.evict else None,
+                limit=limit, allow=allow)
         admission_bytes = self._do_prefill(admitted) if admitted else 0
         n_chunks = n_chunk_dispatch = 0
         if self._prefilling:
@@ -1177,12 +1508,16 @@ class ServeEngine:
         # loop (load-proportional split of the step)
         loads = sched.active_per_worker()
         total = max(int(loads.sum()), 1)
+        # injected stragglers inflate their worker's modeled share, so the
+        # mitigation policy sees them as it would an organic slow worker
+        slow = self._slow_factors
         self._last_stats = {
-            "task_times": {w: t_step * loads[w] / total
+            "task_times": {w: t_step * loads[w] / total * slow.get(w, 1.0)
                            for w in range(sched.n_workers)},
-            "per_sample_times": {w: t_step / total
+            "per_sample_times": {w: t_step / total * slow.get(w, 1.0)
                                  for w in range(sched.n_workers)},
         }
+        self._settle_recoveries()
         kv = {}
         if kv0 is not None:
             kv1 = self.mem.stats()
@@ -1209,7 +1544,13 @@ class ServeEngine:
                                          if self.pages is not None else 0.0),
                          spec_drafted=drafted, spec_accepted=accepted,
                          draft_dispatches=draft_disp,
+                         crashes=self._tick_faults["crashes"],
+                         retries=self._tick_faults["retries"],
+                         shed=self._tick_faults["shed"],
+                         brownout_level=(self.ladder.level
+                                         if self.ladder is not None else 0),
                          meta_transfers=self._tick_meta, **kv)
+        self._tick_faults = {"crashes": 0, "retries": 0, "shed": 0}
         self.metrics.ticks.append(rec)
         if trc.enabled:
             trc.count("serve.ticks")
@@ -1223,10 +1564,14 @@ class ServeEngine:
     def run(self, requests: Sequence[Request], *,
             max_ticks: int = 100_000) -> ServeMetrics:
         """Drive the open-loop workload to completion."""
+        if self._clock is not None:
+            raise ValueError("run() paces on the wall clock; with an "
+                             "injected clock drive tick() externally")
         self.submit(requests)
         self._now()  # start the clock
         sched = self.scheduler
-        while ((sched.has_pending or self._by_slot or self._prefilling)
+        while ((sched.has_pending or self._by_slot or self._prefilling
+                or self._retrying)
                and self._tick < max_ticks):
             if not self._by_slot and not self._prefilling \
                     and sched.has_pending:

@@ -628,3 +628,93 @@ def test_elastic_trainer_round_trip_on_the_card(cuda):
         assert torch.equal(v, mu[k]), k
     losses.append(trainer.train_step(batch)["loss"])
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _grouped_small(dtype):
+    """h2o-danube-1.8b's head geometry (32 heads over 8 KV heads, G 4, hd
+    80) at 2 layers and d_model 256: small, and its verify spans are
+    q_span x 4 rows, as at full width."""
+    return dataclasses.replace(
+        get_config("h2o-danube-1.8b"), num_layers=2, d_model=256,
+        d_ff=512, vocab_size=512, dtype=dtype)
+
+
+def _serve_burst(vocab, n=6, seed=3):
+    from repro_torch.serve import synthetic_requests
+    return synthetic_requests(n, vocab_size=vocab, arrivals=np.zeros(n),
+                              prompt_len=(20, 70), max_new_tokens=(6, 12),
+                              rng=np.random.default_rng(seed))
+
+
+SERVE_KW = dict(capacity=4, cache_len=128, prefill_bucket=16, page_size=16,
+                prefill_chunk=32, kv_layout="paged", paged_impl="kernel",
+                seed=0)
+
+
+@pytest.mark.cuda
+def test_crash_recovery_on_the_card_matches_the_fault_free_run(cuda):
+    """fp32 (TF32 off): a crash while prompts are mid-chunked-prefill and a
+    crash mid-decode restart their requests from the prompt; every stream
+    equals the fault-free run on the card, through the kernel."""
+    from repro_torch.faults import FaultInjector, FaultPlan, worker_crash
+    from repro_torch.serve import ServeEngine
+    cfg = _grouped_small("float32")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    want = ServeEngine(cfg, params=params, **SERVE_KW).run(
+        _serve_burst(cfg.vocab_size))
+    inj = FaultInjector(FaultPlan([worker_crash(1), worker_crash(6)]))
+    eng = ServeEngine(cfg, params=params, n_workers=2, fault_injector=inj,
+                      debug_checks=True, **SERVE_KW)
+    before = paged_attention.launches
+    got = eng.run(_serve_burst(cfg.vocab_size))
+    assert paged_attention.launches > before
+    s = got.summarize()
+    assert (s["crashes_total"], s["recoveries"], s["shed_requests"]) == \
+        (2, 2, 0)
+    assert {r.rid: r.generated for r in got.requests} == \
+        {r.rid: r.generated for r in want.requests}
+
+
+@pytest.mark.cuda
+def test_brownout_spec_shrink_verifies_12_rows_on_the_split_route(cuda):
+    """bf16 at the ladder's spec_shrink level (spec_k 4 halved to 2): every
+    verify span is q_span 3 x G 4 = 12 rows, under the tensor-core
+    kernel's 16, so the launcher sends it to the split route; the streams
+    equal an engine configured with spec_k 2 from the start."""
+    from repro_torch.serve import DegradationLadder, ServeEngine
+    import repro_torch.kernels.paged_attention as paged_mod
+
+    class Pinned(DegradationLadder):
+        def update(self, attainment, queue_depth, capacity):
+            self.level = 1
+            return 1
+
+    cfg = _grouped_small("bfloat16")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    want = ServeEngine(cfg, params=params, spec="ngram", spec_k=2,
+                       **SERVE_KW).run(_serve_burst(cfg.vocab_size))
+    real, log = paged_mod._launch, []
+
+    def recorded(q, *args):
+        before = _paged_counts()
+        out = real(q, *args)
+        after = _paged_counts()
+        log.append((q.shape[2], after[1] - before[1], after[2] - before[2]))
+        return out
+
+    paged_mod._launch = recorded
+    try:
+        eng = ServeEngine(cfg, params=params, spec="ngram", spec_k=4,
+                          brownout="auto", ladder=Pinned(), **SERVE_KW)
+        got = eng.run(_serve_burst(cfg.vocab_size))
+    finally:
+        paged_mod._launch = real
+    assert eng.spec_k == 2
+    verify = [(tc, split) for rows, tc, split in log if rows == 12]
+    s = got.summarize()
+    assert len(verify) == cfg.num_layers * s["decode_dispatches"] > 0
+    assert all((tc, split) == (0, 1) for tc, split in verify)
+    assert {r.rid: r.generated for r in got.requests} == \
+        {r.rid: r.generated for r in want.requests}

@@ -21,7 +21,8 @@ from repro_torch.configs.chicle_paper import PAPER_LSGD
 from repro_torch.core import ChunkStore, CoCoASolver, LocalSGDSolver
 from repro_torch.core.nets import loss_per_sample, mlp_apply
 from repro_torch.kernels import build as build_mod
-from repro_torch.serve import ServeEngine
+from repro_torch.faults import FaultInjector, FaultPlan, worker_crash
+from repro_torch.serve import ServeEngine, synthetic_requests
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -76,13 +77,35 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(decode_enabled=False),
-                                dict(brownout="auto"), dict(overlap=True),
-                                dict(fault_injector=object()),
-                                dict(queue_cap=4)])
+                                dict(overlap=True)])
 def test_unported_options_raise(kw):
     cfg = smoke_variant(get_config("smollm-360m"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(brownout="auto"),
+    dict(fault_injector=FaultInjector(FaultPlan([worker_crash(0)]))),
+    dict(queue_cap=4)])
+def test_now_ported_options_construct(kw):
+    """Options that raised before faults and overload control were ported
+    build an engine on the CPU that ticks."""
+    cfg = smoke_variant(get_config("smollm-360m"))
+    eng = ServeEngine(cfg, device="cpu", kv_layout="paged", n_workers=2,
+                      capacity=2, cache_len=16, prefill_bucket=8, **kw)
+    eng.submit(synthetic_requests(2, vocab_size=cfg.vocab_size,
+                                  arrivals=np.zeros(2), prompt_len=(4, 6),
+                                  max_new_tokens=(2, 3),
+                                  rng=np.random.default_rng(0)))
+    rec = eng.tick()
+    assert rec.tick == 0 and eng._tick == 1
+    if "fault_injector" in kw:
+        assert rec.crashes == 1 and eng.k == 1
+    if "brownout" in kw:
+        assert eng.ladder is not None and rec.brownout_level == 0
+    if "queue_cap" in kw:
+        assert eng.scheduler.admission.enabled
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -104,7 +127,7 @@ def test_training_kernel_builds_raise_without_nvcc(monkeypatch, tmp_path,
         build_mod.build(kernel)
 
 
-TRAINING_MODULES = ["core.cocoa", "core.local_sgd", "core.nets",
+SCANNED_MODULES = ["faults", "core.cocoa", "core.local_sgd", "core.nets",
                     "core.engine", "core.metrics", "data.synthetic",
                     "kernels.scd", "kernels.chunk_reduce", "kernels.ops",
                     "kernels.flash_attention", "data.pipeline",
@@ -112,7 +135,7 @@ TRAINING_MODULES = ["core.cocoa", "core.local_sgd", "core.nets",
                     "launch.train", "launch.elastic", "checkpoint.ckpt"]
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES)
+@pytest.mark.parametrize("module", SCANNED_MODULES)
 def test_training_modules_import_neither_jax_nor_repro(module):
     path = PORT / (module.replace(".", "/") + ".py")
     assert path.is_file(), path

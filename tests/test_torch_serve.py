@@ -288,10 +288,7 @@ def test_engine_takes_every_keyword_of_the_jax_engine(model):
     _, _, tcfg, tparams = model
     small = dict(capacity=2, cache_len=16, prefill_bucket=8, device="cpu",
                  params=tparams)
-    others = {"clock": lambda: 0.0, "decode_enabled": False,
-              "retry_backoff": 3, "retry_jitter": False, "slo_window": 8,
-              "tenant_burst": 2.0, "admission": object(),
-              "ladder": object(), "breaker": object()}
+    others = {"decode_enabled": False}
     assert set(others) == set(port_engine._UNPORTED)
     for name, value in others.items():
         default, item = port_engine._UNPORTED[name]
