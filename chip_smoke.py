@@ -80,7 +80,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (c) the same in bf16 on the real clock: tokens/s, goodput,
               TTFT, TPOT, rejected, shed, recovery ticks, the highest
               brownout level (reported), every launch on its route; then
-              its first 32 ticks again under torch.profiler.
+              its first 16 ticks again under torch.profiler.
+   overlap  — the overlapped tick (overlap=True) at the same width
+              (paged, kernel).  (a) fp32: the engine burst with its scale
+              events, the same with spec="ngram", and faults (a)'s crash
+              plan, each overlapped, and the engine burst overlapped on
+              the flat layout; the streams must equal the synchronous
+              fp32 kernel streams (the streams phase's), the paged
+              launches layers x paged dispatches, each on the launcher's
+              route.  (b) bf16: the engine burst synchronously and
+              overlapped in turns (sync, ovl, ovl, sync, sync, ovl):
+              every run's tokens/s, TTFT and TPOT and each arm's median
+              (reported); one overlapped run under torch.profiler, one
+              under a Tracer (host_overlap_ratio; a full-pool decode
+              launch's host time, its overlap.bind span, against the
+              step's device time over 5 profiled decode-only ticks of
+              the same run).  (c) the
+              metadata ring: RING + 4 buffers packed behind a device
+              sleep must all arrive intact (an unguarded ring beside it,
+              reported).
    streams  — the engine workload in fp32 through the kernel and through
               the gather path must give equal token streams, and so must
               speculative decoding through the kernel (the verify spans on
@@ -192,7 +210,16 @@ OVERLOAD = dict(n=28, per_tick=6, storm_at=3, storm_n=3, storm_every=2,
 # so it refuses part of t0's 3 a tick)
 OVERLOAD_WALL = dict(slo_ttft=3.0, slo_tpot=0.1, tenant_rate=20.0,
                      tenant_burst=2.0)
-PROFILE_TICKS = 32  # (c)'s profiled window: the storm and the breaker
+PROFILE_TICKS = 16  # (c)'s profiled window: the storm and the breaker
+SCALE_EVENTS = [(0, 1), (10, 2), (25, 1)]  # the engine burst's k 1 -> 2 -> 1
+# the overlap phase: (b) times the engine burst synchronously (False) and
+# overlapped (True) in turns, so the host's drift falls on both arms; its
+# traced run profiles DECODE_WINDOW ticks in which all 8 slots decode and
+# nothing else runs; (c) holds the stream for RING_HOLD_S while RING + 4
+# buffers are packed behind it
+OVERLAP_ORDER = (False, True, True, False, False, True)
+DECODE_WINDOW = 5
+RING_HOLD_S = 0.1
 # training path (phases cocoa and lsgd)
 COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
              iters=12, rebalance_iters=6)
@@ -1722,6 +1749,239 @@ def faults_phase(torch, np, cfg32, params32, want32, ServeEngine, Request,
                                                     0)}
 
 
+def ring_gate(torch, np, packer):
+    """Hold the stream with a device sleep of RING_HOLD_S, pack RING + 4
+    buffers of distinct contents behind it (the ring wraps while the
+    first copies still wait in the stream), and count on the device the
+    copies that arrived intact.  -> (intact, packed, host seconds of the
+    packs)."""
+    n = packer.RING + 4
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(RING_HOLD_S * sm_clock_hz()))
+    t0 = time.perf_counter()
+    outs = [packer.pack([np.full(4096, i, np.int32)]) for i in range(n)]
+    pack_s = time.perf_counter() - t0
+    intact = int(torch.stack([(o == i).all()
+                              for i, o in enumerate(outs)]).sum().item())
+    return intact, n, pack_s
+
+
+def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
+                  ServeEngine, synthetic_requests, faults, scale_policy,
+                  paged_mod, bf16_params):
+    """The overlapped tick at full width, paged, through the kernel.  (a)
+    fp32 gates: the engine burst (k 1 -> 2 -> 1), the same with
+    spec="ngram" and faults (a)'s crash plan, each with overlap=True; their
+    streams must equal the synchronous fp32 kernel streams `want32`,
+    `want_spec32` (spec) and `want32` (crash); in every run the launches
+    equal layers x paged dispatches and take the launcher's routes.  The
+    engine burst on the flat layout, overlapped, must give `want32` too
+    (the streams phase gates the synchronous flat run against it).  (b)
+    bf16 timing: the engine burst synchronously and overlapped in turns
+    (OVERLAP_ORDER), each run's tokens/s, TTFT and TPOT; one overlapped run
+    under the profiler (device activity only), one under a Tracer
+    (host_overlap_ratio, and a full-pool decode launch's host time, its
+    `overlap.bind` span, against the step's device time, profiled over
+    DECODE_WINDOW decode-only ticks of the same run).  bf16 stream
+    equality between
+    the arms is reported, not gated: fresh admissions join a tick later
+    when overlapped, so GEMM batch shapes differ.  (c) the ring gate: every
+    packed copy must arrive intact (and, reported, a ring without its
+    event guard beside it).  -> the launches of each run and route."""
+    from repro_torch.models.attention import head_layout
+    from repro_torch.obs import Tracer, host_overlap_ratio
+    from repro_torch.serve.engine import _MetaPacker
+    paged_attention = paged_mod.paged_attention
+    vocab = cfg32.vocab_size
+    hd = cfg32.head_dim_()
+    G = head_layout(cfg32)[2]
+    layers = cfg32.num_layers
+    launches = []  # (run, (launches, tensor cores, split-KV))
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def counted_run(name, eng, reqs):
+        """Run `eng` over `reqs` with the launch counts zeroed just before
+        and read just after; gate launches = layers x paged dispatches
+        and every route.  -> (metrics, summary)."""
+        dtype_name = eng.cfg.dtype
+        log, restore = record_paged_launches(paged_mod)
+        paged_attention.launches = paged_attention.launches_tc = 0
+        paged_attention.launches_split = 0
+        m = eng.run(reqs)
+        n = paged_counts(paged_attention)
+        restore()
+        s = m.summarize()
+        dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
+        wrong = [(qg, r) for qg, r in log
+                 if r != paged_route(dtype_name, qg, hd)]
+        if n[0] <= 0 or n[0] != layers * dispatches or len(log) != n[0] \
+                or wrong:
+            fail(f"overlap {name}: {n[0]} launches for {dispatches} paged "
+                 f"dispatches of {layers} layers; misrouted (rows, "
+                 f"route): {wrong[:5]}")
+        launches.append((name, n))
+        return m, s
+
+    def same(name, got, want, prompts):
+        div = first_divergence(torch, np, M, cfg32, params32, got, want,
+                               prompts)
+        if div is not None:
+            emit({"phase": "overlap", "equal": False, "run": name, **div})
+            fail(f"overlap {name}: fp32 streams diverge from the synchronous "
+                 f"run at request {div['rid']} step {div['step']}")
+
+    # ---- (a) fp32 gates: overlapped == synchronous --------------------------
+    prompts = {r.rid: r.prompt
+               for r in requests(np, synthetic_requests, vocab)}
+    part_a = {}
+    for name, kw, want in (
+            ("engine", dict(policies=[scale_policy()]), want32),
+            ("spec", dict(spec="ngram", spec_k=SPEC_K), want_spec32)):
+        eng = ServeEngine(cfg32, params=params32, paged_impl="kernel",
+                          seed=0, device=DEVICE, overlap=True, **kw,
+                          **ENGINE)
+        m, s = counted_run(f"{name}_fp32", eng,
+                           requests(np, synthetic_requests, vocab))
+        same(name, streams(m), want, prompts)
+        part_a[name] = {"n_ticks": s["n_ticks"],
+                        "decode_dispatches": s["decode_dispatches"],
+                        "prefill_dispatches": s["prefill_dispatches_total"],
+                        "kernel_launches": launches[-1][1][0],
+                        "scale_events": s["scale_events"],
+                        "spec_accepted": s["spec_accepted_total"]}
+        del eng
+    c = CRASH_PLAN
+    plan = faults.FaultPlan([faults.worker_crash(c["prefill_crash"]),
+                             faults.worker_slow(*c["slow"]),
+                             faults.worker_slow(*c["clear"], 1.0),
+                             faults.worker_crash(c["decode_crash"])])
+    eng = ServeEngine(cfg32, params=params32, paged_impl="kernel", seed=0,
+                      device=DEVICE, n_workers=FAULT_WORKERS, overlap=True,
+                      fault_injector=faults.FaultInjector(plan), **ENGINE)
+    m, s = counted_run("crash_fp32", eng,
+                       requests(np, synthetic_requests, vocab))
+    same("crash", streams(m), want32, prompts)
+    if (s["crashes_total"], s["recoveries"], s["shed_requests"]) != (2, 2, 0):
+        fail(f"overlap crash: crashes {s['crashes_total']}, recoveries "
+             f"{s['recoveries']}, shed {s['shed_requests']}")
+    part_a["crash"] = {"recovery_events": s["recovery_events"],
+                       "n_ticks": s["n_ticks"],
+                       "kernel_launches": launches[-1][1][0]}
+    del eng, m
+    same("flat", flat_run(np, ServeEngine, synthetic_requests, cfg32,
+                          params32, overlap=True)[1], want32, prompts)
+    part_a["flat"] = {"equal": True}
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (b) bf16 timing: synchronous and overlapped in turns ---------------
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params16 = bf16_params()
+    keys = ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+            "wall_s", "n_ticks")
+    arms = {"sync": [], "overlap": []}
+    bf16_streams = {}
+    for ovl in OVERLAP_ORDER:
+        arm = "overlap" if ovl else "sync"
+        eng = ServeEngine(cfg16, params=params16, paged_impl="kernel",
+                          seed=0, device=DEVICE, overlap=ovl,
+                          policies=[scale_policy()], **ENGINE)
+        m, s = counted_run(f"{arm}_bf16", eng,
+                           requests(np, synthetic_requests, vocab))
+        if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32:
+            fail(f"overlap (b) {arm}: {s['requests_finished']} finished, "
+                 f"{s['tokens_generated']} tokens")
+        arms[arm].append({k: s[k] for k in keys})
+        bf16_streams.setdefault(arm, streams(m))
+        del eng, m
+    timing = {arm: {"runs": runs, "tokens_per_s_median": float(np.median(
+        [r["tokens_per_s"] for r in runs]))} for arm, runs in arms.items()}
+    prof_eng = ServeEngine(cfg16, params=params16, paged_impl="kernel",
+                           seed=0, device=DEVICE, overlap=True,
+                           policies=[scale_policy()], **ENGINE)
+    prof = profile_run(torch, lambda: prof_eng.run(
+        requests(np, synthetic_requests, vocab)))
+    del prof_eng
+    trc = Tracer(name="overlap")
+    eng = ServeEngine(cfg16, params=params16, paged_impl="kernel", seed=0,
+                      device=DEVICE, overlap=True, policies=[scale_policy()],
+                      tracer=trc, **ENGINE)
+    eng.submit(requests(np, synthetic_requests, vocab))
+    cap = ENGINE["capacity"]
+
+    def decode_only(rec):  # every slot decodes, so nothing else can run
+        return rec.tokens_emitted == cap and rec.prefill_dispatches == 0
+
+    while not decode_only(eng.tick()):
+        if eng._tick >= OVERLOAD["max_ticks"]:
+            fail("overlap (b): no tick in which every slot decodes")
+    window = []
+    win_prof = profile_run(torch, lambda: window.extend(
+        eng.tick() for _ in range(DECODE_WINDOW)))
+    if not all(decode_only(r) for r in window) \
+            or win_prof["device_busy_s"] is None:
+        fail(f"overlap (b): the profiled window held other work or no "
+             f"device records: {win_prof}")
+    eng.run([])
+    del eng, params16
+    span_s = {name: sum(e.dur for e in trc.events
+                        if e.ph == "X" and e.name == name)
+              for name in ("overlap.bind", "overlap.prep", "overlap.inflight",
+                           "device_wait", "prefill.device_wait")}
+    bind_ms = sorted(e.dur * 1e3 for e in trc.events
+                     if e.ph == "X" and e.name == "overlap.bind"
+                     and e.args.get("n") == cap)
+    step_ms = win_prof["device_busy_s"] * 1e3 / DECODE_WINDOW
+    launch = {"slots": cap, "full_pool_launches": len(bind_ms),
+              "launch_host_ms_median": bind_ms[len(bind_ms) // 2],
+              "launch_host_ms_range": [bind_ms[0], bind_ms[-1]],
+              "step_device_ms": step_ms,
+              "device_over_host": step_ms / bind_ms[len(bind_ms) // 2],
+              "window_ticks": DECODE_WINDOW,
+              "window_idle_share": win_prof["device_idle_share"]}
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (c) the ring gate --------------------------------------------------
+    intact, packed, pack_s = ring_gate(torch, np, _MetaPacker(
+        torch.device(DEVICE)))
+    if intact != packed:
+        fail(f"overlap (c): {packed - intact} of {packed} packed copies were "
+             f"overwritten before the device read them")
+
+    class NoGuard:  # a ring without its event guard, for contrast
+        def synchronize(self):
+            pass
+
+        def record(self, stream):
+            pass
+
+    bare = _MetaPacker(torch.device(DEVICE))
+    bare._events = [NoGuard()] * bare.RING
+    bare_intact, _, bare_s = ring_gate(torch, np, bare)
+    seconds["c"] = time.perf_counter() - t0
+    emit({"phase": "overlap", "arch": ARCH, **ENGINE,
+          "a_streams_equal_sync_fp32": part_a,
+          "b_timing_bf16": {
+              "order": ["overlap" if o else "sync" for o in OVERLAP_ORDER],
+              **timing,
+              "bf16_streams_equal_between_arms":
+                  bf16_streams["sync"] == bf16_streams["overlap"],
+              "profile_overlapped": prof,
+              "host_overlap_ratio": host_overlap_ratio(trc),
+              "traced_span_s": span_s,
+              "launch_vs_step": launch},
+          "c_ring": {"packed": packed, "intact": intact,
+                     "hold_s": RING_HOLD_S, "pack_host_s": pack_s,
+                     "unguarded_intact": bare_intact,
+                     "unguarded_pack_host_s": bare_s},
+          "verify_rows": (SPEC_K + 1) * G, "seconds": seconds})
+    n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
+    return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "by_run": [[k, v[0]] for k, v in launches]}
+
+
 def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
              **kw):
     """The engine workload on the flat layout; every request must finish
@@ -1932,10 +2192,11 @@ def main() -> None:
                                 max_new_tokens=(2, 2),
                                 rng=np.random.default_rng(1)))
     del warm
-    pol = ElasticScalingPolicy([ScaleEvent(0, 1), ScaleEvent(10, 2),
-                                ScaleEvent(25, 1)])
+    def scale_policy():
+        return ElasticScalingPolicy([ScaleEvent(*e) for e in SCALE_EVENTS])
+
     eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
-                      device=DEVICE, policies=[pol], **ENGINE)
+                      device=DEVICE, policies=[scale_policy()], **ENGINE)
     reqs = requests(np, synthetic_requests, cfg.vocab_size)
     import repro_torch.kernels.paged_attention as paged_mod
     span_log, restore = record_paged_launches(paged_mod)
@@ -1987,9 +2248,8 @@ def main() -> None:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     # the same run again under the profiler: where the device time goes
     prof_eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
-                           device=DEVICE, policies=[ElasticScalingPolicy(
-                               [ScaleEvent(0, 1), ScaleEvent(10, 2),
-                                ScaleEvent(25, 1)])], **ENGINE)
+                           device=DEVICE, policies=[scale_policy()],
+                           **ENGINE)
     emit({"phase": "profile", **profile_run(torch, lambda: prof_eng.run(
         requests(np, synthetic_requests, cfg.vocab_size)))})
     del eng, prof_eng
@@ -2091,11 +2351,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- faults: crash recovery and overload control at full width -------
+    def bf16_params():
+        return M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+            0), DEVICE)
+
     fault = faults_phase(
         torch, np, cfg32, params32, got["kernel"], ServeEngine, Request,
-        synthetic_requests, faults_mod, overload_mod, paged_mod,
-        lambda: M.init_params(cfg, torch.Generator(
-            device=DEVICE).manual_seed(0), DEVICE))
+        synthetic_requests, faults_mod, overload_mod, paged_mod, bf16_params)
+    torch.cuda.empty_cache()
+
+    # ---- overlap: the overlapped tick at full width ----------------------
+    ovl = overlap_phase(torch, np, M, cfg32, params32, got["kernel"],
+                        got["spec"], ServeEngine, synthetic_requests,
+                        faults_mod, scale_policy, paged_mod, bf16_params)
     del params32
     torch.cuda.empty_cache()
 
@@ -2180,18 +2448,24 @@ def main() -> None:
     train = training_timing(torch, np, scd_pass, scd_pass_plain,
                             weighted_merge, weighted_merge_plain)
     scd_t, merge_t = train["scd"], train["weighted_merge"]
+    all_launches = launches + spec["launches"] + fault["launches"] \
+        + ovl["launches"]
+    all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
+        + ovl["launches_tc"]
+    all_split = launches_split + fault["launches_split"] \
+        + ovl["launches_split"]
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:47",
         "replaces_function": "src/repro/kernels/paged_attention.py"
                              "::_paged_kernel",
-        "launches": launches + spec["launches"] + fault["launches"],
+        "launches": all_launches,
         "launches_by_path": {"engine": launches, "spec": spec["launches"],
-                             "faults": fault["by_run"]},
-        "launches_tc": launches_tc + spec["launches_tc"]
-        + fault["launches_tc"],
-        "launches_split": launches_split + fault["launches_split"],
+                             "faults": fault["by_run"],
+                             "overlap": ovl["by_run"]},
+        "launches_tc": all_tc,
+        "launches_split": all_split,
         "routes": {"split (decode)": launches_split,
                    "tensor cores (engine prefill chunks)": launches_tc,
                    "tensor cores (spec: chunks and verify)":
@@ -2202,10 +2476,10 @@ def main() -> None:
                        fault["launches_split"],
                    "of which verify spans of 12 rows (spec_shrink)":
                        fault["verify_12_rows"],
-                   "CUDA cores": launches + spec["launches"]
-                   + fault["launches"] - launches_tc - launches_split
-                   - spec["launches_tc"] - fault["launches_tc"]
-                   - fault["launches_split"]},
+                   "tensor cores (overlap: bf16 chunks)": ovl["launches_tc"],
+                   "split (overlap: decode, fp32 and bf16)":
+                       ovl["launches_split"],
+                   "CUDA cores": all_launches - all_tc - all_split},
         "sass": sass["paged_attention"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"],

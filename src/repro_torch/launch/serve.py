@@ -1,21 +1,25 @@
 """Serving CLI of the PyTorch port: a thin launcher over
-`repro_torch.serve.ServeEngine` (synchronous tick).
+`repro_torch.serve.ServeEngine`.
 
 Runs on the GPU unless `--device cpu` is given.  `--kv-layout flat`
 (default) keeps one cache row per slot; `--kv-layout paged` pages the KV
 cache, and there `--paged-impl kernel` (default) runs attention through
 the CUDA paged-attention kernel, `--paged-impl gather` through a gather
 and plain attention.  `--spec ngram|draft` turns on speculative decoding
-with `--spec-k` drafts a tick.  `--chaos` injects faults on the tick clock
-(crashes, slow workers); `--slo-ttft`/`--slo-tpot` set SLO targets,
-`--tenant-rate`/`--queue-cap` bound admission, and `--brownout auto` arms
-the degradation ladder (and, with `--chaos`, the crash-storm circuit
-breaker).
+with `--spec-k` drafts a tick.  `--overlap` runs the overlapped tick
+(the decode or verify step launches first, the host's prep runs while
+the device computes; the streams are the synchronous tick's).  `--chaos`
+injects faults on the tick clock (crashes, slow workers);
+`--slo-ttft`/`--slo-tpot` set SLO targets, `--tenant-rate`/`--queue-cap`
+bound admission, and `--brownout auto` arms the degradation ladder (and,
+with `--chaos`, the crash-storm circuit breaker).
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
          --spec-k 4 [--kv-layout paged] --trace poisson --requests 16
      PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
          --workers 2 --chaos "crash@t=5,slow@t=3:w0:2.0" --brownout auto
+     PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+         --overlap --trace-out build/serve_overlap_trace.json
 """
 from __future__ import annotations
 
@@ -83,7 +87,7 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
           page_size: int = 8, spec: str = "off", spec_k: int = 4,
           prefix_share: Optional[bool] = None,
           evict: Optional[bool] = None, paged_impl: str = "kernel",
-          chaos: Optional[str] = None,
+          overlap: bool = False, chaos: Optional[str] = None,
           slo_ttft: Optional[float] = None, slo_tpot: Optional[float] = None,
           tenant_rate: Optional[float] = None, queue_cap: Optional[int] = None,
           brownout: str = "off",
@@ -94,10 +98,11 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     schedule; `spec` ("off", "ngram" or "draft") drafts `spec_k` tokens a
     tick for one verify dispatch; `evict` lets priority admission park a
     lower-priority decode's pages on the host (paged layout; default on
-    there); `chaos` is a fault spec on the tick clock (`parse_chaos`);
-    `slo_ttft`/`slo_tpot`, `tenant_rate`, `queue_cap` and `brownout` are
-    the engine's overload knobs, and `brownout="auto"` with `chaos` also
-    arms a `CircuitBreaker`; `trace_out` enables tick-phase tracing,
+    there); `overlap` runs the overlapped tick; `chaos` is a fault spec
+    on the tick clock (`parse_chaos`); `slo_ttft`/`slo_tpot`,
+    `tenant_rate`, `queue_cap` and `brownout` are the engine's overload
+    knobs, and `brownout="auto"` with `chaos` also arms a
+    `CircuitBreaker`; `trace_out` enables tick-phase tracing,
     writes a Chrome trace-event JSON file there (Perfetto-loadable) and
     adds the per-phase host-vs-device attribution to the summary."""
     cfg = get_config(arch)
@@ -128,14 +133,14 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
                          page_size=page_size, spec=spec, spec_k=spec_k,
                          prefix_share=prefix_share,
                          evict=evict, paged_impl=paged_impl,
-                         fault_injector=injector, slo_ttft=slo_ttft,
-                         slo_tpot=slo_tpot, tenant_rate=tenant_rate,
-                         queue_cap=queue_cap, brownout=brownout,
-                         breaker=breaker, seed=seed, tracer=tracer,
-                         device=device)
+                         overlap=overlap, fault_injector=injector,
+                         slo_ttft=slo_ttft, slo_tpot=slo_tpot,
+                         tenant_rate=tenant_rate, queue_cap=queue_cap,
+                         brownout=brownout, breaker=breaker, seed=seed,
+                         tracer=tracer, device=device)
     out = engine.run(reqs).summarize()
     out.update(arch=arch, capacity=capacity, device=str(engine.device),
-               kv_layout=kv_layout, paged_impl=paged_impl)
+               kv_layout=kv_layout, paged_impl=paged_impl, overlap=overlap)
     if injector is not None:
         out["chaos"] = chaos
         out["faults_injected"] = injector.summary()
@@ -197,6 +202,12 @@ def main() -> None:
                     choices=["kernel", "gather"],
                     help="paged attention through the CUDA kernel or through "
                          "a gather and plain attention")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped tick pipeline: launch the decode/verify "
+                         "dispatch first, then run host-side prep (prefill "
+                         "assembly, chunked-prefill chunks, the next block "
+                         "table) while the device computes; token streams "
+                         "stay bit-identical to the synchronous loop")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="fault-injection spec on the tick clock, e.g. "
                          "'crash@t=5', 'crash@t=5:w1', 'slow@t=3:w0:2.0', "
@@ -242,16 +253,17 @@ def main() -> None:
                 spec=args.spec, spec_k=args.spec_k,
                 prefix_share=onoff(args.prefix_share),
                 evict=onoff(args.evict), paged_impl=args.paged_impl,
-                chaos=args.chaos, slo_ttft=args.slo_ttft,
-                slo_tpot=args.slo_tpot, tenant_rate=args.tenant_rate,
-                queue_cap=args.queue_cap, brownout=args.brownout,
-                device=args.device, seed=args.seed,
+                overlap=args.overlap, chaos=args.chaos,
+                slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
+                tenant_rate=args.tenant_rate, queue_cap=args.queue_cap,
+                brownout=args.brownout, device=args.device, seed=args.seed,
                 trace_out=args.trace_out)
     if args.json:
         print(json.dumps(out, indent=2))
         return
     layout = out["kv_layout"] + (f", {out['paged_impl']}"
-                                 if out["kv_layout"] == "paged" else "")
+                                 if out["kv_layout"] == "paged" else "") \
+        + (", overlapped" if out["overlap"] else "")
     print(f"{out['arch']} on {out['device']} ({layout}): "
           f"{out['requests_finished']}/{out['requests_total']} requests, "
           f"{out['tokens_generated']} tokens, "

@@ -10,8 +10,8 @@ One engine tick =
                     empty slots are inert rows), bracketed by the
                     assignment's begin/end_iteration ownership contract.
 
-This is the synchronous loop of the JAX package's engine, with its two KV
-layouts:
+The tick runs synchronously by default, or overlapped (below), with the
+JAX package's two KV layouts:
 
 - ``flat`` (the default, the reference oracle): one (capacity, cache_len)
   row per slot with a per-row key-position vector.  Admission writes the
@@ -38,13 +38,27 @@ sequential greedy decode at up to k+1 tokens per dispatch.  Rejected tails
 roll back on the host (positions; pages allocated only for rejected drafts
 return to the free list).
 
+With ``overlap=True`` the tick is OVERLAPPED: the decode or verify step
+of tick t launches first (restores of parked slots bind before it and join
+it), and while the device runs it the host does the rest of the tick:
+fresh prefills, chunked-prefill chunks and `overlap_hook`.  Then it
+blocks once, on a CUDA event recorded behind the step's device-to-host
+copy of its tokens into pinned memory.  Every dispatch stays on the
+engine's one stream, so prefill writes to the KV pools stay ordered after
+the in-flight step's reads; only the order of host work within a tick
+moves, and the streams are the synchronous loop's.  Unlike the JAX
+engine, the window stages no block table for tick t+1: each launch
+builds its table at bind.  The JAX engine stages it because its launch
+is one jitted dispatch; an eager launch here issues hundreds of ops, so
+a table build of a few slots is no share of it worth a second path.
+
 The KV pools live on `device` (CUDA unless the caller asks for the CPU) and
 are updated in place.  `resize(k)` changes the logical worker count on the
 one device: the scheduler's slot-chunk assignment and the page-granular
 move accounting follow the JAX engine; nothing is re-laid-out.  Every
-dispatch's metadata (tokens, positions, block table, lengths, COW pairs)
-goes to the device as ONE copy of a packed int32 staging tensor
-(`_MetaPacker`), counted per tick as `meta_transfers`.
+dispatch's inputs (tokens, positions, block table, lengths, COW pairs)
+go to the device as ONE non_blocking copy of a packed int32 staging
+tensor (`_MetaPacker`), counted per tick as `meta_transfers`.
 
 Faults and overload control follow the JAX engine.  A `FaultInjector`
 is polled at the top of every tick: `crash_worker` drops every slot and
@@ -59,14 +73,14 @@ fresh admissions through a crash storm.  With an external `clock` the
 engine runs on simulated time (one tick, one second, in the tests).
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): the overlapped tick, disaggregated pools and the moe family.
+item): disaggregated pools and the moe family.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -300,30 +314,38 @@ class ServeMetrics:
 
 
 class _MetaPacker:
-    """Host staging for per-dispatch metadata: every small int input of a
-    dispatch (next tokens, positions, block tables, lengths, COW pairs,
-    chunk offsets, write ids) is copied into ONE contiguous int32 staging
+    """Host staging for per-dispatch inputs: every small int input of a
+    dispatch (tokens, positions, block tables, lengths, COW pairs, chunk
+    offsets, write ids) is copied into ONE contiguous int32 staging
     tensor, pinned on a CUDA engine, and sent as ONE non_blocking
     host->device copy; the step slices its views back out on the device.
-    Buffers rotate through a small ring so a buffer is not rewritten while
-    an earlier copy may still read it (the synchronous loop waits for every
-    dispatch, so at most a few are ever in flight)."""
+    Buffers rotate through a small ring.  A non_blocking copy runs when
+    the stream reaches it, which may be long after `pack` returns (behind
+    an in-flight step, or a window's prefills), so on a CUDA engine an
+    event is recorded behind each buffer's copy and `pack` waits on it
+    before it rewrites that buffer: the host never overwrites bytes the
+    device has yet to read.  On the CPU the packed tensor is a clone."""
 
     RING = 8
-    __slots__ = ("_bufs", "_i", "_device", "_pin")
+    __slots__ = ("_bufs", "_events", "_i", "_device", "_cuda")
 
     def __init__(self, device: torch.device):
         self._device = device
-        self._pin = device.type == "cuda"
+        self._cuda = device.type == "cuda"
         self._bufs = [self._alloc(256) for _ in range(self.RING)]
+        # an event not yet recorded synchronizes at once
+        self._events = ([torch.cuda.Event() for _ in range(self.RING)]
+                        if self._cuda else None)
         self._i = 0
 
     def _alloc(self, n: int) -> torch.Tensor:
-        return torch.empty(n, dtype=torch.int32, pin_memory=self._pin)
+        return torch.empty(n, dtype=torch.int32, pin_memory=self._cuda)
 
     def pack(self, arrays) -> torch.Tensor:
         total = sum(a.size for a in arrays)
         self._i = (self._i + 1) % self.RING
+        if self._cuda:
+            self._events[self._i].synchronize()  # its last copy has run
         buf = self._bufs[self._i]
         if buf.numel() < total:
             buf = self._bufs[self._i] = self._alloc(next_pow2(total))
@@ -332,9 +354,35 @@ class _MetaPacker:
         for a in arrays:
             host[off:off + a.size] = np.ravel(a)
             off += a.size
-        if self._device.type == "cpu":
+        if not self._cuda:
             return buf[:total].clone()  # the ring buffer is reused
-        return buf[:total].to(self._device, non_blocking=True)
+        out = buf[:total].to(self._device, non_blocking=True)
+        self._events[self._i].record(torch.cuda.current_stream(self._device))
+        return out
+
+
+def _to_host(t: torch.Tensor):
+    """Start the copy of a step's output `t` to the host -> (host tensor,
+    event or None).  On a CUDA device the copy goes non_blocking into
+    pinned memory and an event is recorded behind it, so waiting for the
+    value waits for this step and the work queued before it, never for
+    work queued after (a blocking `.cpu()` would also wait for the
+    prefills an overlapped tick enqueues after its step).  A CPU tensor
+    is its own value."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return host, ev
+
+
+def _host_value(host: torch.Tensor, ev) -> np.ndarray:
+    """Wait for a `_to_host` copy and read it."""
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
 
 
 def _unsupported(what: str, item: str) -> NotImplementedError:
@@ -357,12 +405,12 @@ _PAGED_IMPLS = {"kernel": "kernel", "gather": "gather", "pallas": "kernel",
 
 class ServeEngine:
     """Continuous-batching serving engine with Chicle-style elasticity
-    (flat or paged KV layout, synchronous tick).
+    (flat or paged KV layout, synchronous or overlapped tick).
 
     Takes every keyword of the JAX package's `ServeEngine`.  Those of
-    features not ported yet (`_UNPORTED`: disaggregated prefill pools;
-    `overlap=True`) raise NotImplementedError naming their ROADMAP item
-    unless left at their defaults.  `max_cached_meshes` and
+    features not ported yet (`_UNPORTED`: disaggregated prefill pools)
+    raise NotImplementedError naming their ROADMAP item unless left at
+    their defaults.  `max_cached_meshes` and
     `max_cached_fns` size the JAX engine's jit caches; eager PyTorch keeps
     no such cache, so any value is accepted and ignored."""
 
@@ -428,8 +476,6 @@ class ServeEngine:
         if brownout not in ("off", "auto"):
             raise ValueError(f"brownout must be 'off' or 'auto', "
                              f"got {brownout!r}")
-        if overlap:
-            raise _unsupported("overlap=True", "overlap on CUDA streams")
         paged = kv_layout == "paged"
         if not paged:
             if prefix_share:
@@ -558,6 +604,12 @@ class ServeEngine:
                                for t in self.blocks.values())
         # host-side per-slot stream state
         self.next_tok = np.zeros((capacity, 1), np.int32)
+        # overlapped tick: launch the decode/verify step first, do the rest
+        # of the tick's host work while it runs, block once at the end
+        self.overlap = bool(overlap)
+        # host work to run INSIDE the overlap window (the disaggregated
+        # engine drains its handoffs here)
+        self.overlap_hook: Optional[Callable[[], Any]] = None
         self._meta = _MetaPacker(self.device)
         self._tick_meta = 0  # packed metadata transfers this tick
         # rolling KV-stats snapshot: tick deltas are measured against the
@@ -644,15 +696,14 @@ class ServeEngine:
         self._tick_meta += 1
         return self._meta.pack(arrays)
 
-    def _prefill_step(self, toks: np.ndarray, true_len: torch.Tensor):
-        """Whole-prompt prefill of right-padded rows -> (first tokens,
-        cache): rows (nb, n, L, KV, hd) at L = the bucket length (paged:
-        the insert chops them into pages) or cache_len (flat), and their
-        per-row k_pos."""
-        tokens = torch.from_numpy(toks).to(self.device)
+    def _prefill_step(self, tokens: torch.Tensor, true_len: torch.Tensor):
+        """Whole-prompt prefill of right-padded rows (device tensors, cut
+        from a packed transfer) -> (first tokens, cache): rows (nb, n, L,
+        KV, hd) at L = the bucket length (paged: the insert chops them
+        into pages) or cache_len (flat), and their per-row k_pos."""
         logits, cache = M.prefill(
             self.cfg, self.params, tokens,
-            cache_len=(toks.shape[1] if self.pages is not None
+            cache_len=(tokens.shape[1] if self.pages is not None
                        else self.cache_len), true_len=true_len)
         return logits[:, -1].argmax(-1).to(torch.int32), cache
 
@@ -677,16 +728,18 @@ class ServeEngine:
             self.blocks[name][:, ids] = rows.reshape(
                 nb, n * (bucket // ps), ps, *rows.shape[3:])
 
-    def _chunk_step(self, toks: np.ndarray, meta: torch.Tensor
+    def _chunk_step(self, meta: torch.Tensor, nb: int, C: int
                     ) -> torch.Tensor:
-        nb = toks.shape[0]
+        """One batched chunk forward from packed metadata: offsets, chunk
+        ends, the (nb, C) tokens, then the block table -> the last
+        token's greedy next token per row."""
         offset = meta[:nb]
         chunk_end = meta[nb: 2 * nb]
-        table = meta[2 * nb:].reshape(nb, -1)
+        tokens = meta[2 * nb: nb * (2 + C)].reshape(nb, C)
+        table = meta[nb * (2 + C):].reshape(nb, -1)
         last, _ = M.paged_prefill_chunk(
-            self.cfg, self.params, {"blocks": self.blocks},
-            torch.from_numpy(toks).to(self.device), offset, chunk_end, table,
-            impl=self.paged_impl)
+            self.cfg, self.params, {"blocks": self.blocks}, tokens, offset,
+            chunk_end, table, impl=self.paged_impl)
         return last[:, -1].argmax(-1).to(torch.int32)
 
     def _unpack_paged(self, meta: torch.Tensor, q: int):
@@ -737,9 +790,12 @@ class ServeEngine:
                 table, lengths, impl=self.paged_impl, cow=cow)
         return logits.argmax(-1).to(torch.int32)
 
-    def _sync(self) -> None:
+    def _drain(self) -> None:
+        """Wait for all the work queued on the engine's stream so far."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
 
     # --- prefill ----------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1076,14 +1132,20 @@ class ServeEngine:
         self.scheduler.pool.pos[req.slot] = req.prompt_len
         self._by_slot[req.slot] = req
 
-    def _do_prefill(self, admitted: Sequence[Request]) -> int:
+    def _do_prefill(self, admitted: Sequence[Request],
+                    defer: Optional[List] = None) -> int:
         """Prefill this tick's admissions, one batched forward per shared
         bucket length, and insert their KV into the pool.  PARKED requests
         restore their host-parked pages instead (no model forward at all);
         fresh admissions map their longest indexed prompt prefix onto
         existing physical pages and write only the rest.  Long prompts defer
         to `_advance_prefills`.  Returns modeled admission bytes written to
-        the device KV pool."""
+        the device KV pool.
+
+        With `defer` (the overlapped tick's prep window) each group's first
+        tokens are only copied towards the host, and (host tensor, [(row,
+        request), ...]) goes onto `defer` for `_settle_prefills` to finish
+        after the window closes."""
         direct: List[Request] = []
         nbytes = 0
         for r in admitted:
@@ -1110,18 +1172,22 @@ class ServeEngine:
                 lens[i] = r.prompt_len
             if self.pages is None:
                 with trc.span("prefill.dispatch", bucket=bucket, n=n):
-                    # one transfer: the lengths, then the admitted slots
+                    # one transfer: the lengths, the admitted slots, then
+                    # the tokens
                     meta = self._pack_meta(
-                        lens, np.asarray([r.slot for r in group], np.int32))
-                    nxt, cache = self._prefill_step(toks, meta[:n])
-                    self._insert_rows(meta[n:], cache)
+                        lens, np.asarray([r.slot for r in group], np.int32),
+                        toks)
+                    nxt, cache = self._prefill_step(
+                        meta[2 * n:].reshape(n, bucket), meta[:n])
+                    self._insert_rows(meta[n: 2 * n], cache)
                 # the JAX engine's counter: its at[].set rebuilds the whole
                 # pool (here only the admitted rows are written)
                 nbytes += self._pool_bytes
             else:
                 with trc.span("prefill.dispatch", bucket=bucket, n=n):
-                    nxt, cache = self._prefill_step(toks,
-                                                    self._pack_meta(lens))
+                    meta = self._pack_meta(lens, toks)
+                    nxt, cache = self._prefill_step(
+                        meta[n:].reshape(n, bucket), meta[:n])
                 bpp = bucket // self.page_size
                 page_ids = np.zeros(n * bpp, np.int32)  # 0 -> null page
                 real = 0
@@ -1138,21 +1204,30 @@ class ServeEngine:
                     self._insert(cache["blocks"]["k"], cache["blocks"]["v"],
                                  self._pack_meta(page_ids))
                 nbytes += real * self._page_bytes
-            # settle at prefill's own sync point (the first tokens; the
-            # insert is queued before the copy, so it is done too)
+            # the copy is queued behind the insert, so its event covers both
+            host, ev = _to_host(nxt)
+            if defer is not None:
+                defer.append((host, list(enumerate(group))))
+                continue
+            # settle at prefill's own sync point, so prefill device time
+            # lands on the prefill track, not in the next decode's wait
             with trc.span("prefill.device_wait", cat="device",
                           track="prefill"):
-                nxt_np = nxt.cpu().numpy()
+                nxt_np = _host_value(host, ev)
             now = self._now()
             for i, r in enumerate(group):
                 self._start_decoding(r, int(nxt_np[i]), now)
         return nbytes
 
-    def _advance_prefills(self) -> Tuple[int, int, int]:
+    def _advance_prefills(self, defer: Optional[List] = None
+                          ) -> Tuple[int, int, int]:
         """Advance every mid-prefill request by ONE page-aligned chunk.
         Slots sharing a table-width bucket are BATCHED into one forward,
         padded to a power-of-two batch bucket (rows with chunk_end 0 are
-        inert: their writes route to the null page).
+        inert: their writes route to the null page).  With `defer` (the
+        overlap window) the completing slots' settles go onto it as (host
+        tensor, [(row, request), ...]) for `_settle_prefills` instead of
+        blocking here.
         Returns (chunks processed, modeled KV bytes written, dispatches)."""
         nbytes = 0
         tok_bytes = self._page_bytes // self.page_size
@@ -1185,23 +1260,30 @@ class ServeEngine:
                 offs[i], ends[i] = off, end
                 tbl[i] = full[slot]
             with self.tracer.span("prefill.chunk", width=width, n=n):
-                nxt = self._chunk_step(toks, self._pack_meta(offs, ends, tbl))
+                nxt = self._chunk_step(
+                    self._pack_meta(offs, ends, toks, tbl), nb, C)
             n_chunks += n
             n_dispatch += 1
             nxt_np: Optional[np.ndarray] = None
+            done_group: List[Tuple[int, Request]] = []
             for i, (slot, req, off, end) in enumerate(group):
                 # index the pages this chunk just WROTE (never ahead of the
                 # writes, so a sharer can only ever map written pages)
                 self.mem.register_prefix(slot, req.prompt, upto=end)
                 if end >= req.prompt_len:
                     finished.append(slot)
+                    if defer is not None:
+                        done_group.append((i, req))
+                        continue
                     if nxt_np is None:
                         with self.tracer.span("prefill.device_wait",
                                               cat="device", track="prefill"):
-                            nxt_np = nxt.cpu().numpy()
+                            nxt_np = _host_value(*_to_host(nxt))
                     self._start_decoding(req, int(nxt_np[i]), self._now())
                 else:
                     self._prefilling[slot] = (req, end)
+            if done_group:
+                defer.append((_to_host(nxt)[0], done_group))
         for slot in finished:
             del self._prefilling[slot]
         return n_chunks, nbytes, n_dispatch
@@ -1257,17 +1339,20 @@ class ServeEngine:
                 self.pages.ensure(slot, int(pos[slot]) + int(n_new[slot]))
             width = self._page_bucket(
                 max(self.pages.n_pages_of(s) for s in active))
-            table = self.pages.table_array(self.capacity, width, only=active)
+            table = self.pages.table_array(self.capacity, width,
+                                           only=active)
             lengths = np.zeros(self.capacity, np.int32)
             for slot in active:
                 lengths[slot] = pos[slot] + n_new[slot]
             return table, lengths, cow_src, cow_dst
 
-    def _decode(self, active: List[int]) -> Tuple[int, float]:
-        """One plain greedy decode step over the pool: COW/table planning +
-        ONE packed metadata transfer + the dispatch, then wait, emit and
-        release finished requests.  Returns (tokens emitted, step
-        seconds)."""
+    def _decode_launch(self, active: List[int]
+                       ) -> Callable[[], Tuple[int, float, int, int, int]]:
+        """Launch one plain greedy decode step over the pool and return its
+        SETTLE closure: COW/table planning + ONE packed metadata transfer +
+        the dispatch and its tokens' copy to the host here; the closure
+        waits for them, emits and releases finished requests, and returns
+        (tokens emitted, step seconds, 0, 0, 0)."""
         sched = self.scheduler
         pos_np = sched.pool.pos
         # t0 BEFORE the COW/table planning: decode_s is plan + dispatch +
@@ -1282,30 +1367,39 @@ class ServeEngine:
                     active, np.ones(self.capacity, np.int32))
                 nxt = self._decode_step(self._pack_meta(
                     self.next_tok, pos, table, lengths, cow_src, cow_dst))
-        with self.tracer.span("device_wait", cat="device", track="decode"):
-            nxt_np = nxt.cpu().numpy()
-        t_step = time.perf_counter() - t0
-        sched.end_iteration()
-        now = self._now()
-        emitted = 0
-        for slot in active:
-            req = self._by_slot[slot]
-            req.generated.append(int(nxt_np[slot]))
-            self.next_tok[slot, 0] = int(nxt_np[slot])
-            sched.pool.pos[slot] += 1
-            emitted += 1
-            if req.done():
-                del self._by_slot[slot]
-                self._release(req, now)
-        return emitted, t_step
+            fetch = _to_host(nxt)
 
-    def _spec(self, active: List[int]) -> Tuple[int, float, int, int, int]:
-        """One speculative solver phase: propose up to `spec_k` drafts per
-        active slot, ONE (B, Q) verify dispatch over all k+1 positions,
-        then the greedy-prefix emit and the rejected tail's rollback (pages
-        allocated only for rejected drafts go back to the free list).
-        Returns (tokens emitted, step seconds, drafted, accepted, drafter
-        device dispatches); the stream equals sequential greedy decode."""
+        def settle() -> Tuple[int, float, int, int, int]:
+            with self.tracer.span("device_wait", cat="device",
+                                  track="decode"):
+                nxt_np = _host_value(*fetch)
+            t_step = time.perf_counter() - t0
+            sched.end_iteration()
+            now = self._now()
+            emitted = 0
+            for slot in active:
+                req = self._by_slot[slot]
+                req.generated.append(int(nxt_np[slot]))
+                self.next_tok[slot, 0] = int(nxt_np[slot])
+                sched.pool.pos[slot] += 1
+                emitted += 1
+                if req.done():
+                    del self._by_slot[slot]
+                    self._release(req, now)
+            return emitted, t_step, 0, 0, 0
+
+        return settle
+
+    def _spec_launch(self, active: List[int]
+                     ) -> Callable[[], Tuple[int, float, int, int, int]]:
+        """Launch one speculative solver phase and return its SETTLE
+        closure: propose up to `spec_k` drafts per active slot and launch
+        ONE (B, Q) verify dispatch over all k+1 positions here; the closure
+        waits for it, emits the greedy prefix and rolls the rejected tail
+        back (pages allocated only for rejected drafts go back to the free
+        list).  The closure returns (tokens emitted, step seconds, drafted,
+        accepted, drafter device dispatches); the stream equals sequential
+        greedy decode."""
         k = self.spec_k
         Q = k + 1
         sched = self.scheduler
@@ -1342,35 +1436,41 @@ class ServeEngine:
                     active, n_new)
                 vtok = self._verify_step(self._pack_meta(
                     toks, pos, table, lengths, cow_src, cow_dst), Q)
-        with self.tracer.span("device_wait", cat="device", track="verify"):
-            vtok_np = vtok.cpu().numpy()
-        t_step = time.perf_counter() - t0
-        sched.end_iteration()
-        now = self._now()
-        emitted = drafted = accepted = 0
-        with self.tracer.span("rollback", n=len(active)):
-            for slot in active:
-                req = self._by_slot[slot]
-                d = drafts[slot]
-                m = greedy_accept(d, vtok_np[slot])
-                drafted += len(d)
-                accepted += m
-                for j in range(m + 1):
-                    tok = int(vtok_np[slot, j])
-                    req.generated.append(tok)
-                    self.next_tok[slot, 0] = tok
-                    sched.pool.pos[slot] += 1
-                    emitted += 1
+            fetch = _to_host(vtok)
+        draft_disp = getattr(self.drafter, "dispatches_per_propose", 0)
+
+        def settle() -> Tuple[int, float, int, int, int]:
+            with self.tracer.span("device_wait", cat="device",
+                                  track="verify"):
+                vtok_np = _host_value(*fetch)
+            t_step = time.perf_counter() - t0
+            sched.end_iteration()
+            now = self._now()
+            emitted = drafted = accepted = 0
+            with self.tracer.span("rollback", n=len(active)):
+                for slot in active:
+                    req = self._by_slot[slot]
+                    d = drafts[slot]
+                    m = greedy_accept(d, vtok_np[slot])
+                    drafted += len(d)
+                    accepted += m
+                    for j in range(m + 1):
+                        tok = int(vtok_np[slot, j])
+                        req.generated.append(tok)
+                        self.next_tok[slot, 0] = tok
+                        sched.pool.pos[slot] += 1
+                        emitted += 1
+                        if req.done():
+                            break
                     if req.done():
-                        break
-                if req.done():
-                    del self._by_slot[slot]
-                    self._release(req, now)
-                elif self.mem is not None:
-                    # rollback: pages allocated only for rejected drafts
-                    self.mem.trim(slot, int(sched.pool.pos[slot]))
-        return (emitted, t_step, drafted, accepted,
-                getattr(self.drafter, "dispatches_per_propose", 0))
+                        del self._by_slot[slot]
+                        self._release(req, now)
+                    elif self.mem is not None:
+                        # rollback: pages allocated only for rejected drafts
+                        self.mem.trim(slot, int(sched.pool.pos[slot]))
+            return emitted, t_step, drafted, accepted, draft_disp
+
+        return settle
 
     def _finish_at_capacity(self) -> None:
         """A slot whose next write position is past the cache can't store
@@ -1382,6 +1482,104 @@ class ServeEngine:
             now = self._now()
             for slot in full:
                 self._release(self._by_slot.pop(slot), now)
+
+    def _solver_launch(self, active: List[int]
+                       ) -> Callable[[], Tuple[int, float, int, int, int]]:
+        """Launch this tick's decode or verify step; -> its settle."""
+        self.scheduler.begin_iteration()
+        if self.drafter is not None:
+            return self._spec_launch(active)
+        return self._decode_launch(active)
+
+    def _settle_prefills(self, pending: List) -> None:
+        """Finish the prefill dispatches the overlap window deferred: ONE
+        wait, on an event recorded behind everything the window queued
+        (first tokens, inserts, chunks), then the PREFILL -> DECODING
+        transitions in dispatch order, the order the synchronous tick runs
+        them in."""
+        if not pending:
+            return
+        with self.tracer.span("prefill.device_wait", cat="device",
+                              track="prefill"):
+            self._drain()
+        now = self._now()
+        for host, group in pending:
+            nxt_np = host.numpy()
+            for i, req in group:
+                self._start_decoding(req, int(nxt_np[i]), now)
+
+    def _overlapped_phase(self, admitted: Sequence[Request]
+                          ) -> Tuple[int, int, int, int, float, int, int,
+                                     int]:
+        """The overlapped tick's middle: launch this tick's solver step
+        FIRST, then do the host's prep (fresh-admission prefills, chunk
+        advancement, `overlap_hook`) while the device computes, and block once, on the step alone.  Restores
+        of parked or crash-retried slots bind BEFORE the launch, so they
+        join this tick's step as in the synchronous tick.  The streams are
+        the synchronous tick's: greedy decode conditions only on settled
+        tokens, and every prep mutation the launch could observe happens
+        at bind.  Returns (admission_bytes, n_chunks, n_chunk_dispatch,
+        emitted, t_step, drafted, accepted, draft_disp)."""
+        trc = self.tracer
+        restores: List[Request] = []
+        fresh: List[Request] = []
+        for r in admitted:
+            if self.mem is not None and self.mem.has_parked(r.rid):
+                restores.append(r)
+            else:
+                fresh.append(r)
+        admission_bytes = 0
+        for r in restores:
+            admission_bytes += self._restore_slot(r)
+        self._finish_at_capacity()
+
+        emitted = 0
+        t_step = 0.0
+        drafted = accepted = draft_disp = 0
+        settle = None
+        launch_t = 0.0
+        active = sorted(self._by_slot)
+        if active:
+            with trc.span("overlap.bind", track="overlap", n=len(active)):
+                settle = self._solver_launch(active)
+            launch_t = trc.clock() if trc.enabled else 0.0
+
+        pending: List = []
+        n_chunks = n_chunk_dispatch = 0
+        with trc.span("overlap.prep", track="overlap", n_fresh=len(fresh)):
+            if fresh:
+                admission_bytes += self._do_prefill(fresh, defer=pending)
+            if self._prefilling:
+                n_chunks, chunk_bytes, n_chunk_dispatch = \
+                    self._advance_prefills(defer=pending)
+                admission_bytes += chunk_bytes
+            if self.overlap_hook is not None:
+                self.overlap_hook()
+
+        if settle is not None:
+            emitted, t_step, drafted, accepted, draft_disp = settle()
+            if trc.enabled:
+                # the device's in-flight envelope [launch, ready], recorded
+                # after the fact on the solver's track, so attribution (and
+                # host_overlap_ratio) sees the window's host spans as hidden
+                # behind it
+                trc.complete("overlap.inflight", launch_t, trc.clock(),
+                             cat="device",
+                             track=("verify" if self.drafter is not None
+                                    else "decode"), n=len(active))
+        else:
+            self.scheduler.sim_time += 1.0  # idle ticks still advance time
+        self._settle_prefills(pending)
+        if settle is None and not pending and (fresh or n_chunks
+                                               or restores):
+            # a prefill-only tick with nothing deferred (all admissions
+            # chunked, or restores only): settle the KV writes so the
+            # wall-clock metrics charge the tick that issued them
+            with trc.span("prefill.device_wait", cat="device",
+                          track="prefill"):
+                self._drain()
+        return (admission_bytes, n_chunks, n_chunk_dispatch, emitted,
+                t_step, drafted, accepted, draft_disp)
 
     @torch.inference_mode()
     def tick(self) -> TickRecord:
@@ -1465,33 +1663,39 @@ class ServeEngine:
             admitted = sched.admit(
                 now, preempt=self._preempt_for if self.evict else None,
                 limit=limit, allow=allow)
-        admission_bytes = self._do_prefill(admitted) if admitted else 0
-        n_chunks = n_chunk_dispatch = 0
-        if self._prefilling:
-            n_chunks, chunk_bytes, n_chunk_dispatch = self._advance_prefills()
-            admission_bytes += chunk_bytes
-        self._finish_at_capacity()
-
-        # ---- solver phase: one pool-wide decode (or spec-verify) step ----
-        emitted = 0
-        t_step = 0.0
-        drafted = accepted = draft_disp = 0
-        active = sorted(self._by_slot)
-        if active:
-            sched.begin_iteration()
-            if self.drafter is not None:
-                emitted, t_step, drafted, accepted, draft_disp = \
-                    self._spec(active)
-            else:
-                emitted, t_step = self._decode(active)
+        if self.overlap:
+            # ---- overlapped middle: launch the solver step first, prep
+            # the rest of the tick while the device computes ----
+            (admission_bytes, n_chunks, n_chunk_dispatch, emitted, t_step,
+             drafted, accepted, draft_disp) = self._overlapped_phase(
+                admitted)
         else:
-            sched.sim_time += 1.0  # idle ticks still advance time
-            if admitted or n_chunks:
-                # prefill-only tick: settle the outstanding KV scatters so
-                # wall-clock metrics charge the work to the issuing tick
-                with trc.span("prefill.device_wait", cat="device",
-                              track="prefill"):
-                    self._sync()
+            admission_bytes = self._do_prefill(admitted) if admitted else 0
+            n_chunks = n_chunk_dispatch = 0
+            if self._prefilling:
+                n_chunks, chunk_bytes, n_chunk_dispatch = \
+                    self._advance_prefills()
+                admission_bytes += chunk_bytes
+            self._finish_at_capacity()
+
+            # ---- solver phase: one pool-wide decode (or spec-verify)
+            # step, settled at once ----
+            emitted = 0
+            t_step = 0.0
+            drafted = accepted = draft_disp = 0
+            active = sorted(self._by_slot)
+            if active:
+                emitted, t_step, drafted, accepted, draft_disp = \
+                    self._solver_launch(active)()
+            else:
+                sched.sim_time += 1.0  # idle ticks still advance time
+                if admitted or n_chunks:
+                    # prefill-only tick: settle the outstanding KV scatters
+                    # so wall-clock metrics charge the work to the issuing
+                    # tick
+                    with trc.span("prefill.device_wait", cat="device",
+                                  track="prefill"):
+                        self._drain()
 
         if self.debug_checks:
             # page-leak guard: every live slot holds EXACTLY the pages its

@@ -63,9 +63,10 @@ class PageAllocator:
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
         self._tables: Dict[int, List[int]] = {}  # slot -> ordered page ids
         self._ref: Dict[int, int] = {}  # page -> number of tables holding it
-        # bumped on every table mutation: a block-table image staged ahead
-        # of time (the overlapped engine's double-buffered plan) is valid
-        # only while this counter is unchanged
+        # bumped on every table mutation, as in the JAX allocator, whose
+        # overlapped engine binds a block table staged ahead of time only
+        # while this counter is unchanged (this port's engine builds its
+        # table at bind and does not read it)
         self.version = 0
 
     # --- capacity math ----------------------------------------------------

@@ -15,6 +15,7 @@ of the plain version run on the fp32-cast inputs,
 kernel that rounded P to bf16 would miss it."""
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -718,3 +719,76 @@ def test_brownout_spec_shrink_verifies_12_rows_on_the_split_route(cuda):
     assert all((tc, split) == (0, 1) for tc, split in verify)
     assert {r.rid: r.generated for r in got.requests} == \
         {r.rid: r.generated for r in want.requests}
+
+
+@pytest.mark.cuda
+def test_meta_packer_ring_waits_for_its_copies(cuda):
+    """Hold the stream with a device sleep and pack RING + 4 buffers of
+    distinct contents behind it: the ring wraps while the first copies
+    still wait in the stream, and `pack` must wait on a buffer's event
+    before it rewrites that buffer, so every copy arrives intact."""
+    from repro_torch.serve.engine import _MetaPacker
+    packer = _MetaPacker(torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # >= 0.1 s at any SM clock <= 2 GHz
+    outs = [packer.pack([np.full(4096, i, np.int32)])
+            for i in range(packer.RING + 4)]
+    assert all(bool((o == i).all()) for i, o in enumerate(outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["off", "ngram"])
+@pytest.mark.parametrize("layout", ["paged", "flat"])
+def test_overlapped_streams_equal_sync_on_the_card(cuda, layout, spec):
+    """fp32 (TF32 off), on both KV layouts, paged through the kernel: the
+    overlapped tick gives the synchronous tick's streams, with and without
+    speculation.  On the flat layout the window holds the deferred prefill
+    and its row inserts behind the in-flight step."""
+    from repro_torch.serve import ServeEngine
+    cfg = _grouped_small("float32")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    kw = SERVE_KW if layout == "paged" else dict(
+        capacity=4, cache_len=128, prefill_bucket=16, kv_layout="flat",
+        seed=0)
+    want = ServeEngine(cfg, params=params, spec=spec, **kw).run(
+        _serve_burst(cfg.vocab_size))
+    eng = ServeEngine(cfg, params=params, spec=spec, overlap=True,
+                      debug_checks=True, **kw)
+    before = paged_attention.launches
+    got = eng.run(_serve_burst(cfg.vocab_size))
+    assert (paged_attention.launches > before) == (layout == "paged")
+    assert {r.rid: r.generated for r in got.requests} == \
+        {r.rid: r.generated for r in want.requests}
+
+
+@pytest.mark.cuda
+def test_overlapped_decode_settle_does_not_wait_for_window_work(cuda):
+    """At tick 3 an `overlap_hook` enqueues >= 0.1 s of device sleep in the
+    window, after the decode step, as a prefill would: the step's settle
+    waits on the event behind the step's own token copy, so its host time
+    stays well under the sleep (a blocking `.cpu()` would wait it out)."""
+    from repro_torch.serve import ServeEngine
+    cfg = _grouped_small("bfloat16")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    eng = ServeEngine(cfg, params=params, overlap=True, **SERVE_KW)
+    eng.overlap_hook = lambda: (torch.cuda._sleep(200_000_000)
+                                if eng._tick == 3 else None)
+    waits = {}
+    launch = eng._decode_launch
+
+    def timed_launch(active):
+        settle = launch(active)
+
+        def timed_settle():
+            t0 = time.perf_counter()
+            out = settle()
+            waits[eng._tick] = time.perf_counter() - t0
+            return out
+        return timed_settle
+
+    eng._decode_launch = timed_launch
+    eng.run(_serve_burst(cfg.vocab_size))
+    assert 3 in waits
+    assert waits[3] < 0.05

@@ -76,8 +76,7 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         ServeEngine(cfg, kv_layout="paged")
 
 
-@pytest.mark.parametrize("kw", [dict(decode_enabled=False),
-                                dict(overlap=True)])
+@pytest.mark.parametrize("kw", [dict(decode_enabled=False)])
 def test_unported_options_raise(kw):
     cfg = smoke_variant(get_config("smollm-360m"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -87,10 +86,10 @@ def test_unported_options_raise(kw):
 @pytest.mark.parametrize("kw", [
     dict(brownout="auto"),
     dict(fault_injector=FaultInjector(FaultPlan([worker_crash(0)]))),
-    dict(queue_cap=4)])
+    dict(queue_cap=4), dict(overlap=True)])
 def test_now_ported_options_construct(kw):
-    """Options that raised before faults and overload control were ported
-    build an engine on the CPU that ticks."""
+    """Options that raised before faults, overload control and the
+    overlapped tick were ported build an engine on the CPU that ticks."""
     cfg = smoke_variant(get_config("smollm-360m"))
     eng = ServeEngine(cfg, device="cpu", kv_layout="paged", n_workers=2,
                       capacity=2, cache_len=16, prefill_bucket=8, **kw)
@@ -106,6 +105,8 @@ def test_now_ported_options_construct(kw):
         assert eng.ladder is not None and rec.brownout_level == 0
     if "queue_cap" in kw:
         assert eng.scheduler.admission.enabled
+    if "overlap" in kw:
+        assert eng.overlap and rec.admitted == 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
