@@ -99,6 +99,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               metadata ring: RING + 4 buffers packed behind a device
               sleep must all arrive intact (an unguarded ring beside it,
               reported).
+   moe      — the moe family at grok-1-314b's published widths (d_model
+              6144, 48 heads over 8 KV: G 6, hd 128; 8 experts, top-2,
+              capacity factor 1.25, d_ff 32768; vocab 131072), paged,
+              through the kernel, random weights from a seed.  (c)
+              paged_attention at that head geometry: decode (QG 6, the
+              split route), the verify spans of spec_k 4 and 2 (QG 30,
+              18) and a 256-token chunk (QG 1536), fp32 and bf16, against
+              the plain version and a gather + SDPA, then each shape in
+              bf16 held within one bf16 ulp of the plain version on the
+              fp32-cast inputs and timed as the timing phase times the
+              main path's shapes.  (a) fp32 at 2 of 64 layers: the
+              engine burst through the kernel must give the streams of
+              the kernel's plain version in the same engine and of the
+              overlapped tick; the flat layout overlapped those of the
+              flat layout; spec ngram on the repetitive burst those of
+              spec through the plain version.  Gather, flat and spec-off
+              streams are reported against them: a moe row depends on
+              every row of its call (expert capacity drops), so those
+              paths can differ by design, in the JAX engine too.  Launches =
+              layers x paged dispatches.  (b) bf16 at 4 of 64 layers: the
+              engine burst synchronously and overlapped in turns, one
+              run profiled, one overlapped run traced (a decode launch's
+              host time against a step's device time).  Its weights are
+              freed before the next phase.
    streams  — the engine workload in fp32 through the kernel and through
               the gather path must give equal token streams, and so must
               speculative decoding through the kernel (the verify spans on
@@ -144,8 +168,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               rebalancing, 2 of 4 workers at twice the per-sample time.
 9. lm_elastic — ElasticTrainer on h2o-danube-1.8b at full width and depth
               (bf16, sgdm, remat) on batches of 8 x 4096 tokens from
-              ChunkBatchPipeline: 4 steps, K 4 -> 2 at step 2, suspended
-              to the host after step 2 and resumed (the state must come
+              ChunkBatchPipeline: 3 steps, K 4 -> 2 at step 1, suspended
+              to the host after step 1, the first at K 2, and resumed
+              before step 2 (the state must come
               back bit for bit); then, under deterministic algorithms, a
               suspended run against an uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
@@ -220,6 +245,12 @@ SCALE_EVENTS = [(0, 1), (10, 2), (25, 1)]  # the engine burst's k 1 -> 2 -> 1
 OVERLAP_ORDER = (False, True, True, False, False, True)
 DECODE_WINDOW = 5
 RING_HOLD_S = 0.1
+# the moe phase: grok-1-314b at its published widths (48 heads over 8 KV:
+# G 6, hd 128; 8 experts, top-2, d_ff 32768; vocab 131072), its 64
+# layers cut to 2 for the fp32 gates (42.6 GB of weights) and 4 for the
+# bf16 timing (41.0 GB; the layer pattern's period is one layer)
+MOE_ARCH = "grok-1-314b"
+MOE_LAYERS = {"float32": 2, "bfloat16": 4}
 # training path (phases cocoa and lsgd)
 COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
              iters=12, rebalance_iters=6)
@@ -251,7 +282,11 @@ TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 40, 4), (2, 2, 1, 128, 16, 8, 0, 64)]
 SPLIT_PAGED_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
                      ((3, 2, 4, 80, 16, 16, 40, 1), [200, 77, 256]),
                      ((3, 2, 4, 64, 16, 8, 0, 3), [3, 70, 128]),
-                     ((2, 2, 4, 32, 8, 20, 24, 4), [9, 160])]
+                     ((2, 2, 4, 32, 8, 20, 24, 4), [9, 160]),
+                     # grok-1-314b's heads (G 6, hd 128): decode (QG 6)
+                     # and a 2-position span (QG 12)
+                     ((4, 8, 6, 128, 16, 8, 0, 1), [0, 5, 64, 128]),
+                     ((3, 8, 6, 128, 16, 16, 40, 2), [200, 77, 256])]
 PAGED_TC_DIMS = (64, 80, 128)  # head dims of the paged tensor-core kernel
 # one bf16 ulp (8 significant bits) of the fp32 result, and an absolute
 # floor for outputs near zero
@@ -273,7 +308,7 @@ FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
 LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
                 hetero="2.0x2", workers=4, seed=0)
 LM_ELASTIC = dict(batch=8, seq=4096, n_seqs=256, chunk_size=8, k0=4,
-                  scale_at=2, k1=2, steps=4, suspend_after=2, det_steps=2)
+                  scale_at=1, k1=2, steps=3, suspend_after=1, det_steps=2)
 
 
 T0 = time.perf_counter()
@@ -568,24 +603,30 @@ def cuda_ms(torch, fn, iters=1):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters):
+def device_ms(torch, fn, iters, attempts=3):
     """Device time per call of `fn` from torch.profiler: the time of the
     kernels it launches, without the host's launch gaps (which bound a
     back-to-back loop of a microsecond kernel).  The profiler can drop
     records, so each kernel is averaged over its own recorded launches
-    and counted as often per call as it was recorded per call."""
+    and counted as often per call as it was recorded per call; a window
+    with no device record at all is profiled again, up to `attempts`
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.count]
-    if not dev:
-        fail("torch.profiler recorded no device time for a kernel timing")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        if dev:
+            break
+    else:
+        fail(f"torch.profiler recorded no device time for a kernel timing "
+             f"in {attempts} tries")
     return sum(e.self_device_time_total / e.count
                * max(1, round(e.count / iters)) for e in dev) / 1e3
 
@@ -1287,9 +1328,9 @@ def same_state(torch, a, b) -> bool:
 
 
 def lm_elastic_phase(torch, np):
-    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 4 steps of
-    8 x 4096 tokens, K 4 -> 2, suspended to the host after step 2 and
-    resumed; then a suspended run against an uninterrupted one under
+    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 3 steps of
+    8 x 4096 tokens, K 4 -> 2 at step 1, suspended to the host after that
+    step (a state that has just been scaled in) and resumed; then a suspended run against an uninterrupted one under
     deterministic algorithms."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.launch.elastic import ElasticTrainer
@@ -1791,35 +1832,15 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
     from repro_torch.models.attention import head_layout
     from repro_torch.obs import Tracer, host_overlap_ratio
     from repro_torch.serve.engine import _MetaPacker
-    paged_attention = paged_mod.paged_attention
     vocab = cfg32.vocab_size
-    hd = cfg32.head_dim_()
     G = head_layout(cfg32)[2]
-    layers = cfg32.num_layers
     launches = []  # (run, (launches, tensor cores, split-KV))
     seconds = {}
     t0 = time.perf_counter()
 
     def counted_run(name, eng, reqs):
-        """Run `eng` over `reqs` with the launch counts zeroed just before
-        and read just after; gate launches = layers x paged dispatches
-        and every route.  -> (metrics, summary)."""
-        dtype_name = eng.cfg.dtype
-        log, restore = record_paged_launches(paged_mod)
-        paged_attention.launches = paged_attention.launches_tc = 0
-        paged_attention.launches_split = 0
-        m = eng.run(reqs)
-        n = paged_counts(paged_attention)
-        restore()
-        s = m.summarize()
-        dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
-        wrong = [(qg, r) for qg, r in log
-                 if r != paged_route(dtype_name, qg, hd)]
-        if n[0] <= 0 or n[0] != layers * dispatches or len(log) != n[0] \
-                or wrong:
-            fail(f"overlap {name}: {n[0]} launches for {dispatches} paged "
-                 f"dispatches of {layers} layers; misrouted (rows, "
-                 f"route): {wrong[:5]}")
+        m, s, n, _ = counted_paged_run(paged_mod, f"overlap {name}", eng,
+                                       reqs)
         launches.append((name, n))
         return m, s
 
@@ -1907,39 +1928,9 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
     eng = ServeEngine(cfg16, params=params16, paged_impl="kernel", seed=0,
                       device=DEVICE, overlap=True, policies=[scale_policy()],
                       tracer=trc, **ENGINE)
-    eng.submit(requests(np, synthetic_requests, vocab))
-    cap = ENGINE["capacity"]
-
-    def decode_only(rec):  # every slot decodes, so nothing else can run
-        return rec.tokens_emitted == cap and rec.prefill_dispatches == 0
-
-    while not decode_only(eng.tick()):
-        if eng._tick >= OVERLOAD["max_ticks"]:
-            fail("overlap (b): no tick in which every slot decodes")
-    window = []
-    win_prof = profile_run(torch, lambda: window.extend(
-        eng.tick() for _ in range(DECODE_WINDOW)))
-    if not all(decode_only(r) for r in window) \
-            or win_prof["device_busy_s"] is None:
-        fail(f"overlap (b): the profiled window held other work or no "
-             f"device records: {win_prof}")
-    eng.run([])
+    launch, span_s = launch_vs_step(
+        torch, eng, trc, requests(np, synthetic_requests, vocab))
     del eng, params16
-    span_s = {name: sum(e.dur for e in trc.events
-                        if e.ph == "X" and e.name == name)
-              for name in ("overlap.bind", "overlap.prep", "overlap.inflight",
-                           "device_wait", "prefill.device_wait")}
-    bind_ms = sorted(e.dur * 1e3 for e in trc.events
-                     if e.ph == "X" and e.name == "overlap.bind"
-                     and e.args.get("n") == cap)
-    step_ms = win_prof["device_busy_s"] * 1e3 / DECODE_WINDOW
-    launch = {"slots": cap, "full_pool_launches": len(bind_ms),
-              "launch_host_ms_median": bind_ms[len(bind_ms) // 2],
-              "launch_host_ms_range": [bind_ms[0], bind_ms[-1]],
-              "step_device_ms": step_ms,
-              "device_over_host": step_ms / bind_ms[len(bind_ms) // 2],
-              "window_ticks": DECODE_WINDOW,
-              "window_idle_share": win_prof["device_idle_share"]}
     seconds["b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -1980,6 +1971,75 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
     n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
     return {"launches": n, "launches_tc": tc, "launches_split": split,
             "by_run": [[k, v[0]] for k, v in launches]}
+
+
+def counted_paged_run(paged_mod, what, eng, reqs):
+    """Run `eng` (paged, through the kernel) over `reqs` with the
+    paged-attention launch counts zeroed just before and read just after;
+    fail unless the launches are layers x paged dispatches, each on the
+    launcher's route.  -> (metrics, summary, (launches, tensor cores,
+    split), the rows of the launches)."""
+    paged_attention = paged_mod.paged_attention
+    cfg = eng.cfg
+    log, restore = record_paged_launches(paged_mod)
+    paged_attention.launches = paged_attention.launches_tc = 0
+    paged_attention.launches_split = 0
+    m = eng.run(reqs)
+    n = paged_counts(paged_attention)
+    restore()
+    s = m.summarize()
+    dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
+    wrong = [(qg, r) for qg, r in log
+             if r != paged_route(cfg.dtype, qg, cfg.head_dim_())]
+    if n[0] <= 0 or n[0] != cfg.num_layers * dispatches \
+            or len(log) != n[0] or wrong:
+        fail(f"{what}: {n[0]} launches for {dispatches} paged dispatches "
+             f"of {cfg.num_layers} layers; misrouted (rows, route): "
+             f"{wrong[:5]}")
+    return m, s, n, sorted({qg for qg, _ in log})
+
+
+def launch_vs_step(torch, eng, trc, reqs):
+    """Drive the overlapped engine `eng` (traced by `trc`) over `reqs`
+    tick by tick until every slot decodes and nothing else runs, profile
+    DECODE_WINDOW such ticks (device activity only), then finish the run.
+    -> (a full-pool decode launch's host time, its `overlap.bind` spans,
+    against a step's device time in the window; the traced spans'
+    seconds)."""
+    cap = eng.capacity
+    eng.submit(reqs)
+
+    def decode_only(rec):  # every slot decodes, so nothing else can run
+        return rec.tokens_emitted == cap and rec.prefill_dispatches == 0
+
+    while not decode_only(eng.tick()):
+        if eng._tick >= OVERLOAD["max_ticks"]:
+            fail(f"{eng.cfg.name}: no tick in which every slot decodes")
+    window = []
+    win_prof = profile_run(torch, lambda: window.extend(
+        eng.tick() for _ in range(DECODE_WINDOW)))
+    if not all(decode_only(r) for r in window) \
+            or win_prof["device_busy_s"] is None:
+        fail(f"{eng.cfg.name}: the profiled decode window held other work "
+             f"or no device records: {win_prof}")
+    eng.run([])
+    span_s = {name: sum(e.dur for e in trc.events
+                        if e.ph == "X" and e.name == name)
+              for name in ("overlap.bind", "overlap.prep", "overlap.inflight",
+                           "device_wait", "prefill.device_wait")}
+    bind_ms = sorted(e.dur * 1e3 for e in trc.events
+                     if e.ph == "X" and e.name == "overlap.bind"
+                     and e.args.get("n") == cap)
+    step_ms = win_prof["device_busy_s"] * 1e3 / DECODE_WINDOW
+    launch = {"slots": cap, "full_pool_launches": len(bind_ms),
+              "launch_host_ms_median": bind_ms[len(bind_ms) // 2],
+              "launch_host_ms_range": [bind_ms[0], bind_ms[-1]],
+              "step_device_ms": step_ms,
+              "device_over_host": step_ms / bind_ms[len(bind_ms) // 2],
+              "window_ticks": DECODE_WINDOW,
+              "window_idle_share": win_prof["device_idle_share"],
+              "window_top_kernels": win_prof["top_kernels"][:6]}
+    return launch, span_s
 
 
 def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
@@ -2057,6 +2117,320 @@ def flat_phase(torch, np, M, cfg, get_config, ServeEngine,
     del params
     torch.cuda.empty_cache()
     emit({"phase": "flat", **FLAT, "dtype": cfg.dtype, "runs": out})
+
+
+def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
+                 shapes, what):
+    """bf16 paged_attention at each of `shapes` (name -> B, Q, live
+    lengths) with `heads` = (KV, G, hd, page size, pages a row): the
+    kernel held within one bf16 ulp of the plain version on the fp32
+    upcast of its inputs, on the launcher's route; then its device time
+    (profiler time over 4 rotating pool copies, > 50 MB of pages: the
+    plain version, the kernel twice, the plain version, then gather +
+    SDPA), CUDA-event times of back-to-back calls, and its bound.
+    -> timing by shape name."""
+    paged_attention = paged_mod.paged_attention
+    plain = paged_mod.paged_attention_plain
+    KV, G, hd, ps, P = heads
+    lib = library_call(torch, F, window)
+    timing = {}
+    for name, sh in shapes.items():
+        rot = [paged_inputs(torch, np, rng, sh["B"], KV, G, hd, ps, P,
+                            sh["Q"], torch.bfloat16, n_pages=n_pages,
+                            lengths=sh["lengths"]) for _ in range(4)]
+        inp = rot[0]
+        before = paged_counts(paged_attention)
+        got = call(paged_attention, inp, window)
+        torch.cuda.synchronize()
+        route = took(before, paged_counts(paged_attention))
+        want = call(plain, dict(
+            inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
+            v_pages=inp["v_pages"].float()), window)
+        ulp = one_ulp_excess(got, want)
+        if not math.isfinite(ulp) or ulp > 0 \
+                or route != paged_route("bfloat16", sh["Q"] * G, hd):
+            fail(f"{what}paged_attention {name}: one-ulp excess {ulp}, "
+                 f"{route} route")
+        del got, want, inp
+        iters = 50
+        nbytes, flops = work(np, rot[0], window, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        # device time (profiler): CUDA events over back-to-back calls
+        # measure the host's issue rate (~25 us a call) for a faster kernel
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = plain if which == "plain" else paged_attention
+            runs[which].append(rotating_device_ms(torch, fn, rot, window,
+                                                  iters))
+        timing[name] = {
+            "shape": {"B": sh["B"], "KV": KV, "QG": sh["Q"] * G, "hd": hd,
+                      "page_size": ps, "P": P,
+                      "live_tokens": int(np.sum(sh["lengths"]))},
+            "timer": "device time per call (torch.profiler)",
+            "ms": min(runs["kernel"]), "ms_runs": runs["kernel"],
+            "plain_ms": min(runs["plain"]), "plain_ms_runs": runs["plain"],
+            "library_ms": rotating_device_ms(torch, lib, rot, window, iters),
+            "events_ms": {  # back-to-back calls, bounded by the host
+                "kernel": time_ms(torch, paged_attention, rot, window,
+                                  iters),
+                "plain": time_ms(torch, plain, rot, window, iters),
+                "library": time_ms(torch, lib, rot, window, iters)},
+            "kernel": {"tc": "tensor cores", "split": "split-KV",
+                       "cuda_core": "CUDA cores"}[route],
+            "one_ulp_excess": ulp,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+        del rot
+    return timing
+
+
+def moe_kernel_checks(torch, np, F, paged_mod, cfg):
+    """The moe phase's (c): paged_attention at `cfg`'s heads (grok-1-314b:
+    KV 8, G 6, hd 128) on the engine's pages and slots (8 rows): decode
+    (QG 6), the verify span at spec_k 4 (QG 30) and at the ladder's
+    spec_shrink (QG 18), a prefill chunk (256 tokens: QG 1536).  Each in
+    fp32 and bf16 against the plain version and a gather + SDPA at TOL,
+    on the launcher's route (the split route twice, bitwise equal); then
+    `paged_timing` at each shape (bf16 within one ulp of the fp32 plain
+    version, device times, bound).  -> (checks, timing, max abs error by
+    dtype)."""
+    from repro_torch.models.attention import head_layout
+    paged_attention = paged_mod.paged_attention
+    plain = paged_mod.paged_attention_plain
+    KV, G, hd = cfg.kv_heads(), head_layout(cfg)[2], cfg.head_dim_()
+    ps = ENGINE["page_size"]
+    P = ENGINE["cache_len"] // ps
+    n_pages = ENGINE["capacity"] * P + 1
+    rng = np.random.default_rng(20)
+    B = ENGINE["capacity"]
+    lo, hi = PROMPT_LEN  # live lengths of the engine workload's spans
+    C = ENGINE["prefill_chunk"]
+    shapes = {
+        "decode": dict(B=B, Q=1, lengths=rng.integers(lo + 1, hi + 33,
+                                                      size=B)),
+        "verify": dict(B=B, Q=SPEC_K + 1,
+                       lengths=rng.integers(lo + 5, hi + 37, size=B)),
+        "verify_shrink": dict(B=B, Q=SPEC_K // 2 + 1,
+                              lengths=rng.integers(lo + 3, hi + 35, size=B)),
+        "chunk": dict(B=B, Q=C,
+                      lengths=C * rng.integers(1, hi // C + 1, size=B))}
+    lib = library_call(torch, F, 0)
+    checks = []
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for name, sh in shapes.items():
+        Q = sh["Q"]
+        for dtype_name in ("float32", "bfloat16"):
+            inp = paged_inputs(torch, np, rng, B, KV, G, hd, ps, P, Q,
+                               getattr(torch, dtype_name), n_pages=n_pages,
+                               lengths=sh["lengths"])
+            before = paged_counts(paged_attention)
+            got = call(paged_attention, inp, 0)
+            torch.cuda.synchronize()
+            route = took(before, paged_counts(paged_attention))
+            err = float((got.float() - call(plain, inp, 0).float())
+                        .abs().max())
+            lib_err = float((got.float() - call(lib, inp, 0).float())
+                            .abs().max())
+            checks.append({"shape": name, "dtype": dtype_name, "QG": Q * G,
+                           "route": route, "max_abs_err": err,
+                           "vs_library_max_abs_err": lib_err})
+            if not (err <= TOL[dtype_name] and lib_err <= TOL[dtype_name]):
+                fail(f"moe paged_attention {name} {dtype_name}: max abs err "
+                     f"{err} (plain), {lib_err} (gather + SDPA) > "
+                     f"{TOL[dtype_name]}")
+            if route != paged_route(dtype_name, Q * G, hd):
+                fail(f"moe paged_attention {name} {dtype_name} took the "
+                     f"{route} route, not the "
+                     f"{paged_route(dtype_name, Q * G, hd)} route")
+            if route == "split" and not torch.equal(
+                    got, call(paged_attention, inp, 0)):
+                fail(f"moe paged_attention {name} {dtype_name}: two calls "
+                     f"of the split route differ")
+            worst[dtype_name] = max(worst[dtype_name], err)
+            del got, inp
+    timing = paged_timing(torch, np, F, paged_mod, rng, (KV, G, hd, ps, P),
+                          n_pages, 0, shapes, "moe ")
+    return checks, timing, worst
+
+
+def moe_phase(torch, np, F, M, get_config, ServeEngine, synthetic_requests,
+              Request, paged_mod):
+    """The moe family at grok-1-314b's published widths, paged, through
+    the kernel.  (c) the kernel at its head geometry (`moe_kernel_checks`).
+    (a) fp32 gates at MOE_LAYERS["float32"] layers (TF32 off): the engine
+    burst through the kernel must give the streams of the same engine
+    with the kernel's plain version in its place, and of the overlapped
+    tick; the flat layout overlapped those of the flat layout; spec ngram
+    (spec_k 4) on the repetitive burst through the kernel those through
+    the plain version.  A moe row's output depends on every row of its
+    call (expert capacity drops), so streams can differ by design between
+    paths whose calls batch other rows or give a free slot other values:
+    the gather path (its rows of length 0 average the null page, the
+    kernel's are zeros), the flat layout, spec against spec-off (the JAX
+    engine's streams differ the same way, tests/test_torch_moe_serve.py);
+    those equalities are reported.  Launches = layers x paged dispatches
+    in every counted run, on the launcher's routes.  (b) bf16 at
+    MOE_LAYERS["bfloat16"] layers: the engine burst synchronously and
+    overlapped in turns (OVERLAP_ORDER), tokens/s, TTFT and TPOT; one
+    synchronous run under torch.profiler (busy, idle share, top kernels,
+    `paged_attention` by route); one overlapped run traced (a full-pool
+    decode launch's host time against a step's device time).  The
+    weights are freed before the phase returns.  -> launches by run and
+    route, the kernel timing and errors."""
+    from repro_torch.obs import Tracer
+    t0 = time.perf_counter()
+    seconds = {}
+    base = get_config(MOE_ARCH)
+    checks, timing, worst = moe_kernel_checks(torch, np, F, paged_mod, base)
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = []  # (run, (launches, tensor cores, split), rows)
+    vocab = base.vocab_size
+
+    def burst():
+        return requests(np, synthetic_requests, vocab)
+
+    def repetitive():
+        return repetitive_requests(np, Request, vocab)
+
+    def engine(cfg, params, **kw):
+        return ServeEngine(cfg, params=params, seed=0, device=DEVICE,
+                           **{**ENGINE, **kw})
+
+    def counted(name, eng, reqs):
+        m, s, n, rows = counted_paged_run(paged_mod, f"moe {name}", eng,
+                                          reqs)
+        launches.append((name, n, rows))
+        if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32:
+            fail(f"moe {name}: {s['requests_finished']} finished, "
+                 f"{s['tokens_generated']} tokens")
+        return m, s
+
+    def plain_run(eng, reqs):
+        real = paged_mod.paged_attention
+        paged_mod.paged_attention = paged_mod.paged_attention_plain
+        try:
+            return eng.run(reqs)
+        finally:
+            paged_mod.paged_attention = real
+
+    # ---- (a) fp32 gates -----------------------------------------------------
+    cfg32 = dataclasses.replace(base, num_layers=MOE_LAYERS["float32"],
+                                dtype="float32")
+    params32 = M.init_params(cfg32, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+
+    def same(name, got, want, reqs):
+        div = first_divergence(torch, np, M, cfg32, params32, got, want,
+                               {r.rid: r.prompt for r in reqs})
+        if div is not None:
+            emit({"phase": "moe", "equal": False, "run": name, **div})
+            fail(f"moe {name}: fp32 streams diverge at request "
+                 f"{div['rid']} step {div['step']}")
+
+    m, s = counted("kernel_fp32", engine(cfg32, params32), burst())
+    want = streams(m)
+    part_a = {"kernel": {k: s[k] for k in ("n_ticks", "decode_dispatches",
+                                            "prefill_dispatches_total")}}
+    same("plain", streams(plain_run(engine(cfg32, params32), burst())),
+         want, burst())
+    m, s = counted("overlap_fp32", engine(cfg32, params32, overlap=True),
+                   burst())
+    same("overlap", streams(m), want, burst())
+    gather = streams(engine(cfg32, params32, paged_impl="gather").run(
+        burst()))
+    flat_sync = flat_run(np, ServeEngine, synthetic_requests, cfg32,
+                         params32)[1]
+    same("flat overlapped", flat_run(np, ServeEngine, synthetic_requests,
+                                     cfg32, params32, overlap=True)[1],
+         flat_sync, burst())
+    spec_kw = dict(spec="ngram", spec_k=SPEC_K)
+    m, s = counted("spec_fp32", engine(cfg32, params32, **spec_kw),
+                   repetitive())
+    spec = streams(m)
+    if not s["spec_accepted_total"]:
+        fail("moe spec_fp32: no draft accepted")
+    same("spec plain", streams(plain_run(engine(cfg32, params32, **spec_kw),
+                                         repetitive())), spec, repetitive())
+    m, _ = counted("spec_off_fp32", engine(cfg32, params32), repetitive())
+    part_a.update({
+        "gated_equal": ["kernel == plain", "kernel == overlapped",
+                        "flat == flat overlapped",
+                        "spec kernel == spec plain"],
+        "reported_equal": {"gather == kernel": gather == want,
+                           "flat == kernel": flat_sync == want,
+                           "spec == spec-off (repetitive)":
+                               spec == streams(m)},
+        "spec": {k: s[k] for k in ("spec_acceptance_rate",
+                                   "spec_drafted_total",
+                                   "spec_accepted_total",
+                                   "tokens_per_dispatch")}})
+    del params32, m
+    torch.cuda.empty_cache()
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (b) bf16 timing ----------------------------------------------------
+    cfg16 = dataclasses.replace(base, num_layers=MOE_LAYERS["bfloat16"])
+    torch.cuda.reset_peak_memory_stats()
+    params16 = M.init_params(cfg16, torch.Generator(
+        device=DEVICE).manual_seed(0), DEVICE)
+    init_peak = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() * p.element_size() for p in params16.parameters())
+    warm = PROMPT_LEN[1] // 5  # a prompt of two prefill chunks
+    engine(cfg16, params16).run(synthetic_requests(  # warm-up
+        1, vocab_size=vocab, arrivals=np.zeros(1), prompt_len=(warm, warm),
+        max_new_tokens=(2, 2), rng=np.random.default_rng(1)))
+    keys = ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+            "wall_s", "n_ticks")
+    arms = {"sync": [], "overlap": []}
+    for ovl in OVERLAP_ORDER:
+        arm = "overlap" if ovl else "sync"
+        _, s = counted(f"{arm}_bf16", engine(cfg16, params16, overlap=ovl),
+                       burst())
+        arms[arm].append({k: s[k] for k in keys})
+    medians = {arm: float(np.median([r["tokens_per_s"] for r in runs]))
+               for arm, runs in arms.items()}
+    eng = engine(cfg16, params16)
+    prof = profile_run(torch, lambda: eng.run(burst()))
+    trc = Tracer(name="moe")
+    launch, span_s = launch_vs_step(
+        torch, engine(cfg16, params16, overlap=True, tracer=trc), trc,
+        burst())
+    peak = torch.cuda.max_memory_allocated()
+    del params16, eng
+    torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+    n, tc, split = (sum(v[i] for _, v, _ in launches) for i in range(3))
+    emit({"phase": "moe", "arch": MOE_ARCH, "layers": MOE_LAYERS,
+          "d_model": base.d_model, "heads": base.num_heads,
+          "kv_heads": base.kv_heads(), "head_dim": base.head_dim_(),
+          "d_ff": base.d_ff, "experts": base.num_experts,
+          "experts_per_token": base.experts_per_token,
+          "capacity_factor": base.moe_capacity_factor, "vocab": vocab,
+          **ENGINE,
+          "a_fp32": part_a,
+          "b_bf16": {"order": ["overlap" if o else "sync"
+                               for o in OVERLAP_ORDER],
+                     **{arm: {"runs": runs,
+                              "tokens_per_s_median": medians[arm]}
+                        for arm, runs in arms.items()},
+                     "overlap_over_sync_median":
+                         medians["overlap"] / medians["sync"],
+                     "profile_sync": prof, "launch_vs_step": launch,
+                     "traced_span_s": span_s, "weights_gb": weights / 1e9,
+                     "init_peak_gb": init_peak / 1e9, "peak_gb": peak / 1e9},
+          "c_kernels": {"tolerance": TOL, "max_abs_err": worst,
+                        "checks": checks, "timing": timing},
+          "launches": [{"run": name, "launches": v[0], "tensor_cores": v[1],
+                        "split": v[2], "rows": rows}
+                       for name, v, rows in launches],
+          "seconds": seconds})
+    return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "by_run": [[name, v[0]] for name, v, _ in launches],
+            "timing": timing, "max_abs_err": worst}
 
 
 def main() -> None:
@@ -2367,6 +2741,11 @@ def main() -> None:
     del params32
     torch.cuda.empty_cache()
 
+    # ---- moe: grok-1-314b at full width through the kernel ---------------
+    moe = moe_phase(torch, np, F, M, get_config, ServeEngine,
+                    synthetic_requests, Request, paged_mod)
+    torch.cuda.empty_cache()
+
     # ---- flat: the flat KV layout at full width, bf16 --------------------
     flat_phase(torch, np, M, cfg, get_config, ServeEngine,
                synthetic_requests)
@@ -2388,72 +2767,18 @@ def main() -> None:
     lm_elastic_phase(torch, np)
 
     # ---- 10. timing at the main path's shapes (bf16, the engine dtype) ----
-    lib = library_call(torch, F, cfg.sliding_window)
-    timing = {}
-    for shape_name, sh in shapes.items():
-        rot = []
-        for _ in range(4):  # 4 pool copies: > 50 MB of pages in rotation
-            rot.append(paged_inputs(torch, np, rng, sh["B"], KV, G, hd, ps,
-                                    P, sh["Q"], torch.bfloat16,
-                                    n_pages=n_pages, lengths=sh["lengths"]))
-        inp = rot[0]
-        before = paged_counts(paged_attention)
-        got = call(paged_attention, inp, cfg.sliding_window)
-        torch.cuda.synchronize()
-        route = took(before, paged_counts(paged_attention))
-        want = call(paged_attention_plain, dict(
-            inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
-            v_pages=inp["v_pages"].float()), cfg.sliding_window)
-        ulp = one_ulp_excess(got, want)
-        if not math.isfinite(ulp) or ulp > 0 \
-                or route != paged_route("bfloat16", sh["Q"] * G, hd):
-            fail(f"paged_attention {shape_name}: one-ulp excess {ulp}, "
-                 f"{route} route")
-        del got, want, inp
-        iters = 50
-        nbytes, flops = work(np, rot[0], cfg.sliding_window, 2)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        win = cfg.sliding_window
-        # device time (profiler): CUDA events over back-to-back calls
-        # measure the host's issue rate (~25 us a call) for a faster kernel
-        plain1 = rotating_device_ms(torch, paged_attention_plain, rot, win,
-                                    iters)
-        kern1 = rotating_device_ms(torch, paged_attention, rot, win, iters)
-        kern2 = rotating_device_ms(torch, paged_attention, rot, win, iters)
-        plain2 = rotating_device_ms(torch, paged_attention_plain, rot, win,
-                                    iters)
-        timing[shape_name] = {
-            "shape": {"B": sh["B"], "KV": KV, "QG": sh["Q"] * G, "hd": hd,
-                      "page_size": ps, "P": P,
-                      "live_tokens": int(np.sum(sh["lengths"]))},
-            "timer": "device time per call (torch.profiler)",
-            "ms": min(kern1, kern2), "ms_runs": [kern1, kern2],
-            "plain_ms": min(plain1, plain2), "plain_ms_runs": [plain1,
-                                                               plain2],
-            "library_ms": rotating_device_ms(torch, lib, rot, win, iters),
-            "events_ms": {  # back-to-back calls, bounded by the host
-                "kernel": time_ms(torch, paged_attention, rot, win, iters),
-                "plain": time_ms(torch, paged_attention_plain, rot, win,
-                                 iters),
-                "library": time_ms(torch, lib, rot, win, iters)},
-            "kernel": {"tc": "tensor cores", "split": "split-KV",
-                       "cuda_core": "CUDA cores"}[route],
-            "one_ulp_excess": ulp,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
-        del rot
+    timing = paged_timing(torch, np, F, paged_mod, rng, (KV, G, hd, ps, P),
+                          n_pages, cfg.sliding_window, shapes, "")
     dec = timing["decode"]
     train = training_timing(torch, np, scd_pass, scd_pass_plain,
                             weighted_merge, weighted_merge_plain)
     scd_t, merge_t = train["scd"], train["weighted_merge"]
     all_launches = launches + spec["launches"] + fault["launches"] \
-        + ovl["launches"]
+        + ovl["launches"] + moe["launches"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
-        + ovl["launches_tc"]
+        + ovl["launches_tc"] + moe["launches_tc"]
     all_split = launches_split + fault["launches_split"] \
-        + ovl["launches_split"]
+        + ovl["launches_split"] + moe["launches_split"]
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2463,7 +2788,8 @@ def main() -> None:
         "launches": all_launches,
         "launches_by_path": {"engine": launches, "spec": spec["launches"],
                              "faults": fault["by_run"],
-                             "overlap": ovl["by_run"]},
+                             "overlap": ovl["by_run"],
+                             "moe": moe["by_run"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
         "routes": {"split (decode)": launches_split,
@@ -2479,13 +2805,22 @@ def main() -> None:
                    "tensor cores (overlap: bf16 chunks)": ovl["launches_tc"],
                    "split (overlap: decode, fp32 and bf16)":
                        ovl["launches_split"],
+                   "tensor cores (moe: bf16 chunks, hd 128)":
+                       moe["launches_tc"],
+                   "split (moe: decode QG 6, hd 128, fp32 and bf16)":
+                       moe["launches_split"],
+                   "CUDA cores (moe: fp32 chunks and verify QG 30)":
+                       moe["launches"] - moe["launches_tc"]
+                       - moe["launches_split"],
                    "CUDA cores": all_launches - all_tc - all_split},
         "sass": sass["paged_attention"],
-        "max_abs_err": worst["float32"],
-        "max_abs_err_bf16": worst["bfloat16"],
+        "max_abs_err": max(worst["float32"], moe["max_abs_err"]["float32"]),
+        "max_abs_err_bf16": max(worst["bfloat16"],
+                                moe["max_abs_err"]["bfloat16"]),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shapes": timing}, {
+        "library_ms": dec["library_ms"], "shapes": timing,
+        "shapes_moe_hd128": moe["timing"]}, {
         "name": "scd_pass", "route": "cuda",
         "source": "src/repro_torch/csrc/scd.cu",
         "replaces": "src/repro/kernels/scd.py:62",

@@ -42,10 +42,29 @@ def map_defs(fn, defs: Any) -> Any:
     return {k: map_defs(fn, v) for k, v in defs.items()}
 
 
+DRAW_SLICE = 1 << 30  # elements: larger leaves are drawn slice by slice
+
+
+def _draw(out: torch.Tensor, std: float, generator: torch.Generator
+          ) -> None:
+    """Fill `out` with N(0, std^2) drawn in float32, in slices along the
+    leading dims while a slice holds more than DRAW_SLICE elements, so one
+    leaf's float32 transients stay bounded (a stacked expert leaf of
+    grok-1-314b is 6.4e9 elements a layer pair)."""
+    if out.numel() > DRAW_SLICE and out.dim() > 1:
+        for part in out:
+            _draw(part, std, generator)
+        return
+    x = torch.randn(out.shape, generator=generator, dtype=torch.float32,
+                    device=out.device)
+    out.copy_(x * std)
+
+
 def init_tree(defs: Any, generator: torch.Generator, dtype: torch.dtype,
               device: torch.device) -> Any:
     """Instantiate a ParamDef tree into tensors (leaves in sorted-key order,
-    each drawn in float32 and cast, as the JAX package does)."""
+    each drawn in float32 and cast, as the JAX package does; a leaf of
+    more than DRAW_SLICE elements is drawn in slices, see `_draw`)."""
     def make(d: ParamDef) -> torch.Tensor:
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dtype, device=device)
@@ -54,9 +73,9 @@ def init_tree(defs: Any, generator: torch.Generator, dtype: torch.dtype,
         std = d.scale / math.sqrt(_fan_in(d.shape))
         if d.init == "small":
             std = d.scale * 0.02
-        x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        _draw(out, std, generator)
+        return out
 
     def walk(node):
         if isinstance(node, ParamDef):

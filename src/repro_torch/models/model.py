@@ -64,8 +64,8 @@ class ParamTree(nn.Module):
 
 
 class Transformer(ParamTree):
-    """The dense model's parameters: `embed`, `final_ln` and `blocks` (each
-    leaf stacked (n_blocks, ...))."""
+    """The model's parameters: `embed`, `final_ln` and `blocks` (each leaf
+    stacked (n_blocks, ...); a moe block's experts (n_blocks, E, ...))."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__(tree)
@@ -161,41 +161,49 @@ def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_x(cfg, bp, x, positions, window, q_block):
-    return tfm.block_apply(cfg, bp, x, positions, window=window,
-                           q_block=q_block)[0]
+    x, _, _, aux = tfm.block_apply(cfg, bp, x, positions, window=window,
+                                   q_block=q_block)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
             window: Optional[int] = None, return_cache: bool = False,
-            q_block: int = 512, remat: bool = True):
+            return_aux: bool = False, q_block: int = 512,
+            remat: bool = True):
     """Full-sequence causal forward.  tokens: (B, S) int.
 
     remat: while autograd records, each block's activations are recomputed
     in backward instead of kept (the JAX package's `jax.checkpoint(body)`).
 
-    Returns logits (B, S, V), or (logits, {"k", "v": (nb, B, S, KV, hd)})
-    with return_cache."""
+    Returns logits (B, S, V); with return_aux (logits, aux), aux the sum of
+    the blocks' moe load-balance losses (0 for dense); with return_cache
+    the cache {"k", "v": (nb, B, S, KV, hd)} comes last."""
     B, S = tokens.shape
     win = cfg.sliding_window if window is None else window
     x = params.embed[tokens.long()]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = remat and torch.is_grad_enabled() and not return_cache
     for bp in params.layers():
         if remat:
-            x = checkpoint(_block_x, cfg, bp, x, positions, win, q_block,
-                           use_reentrant=False)
-            continue
-        x, k, v = tfm.block_apply(cfg, bp, x, positions, window=win,
-                                  q_block=q_block)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
-    logits = _logits(params, x)
+            x, a = checkpoint(_block_x, cfg, bp, x, positions, win, q_block,
+                              use_reentrant=False)
+        else:
+            x, k, v, a = tfm.block_apply(cfg, bp, x, positions, window=win,
+                                         q_block=q_block)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        if a is not None:
+            aux = aux + a
+    out = (_logits(params, x),)
+    if return_aux:
+        out += (aux,)
     if return_cache:
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return logits
+        out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+    return out if len(out) > 1 else out[0]
 
 
 def loss_fn(cfg: ModelConfig, params: Transformer,
@@ -212,10 +220,10 @@ def loss_fn(cfg: ModelConfig, params: Transformer,
     total_weight: the FULL global-batch weight sum when this call sees only
     a microbatch (gradient accumulation), so microbatch grads sum to the
     full-batch gradient.  Returns (loss + AUX_LOSS_COEF * aux, metrics
-    {"loss", "aux_loss"}); aux is 0 for the dense model."""
-    logits = forward(cfg, params, batch["tokens"], remat=remat,
-                     q_block=q_block)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    {"loss", "aux_loss"}); aux is the moe load-balance loss summed over
+    blocks, 0 for the dense model."""
+    logits, aux = forward(cfg, params, batch["tokens"], remat=remat,
+                          q_block=q_block, return_aux=True)
     ce = cross_entropy(logits, batch["labels"])  # (B, S)
     w = batch["weights"].float()
     per_ex = ce.mean(-1)
@@ -270,9 +278,9 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device, *,
     tracks its own fill depth (continuous-batching slot pools); else one
     shared (cache_len,) vector for lockstep batches.  -1 marks an empty
     position."""
-    if cfg.family != "dense":
+    if cfg.family not in tfm.FAMILIES:
         raise NotImplementedError(
-            f"flat cache supports dense; got {cfg.family!r}")
+            f"flat cache supports dense/moe; got {cfg.family!r}")
     shape = (tfm.n_blocks(cfg), B, cache_len, cfg.kv_heads(),
              cfg.head_dim_())
     dt = torch_dtype(cfg)
@@ -367,9 +375,9 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     hd)}}.  Page 0 is the engine's reserved null page (masked writes land
     there).  Fill depth lives in the block table + lengths the caller
     passes to each step."""
-    if cfg.family != "dense":
+    if cfg.family not in tfm.FAMILIES:
         raise NotImplementedError(
-            f"paged cache supports dense; got {cfg.family!r}")
+            f"paged cache supports dense/moe; got {cfg.family!r}")
     shape = (tfm.n_blocks(cfg), n_pages, page_size, cfg.kv_heads(),
              cfg.head_dim_())
     dt = torch_dtype(cfg)

@@ -1,10 +1,13 @@
-"""Dense transformer blocks: full-sequence apply (prefill), the flat-cache
+"""Transformer blocks: full-sequence apply (prefill), the flat-cache
 decode step (Q=1) and speculative verify span (Q>1) over a per-slot
 (B, cache_len) KV cache, and the paged-KV step over new tokens (decode,
 Q=1; verify span or one chunked-prefill chunk, Q>1).
 
-A block is self-attention + SwiGLU with pre-norms, the JAX package's
-'dense' block.  Other families are later slices of the port.
+A block is self-attention with pre-norms followed by the family's FFN, the
+JAX package's two attention-only blocks: 'dense' (SwiGLU) and 'moe' (the
+capacity-buffered expert FFN of `models.moe`, with arctic's dense residual
+where the config has one).  The hybrid, vlm, audio and ssm families are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import ParamDef, mlp_defs, rms_norm, swiglu
 
 
@@ -25,33 +29,49 @@ def _ln(d: int) -> ParamDef:
     return ParamDef((d,), (None,), init="ones")
 
 
-def block_defs(cfg: ModelConfig) -> Dict[str, object]:
-    if cfg.family != "dense":
+FAMILIES = ("dense", "moe")  # the block types the port has
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port has the dense block only; got {cfg.family!r} "
-            f"(ROADMAP queue A: remaining model families)")
+            f"the port has the {'/'.join(FAMILIES)} blocks; got "
+            f"{cfg.family!r} (ROADMAP queue A: remaining model families)")
+
+
+def block_defs(cfg: ModelConfig) -> Dict[str, object]:
+    _check_family(cfg)
     d = cfg.d_model
-    return {"ln1": _ln(d), "attn": attn.attn_defs(cfg),
-            "ln2": _ln(d), "mlp": mlp_defs(d, cfg.d_ff)}
+    ffn = ({"moe": moe_mod.moe_defs(cfg)} if cfg.family == "moe"
+           else {"mlp": mlp_defs(d, cfg.d_ff)})
+    return {"ln1": _ln(d), "attn": attn.attn_defs(cfg), "ln2": _ln(d), **ffn}
 
 
-def _mlp(bp, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, bp, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's pre-normed FFN -> (out, aux); aux is None for dense."""
+    h = rms_norm(x, bp["ln2"])
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(cfg, bp["moe"], h)
     m = bp["mlp"]
-    return swiglu(rms_norm(x, bp["ln2"]), m["gate"], m["up"], m["down"])
+    return swiglu(h, m["gate"], m["up"], m["down"]), None
 
 
 def block_apply(cfg: ModelConfig, bp, x: torch.Tensor,
                 positions: torch.Tensor, *, window: int = 0,
                 q_block: int = 512
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence causal dense block.  Returns (x, k, v); k/v
-    (B, S, KV, hd) are the block's new cache rows."""
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+    """Full-sequence causal block.  Returns (x, k, v, aux); k/v
+    (B, S, KV, hd) are the block's new cache rows, aux the moe FFN's
+    load-balance loss (None for dense)."""
     q, k, v = attn.qkv_project(cfg, bp["attn"], rms_norm(x, bp["ln1"]),
                                positions)
     ctx = attn.blocked_attention(cfg, q, k, v, window=window,
                                  q_block=q_block)
     x = x + attn.attn_out(bp["attn"], ctx)
-    return x + _mlp(bp, x), k, v
+    f, aux = _ffn(cfg, bp, x)
+    return x + f, k, v, aux
 
 
 def block_decode_paged(cfg: ModelConfig, bp, x: torch.Tensor,
@@ -77,9 +97,7 @@ def block_decode_paged(cfg: ModelConfig, bp, x: torch.Tensor,
     impl: "gather" gathers K/V through the table and runs plain attention
     (the JAX package's "xla"); "kernel" runs the paged-attention kernel
     (the JAX package's "pallas").  Returns the block's output x."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"paged decode supports dense; got "
-                                  f"{cfg.family!r}")
+    _check_family(cfg)
     B, Q, _ = x.shape
     ck, cv = cache["k"], cache["v"]
     ps = ck.shape[1]
@@ -130,7 +148,7 @@ def block_decode_paged(cfg: ModelConfig, bp, x: torch.Tensor,
         raise ValueError(f"paged impl must be 'kernel' or 'gather', "
                          f"got {impl!r}")
     x = x + attn.attn_out(bp["attn"], ctx)
-    return x + _mlp(bp, x)
+    return x + _ffn(cfg, bp, x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +210,7 @@ def block_decode(cfg: ModelConfig, bp, x: torch.Tensor, pos: torch.Tensor,
     the cache rows AFTER this step's write (-1 = empty).  cache: {"k", "v":
     (B, W, KV, hd)} of this layer, updated in place.  Returns the block's
     output x."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"flat decode supports dense; got "
-                                  f"{cfg.family!r}")
+    _check_family(cfg)
     B = x.shape[0]
     positions = (pos.reshape(B, 1) if pos.dim() else pos.expand(B, 1)
                  ).to(torch.int32)
@@ -204,7 +220,7 @@ def block_decode(cfg: ModelConfig, bp, x: torch.Tensor, pos: torch.Tensor,
     ctx = attn.decode_attention(cfg, q, cache["k"], cache["v"], positions,
                                 k_pos, window=window)
     x = x + attn.attn_out(bp["attn"], ctx)
-    return x + _mlp(bp, x)
+    return x + _ffn(cfg, bp, x)[0]
 
 
 def block_verify(cfg: ModelConfig, bp, x: torch.Tensor, q_pos: torch.Tensor,
@@ -220,9 +236,7 @@ def block_verify(cfg: ModelConfig, bp, x: torch.Tensor, q_pos: torch.Tensor,
     Each valid query attends the row's earlier context plus the span's
     earlier tokens (causal by absolute position through k_pos, which the
     caller has already updated).  cache is updated in place."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"verify supports dense; got "
-                                  f"{cfg.family!r}")
+    _check_family(cfg)
     q, k, v = attn.qkv_project(cfg, bp["attn"], rms_norm(x, bp["ln1"]),
                                q_pos)
     span_scatter(cache["k"], k, q_pos, valid)
@@ -230,4 +244,4 @@ def block_verify(cfg: ModelConfig, bp, x: torch.Tensor, q_pos: torch.Tensor,
     ctx = attn.decode_attention(cfg, q, cache["k"], cache["v"], q_pos, k_pos,
                                 window=window)
     x = x + attn.attn_out(bp["attn"], ctx)
-    return x + _mlp(bp, x)
+    return x + _ffn(cfg, bp, x)[0]

@@ -72,8 +72,13 @@ caps the prefill chunk, parks and sheds, and a `CircuitBreaker` holds
 fresh admissions through a crash storm.  With an external `clock` the
 engine runs on simulated time (one tick, one second, in the tests).
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): disaggregated pools and the moe family.
+The engine serves the JAX engine's two families, dense and moe.  A moe
+row's output depends on the other rows of its dispatch (expert capacity
+drops, `models.moe`), so every byte a dispatch is given for padding rows,
+bucket padding and free slots is the JAX engine's.
+
+Not in this slice (raises NotImplementedError naming its ROADMAP item):
+disaggregated pools.
 """
 from __future__ import annotations
 
@@ -88,6 +93,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..faults import FaultEvent, FaultInjector
 from ..models import model as M
+from ..models.transformer import FAMILIES
 from ..obs import MetricsRegistry, NULL_TRACER, SLOTracker, Tracer, meets_slo
 from .memory import KVMemoryManager
 from .overload import AdmissionController, CircuitBreaker, DegradationLadder
@@ -453,7 +459,7 @@ class ServeEngine:
         default, item = _UNPORTED["decode_enabled"]
         if decode_enabled != default:
             raise _unsupported(f"decode_enabled={decode_enabled!r}", item)
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise _unsupported(f"family {cfg.family!r}",
                                "remaining model families")
         if kv_layout not in ("flat", "paged"):

@@ -45,11 +45,15 @@ from repro_torch.kernels.scd import scd_pass, scd_pass_plain
 # (B, KV, G, hd, ps, P, window, q_span): the JAX kernel's self-test cases,
 # then the full-width h2o-danube-1.8b decode, chunk and speculative verify
 # (spec_k 4: q_span 5, QG 20; bf16 on the tensor cores, fp32 on the CUDA
-# cores) shapes
+# cores) shapes, then grok-1-314b's (G 6, hd 128): decode (QG 6, split),
+# the verify span at spec_shrink and at spec_k 4 (QG 18 and 30) and a
+# 256-token chunk (QG 1536)
 CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
          (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
          (2, 2, 2, 32, 8, 6, 16, 4), (8, 8, 4, 80, 16, 128, 4096, 1),
-         (2, 8, 4, 80, 16, 128, 4096, 256), (8, 8, 4, 80, 16, 128, 4096, 5)]
+         (2, 8, 4, 80, 16, 128, 4096, 256), (8, 8, 4, 80, 16, 128, 4096, 5),
+         (8, 8, 6, 128, 16, 128, 0, 1), (8, 8, 6, 128, 16, 128, 0, 3),
+         (8, 8, 6, 128, 16, 128, 0, 5), (4, 8, 6, 128, 16, 128, 0, 256)]
 
 
 @pytest.fixture
@@ -650,6 +654,55 @@ def _serve_burst(vocab, n=6, seed=3):
 SERVE_KW = dict(capacity=4, cache_len=128, prefill_bucket=16, page_size=16,
                 prefill_chunk=32, kv_layout="paged", paged_impl="kernel",
                 seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32 (TF32 off): the moe FFN's routing (the token in every expert
+    slot) is the CPU's, at the config's capacity factor and at one that
+    drops assignments, and its output and aux loss agree at 1e-5."""
+    from repro_torch.models import moe
+    cfg = smoke_variant(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = params.layers()[0]["moe"]
+    pc = {k: v.cuda() for k, v in p.items()}
+    x = torch.randn(4, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    for c in (cfg, dataclasses.replace(cfg, moe_capacity_factor=0.5)):
+        want, want_aux = moe.moe_ffn(c, p, x)
+        got, aux = moe.moe_ffn(c, pc, x.cuda())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5,
+                                   atol=1e-5)
+        cap = moe.capacity(c, 128)
+        buf = moe.route(c, p, x.reshape(128, -1), cap)[0]
+        assert torch.equal(
+            moe.route(c, pc, x.cuda().reshape(128, -1), cap)[0].cpu(),
+            buf)
+        if c is not cfg:
+            assert int((buf >= 0).sum()) < 128 * cfg.experts_per_token
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_moe_engine_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32: the moe smoke variants served through the kernel on the card
+    give the streams of the same engine on the CPU (a moe row's output
+    depends on its whole call, so this holds the card's routing of every
+    dispatch, padding and free slots included, to the CPU's)."""
+    from repro_torch.serve import ServeEngine
+    cfg = smoke_variant(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(SERVE_KW, capacity=8)
+    want = ServeEngine(cfg, params=params, device="cpu", **kw).run(
+        _serve_burst(cfg.vocab_size, n=8))
+    before = paged_attention.launches
+    got = ServeEngine(cfg, params=params.to("cuda"), **kw).run(
+        _serve_burst(cfg.vocab_size, n=8))
+    assert paged_attention.launches > before
+    assert {r.rid: r.generated for r in got.requests} == \
+        {r.rid: r.generated for r in want.requests}
 
 
 @pytest.mark.cuda
