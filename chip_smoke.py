@@ -99,6 +99,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               metadata ring: RING + 4 buffers packed behind a device
               sleep must all arrive intact (an unguarded ring beside it,
               reported).
+   disagg   — disaggregated serving (DisaggEngine: a prefill pool and a
+              decode pool over disjoint logical workers on the card, one
+              params module, the handoff through host memory) at the same
+              width, paged, through the kernel in both pools.  (a) fp32:
+              the engine burst over two workers, synchronous, and over
+              three with the prefill pool moved 1 -> 2 -> 1 at ticks 2
+              and 5, overlapped: the streams must equal the synchronous
+              fp32 kernel streams, all 8 requests hand off once, the
+              prefill pool's launches must all be 256-token chunks and
+              equal layers x its chunk dispatches, the decode pool's
+              decode spans and equal layers x its dispatches, each on the
+              launcher's route.  (b) bf16, synchronous and overlapped,
+              each traced (reported): tokens/s, TTFT, TPOT, handoffs,
+              handoff bytes and delay, the host time of the handoff
+              spans, and how much extract time fell inside the decode
+              pool's overlap window, beside the engine phase's numbers.
    moe      — the moe family at grok-1-314b's published widths (d_model
               6144, 48 heads over 8 KV: G 6, hd 128; 8 experts, top-2,
               capacity factor 1.25, d_ff 32768; vocab 131072), paged,
@@ -245,6 +261,9 @@ SCALE_EVENTS = [(0, 1), (10, 2), (25, 1)]  # the engine burst's k 1 -> 2 -> 1
 OVERLAP_ORDER = (False, True, True, False, False, True)
 DECODE_WINDOW = 5
 RING_HOLD_S = 0.1
+# the disagg phase's (a2): three workers, the prefill pool 1 -> 2 -> 1 at
+# ticks 2 and 5 (tests/test_disagg.py's schedule)
+DISAGG_SPLIT = [(2, 2), (5, 1)]
 # the moe phase: grok-1-314b at its published widths (48 heads over 8 KV:
 # G 6, hd 128; 8 experts, top-2, d_ff 32768; vocab 131072), its 64
 # layers cut to 2 for the fp32 gates (42.6 GB of weights) and 4 for the
@@ -1970,7 +1989,8 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
           "verify_rows": (SPEC_K + 1) * G, "seconds": seconds})
     n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
     return {"launches": n, "launches_tc": tc, "launches_split": split,
-            "by_run": [[k, v[0]] for k, v in launches]}
+            "by_run": [[k, v[0]] for k, v in launches],
+            "step_device_ms": launch["step_device_ms"]}
 
 
 def counted_paged_run(paged_mod, what, eng, reqs):
@@ -2040,6 +2060,221 @@ def launch_vs_step(torch, eng, trc, reqs):
               "window_idle_share": win_prof["device_idle_share"],
               "window_top_kernels": win_prof["top_kernels"][:6]}
     return launch, span_s
+
+
+def counted_disagg_run(paged_mod, what, dis, reqs, drive=None):
+    """Run the DisaggEngine `dis` (paged, through the kernel) over `reqs`
+    with the paged-attention launch counts zeroed just before and read
+    just after, each launch logged with its pool (each half's `tick` is
+    wrapped to mark it), its rows and its route; fail unless the prefill
+    pool's launches are all chunk-shaped (prefill_chunk x G rows) and equal
+    layers x its chunk dispatches, the decode pool's are all decode or
+    verify spans and equal layers x its solver dispatches, each on the
+    launcher's route.  `drive(dis, reqs)` replaces `dis.run(reqs)`.  ->
+    (metrics, (launches, tensor cores, split), per-pool launches)."""
+    paged_attention = paged_mod.paged_attention
+    cfg = dis.cfg
+    G = cfg.num_heads // cfg.kv_heads()
+    pools = {"prefill": [], "decode": []}
+    current = []
+    for name in pools:
+        half = getattr(dis, name)
+
+        def tick(tick=half.tick, name=name):
+            current.append(name)
+            try:
+                return tick()
+            finally:
+                current.pop()
+        half.tick = tick
+    log, restore = record_paged_launches(paged_mod)
+    paged_attention.launches = paged_attention.launches_tc = 0
+    paged_attention.launches_split = 0
+    real = paged_mod._launch
+
+    def marked(q, *args, **kwargs):
+        out = real(q, *args, **kwargs)
+        pools[current[-1]].append(log[-1])
+        return out
+
+    paged_mod._launch = marked
+    try:
+        m = drive(dis, reqs) if drive is not None else dis.run(reqs)
+    finally:
+        paged_mod._launch = real
+        restore()
+    n = paged_counts(paged_attention)
+    for name in pools:
+        del getattr(dis, name).tick
+    ps, ds = m.prefill.summarize(), m.decode.summarize()
+    chunk = dis.prefill.prefill_chunk * G
+    verify = {G} | ({(dis.decode.spec_k + 1) * G} if dis.decode.spec_k
+                    else set())
+    hd = cfg.head_dim_()
+    wrong = [(pool, qg, r) for pool, got in pools.items() for qg, r in got
+             if r != paged_route(cfg.dtype, qg, hd)
+             or (qg != chunk if pool == "prefill" else qg not in verify)]
+    if n[0] <= 0 or len(log) != n[0] \
+            or len(pools["prefill"]) + len(pools["decode"]) != n[0] \
+            or len(pools["prefill"]) != cfg.num_layers \
+            * ps["prefill_dispatches_total"] \
+            or len(pools["decode"]) != cfg.num_layers \
+            * (ds["decode_dispatches"] + ds["prefill_dispatches_total"]) \
+            or ds["prefill_dispatches_total"] or wrong:
+        fail(f"{what}: {n[0]} launches; prefill pool "
+             f"{len(pools['prefill'])} for {ps['prefill_dispatches_total']} "
+             f"chunk dispatches, decode pool {len(pools['decode'])} for "
+             f"{ds['decode_dispatches']} dispatches "
+             f"({ds['prefill_dispatches_total']} chunk dispatches) of "
+             f"{cfg.num_layers} layers; wrong (pool, rows, route): "
+             f"{wrong[:5]}")
+    return m, n, {name: len(got) for name, got in pools.items()}
+
+
+def contained_s(inner, outer):
+    """Seconds of the `inner` spans that lie inside one of the `outer`
+    spans (both lists of trace events)."""
+    return sum(e.dur for e in inner
+               if any(o.ts <= e.ts and e.ts + e.dur <= o.ts + o.dur
+                      for o in outer))
+
+
+def disagg_phase(torch, np, M, cfg32, params32, want32, DisaggEngine,
+                 ScheduledSplitPolicy, synthetic_requests, paged_mod,
+                 bf16_params, engine_s, step_device_ms):
+    """Disaggregated serving at full width, paged, through the kernel in
+    both pools.  (a) fp32 gates on the engine burst: (a1) two workers,
+    synchronous; (a2) three workers with ScheduledSplitPolicy(DISAGG_SPLIT)
+    and overlap=True.  Each run's streams must equal the synchronous fp32
+    kernel streams `want32`, every request must hand off once, the prefill
+    pool's launches must be chunk-shaped and the decode pool's decode-
+    shaped (`counted_disagg_run`); (a2)'s split events must hold both
+    scheduled moves.  (b) bf16, reported: the burst disaggregated,
+    synchronously without a tracer (tokens/s, TTFT, TPOT, as the engine
+    phase's run), then synchronously and overlapped, each under a Tracer:
+    tokens/s, TTFT, TPOT, handoffs, handoff bytes and delay, each pool's
+    host tick time, the host time by trace track, the host time of the
+    handoff spans, and in the overlapped run the share of
+    `handoff.extract` inside the decode pool's `overlap.prep` window
+    (whose blocking gather waits for the in-flight step) against the
+    decode step's device time (`step_device_ms`, the overlap phase's);
+    beside the engine phase's monolithic numbers `engine_s`.  -> the
+    launches of each run and route."""
+    from repro_torch.obs import Tracer, phase_attribution
+    vocab = cfg32.vocab_size
+    kw = {k: v for k, v in ENGINE.items() if k != "kv_layout"}
+    launches = []  # (run, (launches, tensor cores, split))
+    seconds = {}
+    t0 = time.perf_counter()
+    prompts = {r.rid: r.prompt
+               for r in requests(np, synthetic_requests, vocab)}
+    part_a = {}
+    for name, n_workers, extra in (
+            ("sync", 2, {}),
+            ("split_overlapped", 3, dict(
+                split_policy=ScheduledSplitPolicy(DISAGG_SPLIT),
+                overlap=True))):
+        dis = DisaggEngine(cfg32, params=params32, paged_impl="kernel",
+                           seed=0, device=DEVICE, n_workers=n_workers,
+                           **extra, **kw)
+        if dis.prefill.params is not params32 \
+                or dis.decode.params is not params32:
+            fail(f"disagg {name}: a pool holds a copy of the parameters")
+        m, n, per_pool = counted_disagg_run(
+            paged_mod, f"disagg {name}_fp32", dis,
+            requests(np, synthetic_requests, vocab))
+        launches.append((f"{name}_fp32", n))
+        div = first_divergence(torch, np, M, cfg32, params32, streams(m),
+                               want32, prompts)
+        if div is not None:
+            emit({"phase": "disagg", "equal": False, "run": name, **div})
+            fail(f"disagg {name}: fp32 streams diverge from the monolithic "
+                 f"run at request {div['rid']} step {div['step']}")
+        kps = [kp for _, kp, _ in m.split_events]
+        if m.handoffs != 8 or (n_workers == 3 and not (
+                2 in kps and kps[-1] == 1)):
+            fail(f"disagg {name}: {m.handoffs} handoffs, split events "
+                 f"{m.split_events}")
+        part_a[name] = {"decode_ticks": len(m.decode.ticks),
+                        "handoffs": m.handoffs,
+                        "handoff_bytes": m.handoff_bytes,
+                        "split_events": [list(e) for e in m.split_events],
+                        "kernel_launches": n[0], "by_pool": per_pool}
+        del dis, m
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (b) bf16: synchronous and overlapped, traced ---------------------
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    params16 = bf16_params()
+    keys = ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+            "handoff_delay_p50_s", "wall_s")
+    part_b = {}
+    for name, overlap, trc in (
+            ("sync_untraced", False, None),
+            ("sync", False, Tracer(name="disagg-sync")),
+            ("overlapped", True, Tracer(name="disagg-overlapped"))):
+        dis = DisaggEngine(cfg16, params=params16, paged_impl="kernel",
+                           seed=0, device=DEVICE, n_workers=2,
+                           overlap=overlap, tracer=trc, **kw)
+        m, n, per_pool = counted_disagg_run(
+            paged_mod, f"disagg {name}_bf16", dis,
+            requests(np, synthetic_requests, vocab))
+        launches.append((f"{name}_bf16", n))
+        s = m.summarize()
+        if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32:
+            fail(f"disagg (b) {name}: {s['requests_finished']} finished, "
+                 f"{s['tokens_generated']} tokens")
+        if trc is None:
+            part_b[name] = {k: s[k] for k in keys}
+            del dis, m
+            continue
+        spans = {k: trc.spans(k) for k in ("handoff.extract",
+                                           "handoff.inject")}
+        prep = trc.spans("overlap.prep", track="decode_pool.overlap")
+        attr = phase_attribution(trc, exclude=(
+            "tick", "overlap", "prefill_pool.overlap", "decode_pool.overlap"))
+        part_b[name] = {
+            **{k: s[k] for k in keys},
+            "pool_tick_host_s": {
+                pool: sum(trc.registry.histogram(
+                    f"{pool}.serve.tick_s").values)
+                for pool in ("prefill_pool", "decode_pool")},
+            "host_ms_by_track": {
+                track: round(a["host_ms_total"], 3)
+                for track, a in attr.items() if a["host_ms_total"]},
+            "handoffs": s["disagg"]["handoffs"],
+            "handoff_bytes": s["disagg"]["handoff_bytes"],
+            "handoff_extract_host_ms": 1e3 * sum(e.dur
+                                                 for e in spans[
+                                                     "handoff.extract"]),
+            "handoff_inject_host_ms": 1e3 * sum(e.dur
+                                                for e in spans[
+                                                    "handoff.inject"]),
+            "kernel_launches": n[0], "by_pool": per_pool}
+        if overlap:
+            inside = contained_s(spans["handoff.extract"], prep)
+            part_b[name]["extract_inside_overlap_prep"] = {
+                "host_ms": 1e3 * inside,
+                "extracts": sum(1 for e in spans["handoff.extract"]
+                                if contained_s([e], prep) > 0),
+                "decode_step_device_ms": step_device_ms}
+        del dis, m
+    del params16
+    seconds["b"] = time.perf_counter() - t0
+    emit({"phase": "disagg", "arch": ARCH, **ENGINE,
+          "split_schedule": DISAGG_SPLIT,
+          "a_streams_equal_monolithic_fp32": part_a,
+          "b_bf16": part_b,
+          "engine_monolithic_bf16": engine_s,
+          "kv_pool_gb_per_engine": {
+              dt: 2 * cfg32.num_layers * cfg32.kv_heads()
+              * cfg32.head_dim_() * ENGINE["cache_len"] * ENGINE["capacity"]
+              * sz / 1e9 for dt, sz in (("float32", 4), ("bfloat16", 2))},
+          "seconds": seconds})
+    n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
+    return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "by_run": [[k, v[0]] for k, v in launches]}
 
 
 def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
@@ -2462,7 +2697,9 @@ def main() -> None:
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
     from repro_torch import faults as faults_mod
-    from repro_torch.serve import Request, ServeEngine, synthetic_requests
+    from repro_torch.serve import (DisaggEngine, Request,
+                                   ScheduledSplitPolicy, ServeEngine,
+                                   synthetic_requests)
     from repro_torch.serve import overload as overload_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2603,6 +2840,8 @@ def main() -> None:
              f"{s['tokens_generated']} tokens")
     if [list(e) for e in metrics.scale_events] != [[10, 1, 2], [25, 2, 1]]:
         fail(f"scale events {metrics.scale_events}")
+    engine_s = {k: s[k] for k in ("tokens_per_s", "ttft_p50_s",
+                                  "ttft_p99_s", "tpot_p50_s", "wall_s")}
     emit({"phase": "engine", "arch": ARCH, "dtype": cfg.dtype,
           "paged_impl": "kernel", **ENGINE,
           "prompt_lens": [r.prompt_len for r in metrics.requests],
@@ -2738,6 +2977,13 @@ def main() -> None:
     ovl = overlap_phase(torch, np, M, cfg32, params32, got["kernel"],
                         got["spec"], ServeEngine, synthetic_requests,
                         faults_mod, scale_policy, paged_mod, bf16_params)
+    torch.cuda.empty_cache()
+
+    # ---- disagg: prefill and decode pools at full width ------------------
+    dis = disagg_phase(torch, np, M, cfg32, params32, got["kernel"],
+                       DisaggEngine, ScheduledSplitPolicy,
+                       synthetic_requests, paged_mod, bf16_params,
+                       engine_s, ovl["step_device_ms"])
     del params32
     torch.cuda.empty_cache()
 
@@ -2774,11 +3020,12 @@ def main() -> None:
                             weighted_merge, weighted_merge_plain)
     scd_t, merge_t = train["scd"], train["weighted_merge"]
     all_launches = launches + spec["launches"] + fault["launches"] \
-        + ovl["launches"] + moe["launches"]
+        + ovl["launches"] + dis["launches"] + moe["launches"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
-        + ovl["launches_tc"] + moe["launches_tc"]
+        + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"]
     all_split = launches_split + fault["launches_split"] \
-        + ovl["launches_split"] + moe["launches_split"]
+        + ovl["launches_split"] + dis["launches_split"] \
+        + moe["launches_split"]
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2789,6 +3036,7 @@ def main() -> None:
         "launches_by_path": {"engine": launches, "spec": spec["launches"],
                              "faults": fault["by_run"],
                              "overlap": ovl["by_run"],
+                             "disagg": dis["by_run"],
                              "moe": moe["by_run"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
@@ -2805,6 +3053,13 @@ def main() -> None:
                    "tensor cores (overlap: bf16 chunks)": ovl["launches_tc"],
                    "split (overlap: decode, fp32 and bf16)":
                        ovl["launches_split"],
+                   "tensor cores (disagg: prefill pool, bf16 chunks)":
+                       dis["launches_tc"],
+                   "split (disagg: decode pool, fp32 and bf16)":
+                       dis["launches_split"],
+                   "CUDA cores (disagg: prefill pool, fp32 chunks)":
+                       dis["launches"] - dis["launches_tc"]
+                       - dis["launches_split"],
                    "tensor cores (moe: bf16 chunks, hd 128)":
                        moe["launches_tc"],
                    "split (moe: decode QG 6, hd 128, fp32 and bf16)":

@@ -12,7 +12,12 @@ the device computes; the streams are the synchronous tick's).  `--chaos`
 injects faults on the tick clock (crashes, slow workers);
 `--slo-ttft`/`--slo-tpot` set SLO targets, `--tenant-rate`/`--queue-cap`
 bound admission, and `--brownout auto` arms the degradation ladder (and,
-with `--chaos`, the crash-storm circuit breaker).
+with `--chaos`, the crash-storm circuit breaker).  `--disagg` serves
+through `DisaggEngine`: a prefill pool and a decode pool over disjoint
+workers (`--prefill-workers` of `--workers` at the start), the paged
+layout implied, a `QueueSplitPolicy` rebalancing the split every
+`--split-interval` ticks; `--chaos` targets ":prefill" and ":decode"
+pick the pool.
 
 CLI: PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
          --spec-k 4 [--kv-layout paged] --trace poisson --requests 16
@@ -20,6 +25,8 @@ CLI: PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram \
          --workers 2 --chaos "crash@t=5,slow@t=3:w0:2.0" --brownout auto
      PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
          --overlap --trace-out build/serve_overlap_trace.json
+     PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+         --workers 3 --prefill-workers 1 --chaos "drop@t=4"
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ from ..core import ElasticScalingPolicy, ScaleEvent, StragglerMitigationPolicy
 from ..faults import FaultInjector, parse_chaos
 from ..obs import (Tracer, dominant_host_phase, format_attribution,
                    host_overlap_ratio, phase_attribution)
-from ..serve import (CircuitBreaker, ServeEngine, poisson_arrivals,
-                     synthetic_requests)
+from ..serve import (CircuitBreaker, DisaggEngine, QueueSplitPolicy,
+                     ServeEngine, poisson_arrivals, synthetic_requests)
 from .train import scale_config
 
 
@@ -87,6 +94,8 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
           page_size: int = 8, spec: str = "off", spec_k: int = 4,
           prefix_share: Optional[bool] = None,
           evict: Optional[bool] = None, paged_impl: str = "kernel",
+          disagg: bool = False, prefill_workers: Optional[int] = None,
+          split_interval: int = 4,
           overlap: bool = False, chaos: Optional[str] = None,
           slo_ttft: Optional[float] = None, slo_tpot: Optional[float] = None,
           tenant_rate: Optional[float] = None, queue_cap: Optional[int] = None,
@@ -98,7 +107,10 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     schedule; `spec` ("off", "ngram" or "draft") drafts `spec_k` tokens a
     tick for one verify dispatch; `evict` lets priority admission park a
     lower-priority decode's pages on the host (paged layout; default on
-    there); `overlap` runs the overlapped tick; `chaos` is a fault spec
+    there); `disagg` serves through a `DisaggEngine` (paged; the scale
+    schedule does not apply, its `QueueSplitPolicy` moves workers every
+    `split_interval` ticks from `prefill_workers` at the start);
+    `overlap` runs the overlapped tick; `chaos` is a fault spec
     on the tick clock (`parse_chaos`); `slo_ttft`/`slo_tpot`,
     `tenant_rate`, `queue_cap` and `brownout` are the engine's overload
     knobs, and `brownout="auto"` with `chaos` also arms a
@@ -127,19 +139,30 @@ def serve(arch: str, *, smoke: bool = True, scale: str = "tiny",
     # overload control: brownout=auto arms the degradation ladder, and with
     # chaos scripted too it arms the crash-storm circuit breaker
     breaker = CircuitBreaker() if brownout == "auto" and chaos else None
-    engine = ServeEngine(cfg, capacity=capacity, cache_len=cache_len,
-                         prefill_bucket=prefill_bucket, n_workers=workers,
-                         policies=policies, kv_layout=kv_layout,
-                         page_size=page_size, spec=spec, spec_k=spec_k,
-                         prefix_share=prefix_share,
-                         evict=evict, paged_impl=paged_impl,
-                         overlap=overlap, fault_injector=injector,
-                         slo_ttft=slo_ttft, slo_tpot=slo_tpot,
-                         tenant_rate=tenant_rate, queue_cap=queue_cap,
-                         brownout=brownout, breaker=breaker, seed=seed,
-                         tracer=tracer, device=device)
+    common = dict(capacity=capacity, cache_len=cache_len,
+                  prefill_bucket=prefill_bucket, n_workers=workers,
+                  page_size=page_size, spec=spec, spec_k=spec_k,
+                  prefix_share=prefix_share, evict=evict,
+                  paged_impl=paged_impl, overlap=overlap,
+                  fault_injector=injector, slo_ttft=slo_ttft,
+                  slo_tpot=slo_tpot, tenant_rate=tenant_rate,
+                  queue_cap=queue_cap, brownout=brownout, breaker=breaker,
+                  seed=seed, tracer=tracer, device=device)
+    if disagg:
+        # paged only, and it splits the pool itself: the scale-event
+        # schedule and policies (ServeEngine-internal elasticity) do not
+        # apply
+        engine = DisaggEngine(
+            cfg, prefill_workers=prefill_workers,
+            split_policy=QueueSplitPolicy(interval=split_interval), **common)
+        kv_layout = "paged"
+        device_name = str(engine.prefill.device)
+    else:
+        engine = ServeEngine(cfg, policies=policies, kv_layout=kv_layout,
+                             **common)
+        device_name = str(engine.device)
     out = engine.run(reqs).summarize()
-    out.update(arch=arch, capacity=capacity, device=str(engine.device),
+    out.update(arch=arch, capacity=capacity, device=device_name,
                kv_layout=kv_layout, paged_impl=paged_impl, overlap=overlap)
     if injector is not None:
         out["chaos"] = chaos
@@ -202,15 +225,28 @@ def main() -> None:
                     choices=["kernel", "gather"],
                     help="paged attention through the CUDA kernel or through "
                          "a gather and plain attention")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: prefill + decode pools over "
+                         "disjoint worker subsets with a page-granular "
+                         "handoff (paged layout implied; --scale-events "
+                         "do not apply: the split policy rebalances)")
+    ap.add_argument("--prefill-workers", type=int, default=None,
+                    help="initial prefill-pool worker count (disagg; "
+                         "default: half of --workers)")
+    ap.add_argument("--split-interval", type=int, default=4,
+                    help="ticks between split-policy rebalance decisions "
+                         "(disagg)")
     ap.add_argument("--overlap", action="store_true",
                     help="overlapped tick pipeline: launch the decode/verify "
                          "dispatch first, then run host-side prep (prefill "
-                         "assembly, chunked-prefill chunks, the next block "
-                         "table) while the device computes; token streams "
-                         "stay bit-identical to the synchronous loop")
+                         "assembly, chunked-prefill chunks, the disagg "
+                         "handoff drain) while the device computes; token "
+                         "streams stay bit-identical to the synchronous "
+                         "loop")
     ap.add_argument("--chaos", default=None, metavar="SPEC",
                     help="fault-injection spec on the tick clock, e.g. "
-                         "'crash@t=5', 'crash@t=5:w1', 'slow@t=3:w0:2.0', "
+                         "'crash@t=5', 'crash@t=5:w1', 'crash@t=5:prefill' "
+                         "(disagg pool), 'slow@t=3:w0:2.0', 'drop@t=6', "
                          "'p_crash=0.02'; comma-separate multiple events")
     ap.add_argument("--slo-ttft", type=float, default=None, metavar="S",
                     help="TTFT SLO target in seconds; enables the rolling "
@@ -253,6 +289,8 @@ def main() -> None:
                 spec=args.spec, spec_k=args.spec_k,
                 prefix_share=onoff(args.prefix_share),
                 evict=onoff(args.evict), paged_impl=args.paged_impl,
+                disagg=args.disagg, prefill_workers=args.prefill_workers,
+                split_interval=args.split_interval,
                 overlap=args.overlap, chaos=args.chaos,
                 slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
                 tenant_rate=args.tenant_rate, queue_cap=args.queue_cap,
@@ -263,7 +301,8 @@ def main() -> None:
         return
     layout = out["kv_layout"] + (f", {out['paged_impl']}"
                                  if out["kv_layout"] == "paged" else "") \
-        + (", overlapped" if out["overlap"] else "")
+        + (", overlapped" if out["overlap"] else "") \
+        + (", disaggregated" if "disagg" in out else "")
     print(f"{out['arch']} on {out['device']} ({layout}): "
           f"{out['requests_finished']}/{out['requests_total']} requests, "
           f"{out['tokens_generated']} tokens, "
@@ -284,6 +323,11 @@ def main() -> None:
               f"{out['cow_breaks_total']} cow breaks, "
               f"{out['parked_total']} parked / {out['restored_total']} "
               f"restored ({out['kv_moved_bytes_total']} bytes moved)")
+    if "disagg" in out:
+        d = out["disagg"]
+        print(f"  disagg: {d['handoffs']} handoffs "
+              f"({d['handoff_bytes']} bytes), splits "
+              f"{d['split_events']}")
     if "faults_injected" in out:
         print(f"  chaos: injected {out['faults_injected']}; "
               f"{out['recoveries']} recoveries "

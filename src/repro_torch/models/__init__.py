@@ -1,1 +1,26 @@
-"""Dense transformer on PyTorch: layers, attention, blocks, model API."""
+"""The port's models (`repro_torch.models`): the dense and moe transformer
+families, with the JAX package's model API re-exported from `model`.  The
+sharding-only names of the JAX package's `models` (param_specs,
+param_sds, cache_specs, cache_sds, count_params) have no counterpart on
+one device yet."""
+from . import model
+from .model import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    loss_fn,
+    param_defs,
+    prefill,
+)
+
+__all__ = [
+    "model",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "loss_fn",
+    "param_defs",
+    "prefill",
+]

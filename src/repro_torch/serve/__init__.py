@@ -14,20 +14,28 @@
                 hysteresis) and the crash-storm `CircuitBreaker`
 - `spec`      — speculative decoding: n-gram and draft-model drafters,
                 greedy accept
-- `engine`    — `ServeEngine`: the synchronous serving loop (flat or paged
-                KV layout, optional speculative decoding) on a CUDA (or
-                CPU) device, elastic across `resize(k)`, with fault
-                injection, crash recovery and overload control
+- `engine`    — `ServeEngine`: the serving loop (flat or paged KV
+                layout, optional speculative decoding, a synchronous or
+                an overlapped tick) on a CUDA (or CPU) device, elastic
+                across `resize(k)`, with fault injection, crash recovery
+                and overload control
+- `disagg`    — `DisaggEngine`: prefill and decode pools as two engine
+                halves over disjoint worker subsets with a page-granular
+                handoff (park on the prefill side, adopt + restore on the
+                decode side, no re-prefill) and a `SplitPolicy`
+                rebalancing the prefill:decode worker split
 
 The fault plans (`repro_torch.faults`) are re-exported here, as the JAX
 package's `serve` does.
 """
 from ..faults import (FaultEvent, FaultInjector, FaultPlan, crash_storm,
                       handoff_drop, parse_chaos, worker_crash, worker_slow)
+from .disagg import (DisaggEngine, DisaggMetrics, QueueSplitPolicy,
+                     ScheduledSplitPolicy, SplitObs, SplitPolicy)
 from .engine import ServeEngine, ServeMetrics, TickRecord
 from .overload import (AdmissionController, CircuitBreaker,
                        DegradationLadder, Rejection, TokenBucket)
-from .memory import KVMemoryManager
+from .memory import KVMemoryManager, ParkedSeq, RestorePlan
 from .pages import PageAllocator, PageError
 from .request import (Request, RequestState, poisson_arrivals,
                       synthetic_requests, trace_arrivals)
@@ -37,10 +45,13 @@ from .spec import DraftModelDrafter, NgramDrafter, greedy_accept
 
 __all__ = [
     "AdmissionController", "CircuitBreaker", "DegradationLadder",
-    "DraftModelDrafter", "FaultEvent", "FaultInjector", "FaultPlan",
-    "KVMemoryManager", "NgramDrafter", "PageAllocator", "PageError",
-    "Rejection", "Request", "RequestState", "ServeEngine", "ServeMetrics",
-    "SlotPool", "SlotScheduler", "TickRecord", "TokenBucket", "crash_storm",
-    "greedy_accept", "handoff_drop", "parse_chaos", "poisson_arrivals",
-    "synthetic_requests", "trace_arrivals", "worker_crash", "worker_slow",
+    "DisaggEngine", "DisaggMetrics", "DraftModelDrafter", "FaultEvent",
+    "FaultInjector", "FaultPlan", "KVMemoryManager", "NgramDrafter",
+    "PageAllocator", "PageError", "ParkedSeq", "QueueSplitPolicy",
+    "Rejection", "Request", "RequestState", "RestorePlan",
+    "ScheduledSplitPolicy", "ServeEngine", "ServeMetrics", "SlotPool",
+    "SlotScheduler", "SplitObs", "SplitPolicy", "TickRecord", "TokenBucket",
+    "crash_storm", "greedy_accept", "handoff_drop", "parse_chaos",
+    "poisson_arrivals", "synthetic_requests", "trace_arrivals",
+    "worker_crash", "worker_slow",
 ]

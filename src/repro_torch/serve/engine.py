@@ -77,8 +77,12 @@ row's output depends on the other rows of its dispatch (expert capacity
 drops, `models.moe`), so every byte a dispatch is given for padding rows,
 bucket padding and free slots is the JAX engine's.
 
-Not in this slice (raises NotImplementedError naming its ROADMAP item):
-disaggregated pools.
+With ``decode_enabled=False`` (paged layout only) the engine is the
+prefill pool of a `serve.disagg.DisaggEngine`: its ticks admit and
+prefill, never decode, and prefilled slots wait in `_by_slot` until the
+disaggregated engine `extract`s them (park without re-queueing) and the
+decode pool `inject`s them (adopt the host payload, queue the request;
+admission restores it with one scatter).
 """
 from __future__ import annotations
 
@@ -396,14 +400,6 @@ def _unsupported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP queue A: {item})")
 
 
-# keywords of the JAX package's ServeEngine whose features are not ported
-# yet: their defaults (accepted) and the ROADMAP queue-A item that ports
-# them (any other value raises NotImplementedError naming it)
-_UNPORTED = {
-    "decode_enabled": (True, "disaggregated serving"),
-}
-
-
 # the JAX package's names for the two paged attention implementations
 _PAGED_IMPLS = {"kernel": "kernel", "gather": "gather", "pallas": "kernel",
                 "xla": "gather"}
@@ -413,12 +409,11 @@ class ServeEngine:
     """Continuous-batching serving engine with Chicle-style elasticity
     (flat or paged KV layout, synchronous or overlapped tick).
 
-    Takes every keyword of the JAX package's `ServeEngine`.  Those of
-    features not ported yet (`_UNPORTED`: disaggregated prefill pools)
-    raise NotImplementedError naming their ROADMAP item unless left at
-    their defaults.  `max_cached_meshes` and
-    `max_cached_fns` size the JAX engine's jit caches; eager PyTorch keeps
-    no such cache, so any value is accepted and ignored."""
+    Takes every keyword of the JAX package's `ServeEngine`.
+    `max_cached_meshes` and `max_cached_fns` size the JAX engine's jit
+    caches; eager PyTorch keeps no such cache, so any value is accepted
+    and ignored.  A model family the port has no blocks for raises
+    NotImplementedError naming its ROADMAP item."""
 
     def __init__(self, cfg: ModelConfig, *, capacity: int = 8,
                  cache_len: int = 64, prefill_bucket: int = 16,
@@ -456,9 +451,6 @@ class ServeEngine:
                  tracer: Optional[Tracer] = None,
                  max_cached_meshes: int = 2, max_cached_fns: int = 16,
                  device="cuda"):
-        default, item = _UNPORTED["decode_enabled"]
-        if decode_enabled != default:
-            raise _unsupported(f"decode_enabled={decode_enabled!r}", item)
         if cfg.family not in FAMILIES:
             raise _unsupported(f"family {cfg.family!r}",
                                "remaining model families")
@@ -558,7 +550,16 @@ class ServeEngine:
             tracer=self.tracer)
         # external simulation clock; None = wall clock
         self._clock = clock
+        self.suspended = False
         self.debug_checks = debug_checks
+        # decode_enabled=False makes this a PREFILL-ONLY pool half: the
+        # solver phase never runs, and prefilled slots wait in _by_slot
+        # until a DisaggEngine extract()s them for the decode pool
+        self.decode_enabled = bool(decode_enabled)
+        if not self.decode_enabled and not paged:
+            raise ValueError("decode_enabled=False (a disagg prefill pool) "
+                             "requires kv_layout='paged' — the handoff "
+                             "moves pages")
 
         # speculative decode: each slot proposes spec_k drafts a tick and
         # ONE (B, Q=spec_k+1) verify dispatch scores them all; the drafter
@@ -651,6 +652,11 @@ class ServeEngine:
         self.resize(n_workers)
 
     # --- elasticity -------------------------------------------------------
+    @property
+    def n_active_slots(self) -> int:
+        """Slots currently consuming KV: decoding + mid-prefill."""
+        return len(self._by_slot) + len(self._prefilling)
+
     def _slot_workers(self) -> Tuple[List[int], Dict[int, int]]:
         """Snapshot the live slots and their current worker assignment."""
         live = sorted(set(self._by_slot) | set(self._prefilling))
@@ -831,12 +837,14 @@ class ServeEngine:
                              tpot_target=req.slo_tpot)
 
     # --- eviction: park / restore (page-granular preemption) --------------
-    def park(self, slot: int) -> int:
+    def park(self, slot: int, *, requeue: bool = True) -> int:
         """Preempt the decoding request in `slot`: gather ONLY its live
         pages to host memory (one O(pages) device->host copy, no re-prefill
         on return), free its pages and slot, and re-queue the request
-        (state PARKED) for a later restore through admission.  Returns the
-        bytes moved."""
+        (state PARKED) for a later restore through admission.
+        requeue=False leaves the request out of the queue: the disagg
+        handoff (`extract`) moves it to another engine instead.  Returns
+        the bytes moved."""
         if self.mem is None:
             raise RuntimeError("park requires kv_layout='paged'")
         req = self._by_slot.pop(slot, None)
@@ -856,8 +864,32 @@ class ServeEngine:
             req.slot = None
             req.state = RequestState.PARKED
             req.t_parked = self._now()  # handoff-delay clock starts
-            self.scheduler.submit(req)  # rejoins its tenant queue
+            if requeue:
+                self.scheduler.submit(req)  # rejoins its tenant queue
         return seq.nbytes
+
+    def extract(self, slot: int) -> Tuple[Request, Any]:
+        """Disaggregation handoff, prefill side: park `slot`'s request
+        WITHOUT re-queueing it and pop the parked payload.  The caller
+        moves (request, ParkedSeq) to the decode pool's `inject`."""
+        req = self._by_slot[slot]
+        self.park(slot, requeue=False)
+        return req, self.mem.take_parked(req.rid)
+
+    def inject(self, req: Request, seq: Any) -> None:
+        """Disaggregation handoff, decode side: adopt a foreign parked
+        sequence (another engine's `extract`) and queue its request; the
+        next admission restores it through the parked-restore path (one
+        scatter, no re-prefill, the same stream)."""
+        if self.mem is None:
+            raise RuntimeError("inject requires kv_layout='paged'")
+        if req.prompt_len + req.max_new_tokens > self.cache_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {req.prompt_len} + max_new "
+                f"{req.max_new_tokens} exceeds cache_len {self.cache_len}")
+        self.mem.adopt(seq)
+        self.scheduler.submit(req)
+        self.metrics.requests.append(req)
 
     def park_excess(self, n: int) -> int:
         """Park up to `n` decoding slots, lowest priority first (latest
@@ -1294,6 +1326,20 @@ class ServeEngine:
             del self._prefilling[slot]
         return n_chunks, nbytes, n_dispatch
 
+    # --- suspend / resume (cluster scale-to-zero) -------------------------
+    def suspend(self) -> None:
+        """Scale-to-zero: stop ticking; the KV pool, the queues and every
+        in-flight request stay as they are, so resume continues the same
+        token streams."""
+        if not self.suspended:
+            self.suspended = True
+            self.metrics.suspend_events.append((self._tick, "suspend"))
+
+    def resume(self) -> None:
+        if self.suspended:
+            self.suspended = False
+            self.metrics.suspend_events.append((self._tick, "resume"))
+
     # --- main loop --------------------------------------------------------
     def _now(self) -> float:
         if self._clock is not None:
@@ -1544,7 +1590,8 @@ class ServeEngine:
         drafted = accepted = draft_disp = 0
         settle = None
         launch_t = 0.0
-        active = sorted(self._by_slot)
+        # a prefill-only pool never decodes (its slots wait for handoff)
+        active = sorted(self._by_slot) if self.decode_enabled else []
         if active:
             with trc.span("overlap.bind", track="overlap", n=len(active)):
                 settle = self._solver_launch(active)
@@ -1560,6 +1607,8 @@ class ServeEngine:
                     self._advance_prefills(defer=pending)
                 admission_bytes += chunk_bytes
             if self.overlap_hook is not None:
+                # disagg: drain the other pool's finished prefills into the
+                # handoff queue while this pool's step is in flight
                 self.overlap_hook()
 
         if settle is not None:
@@ -1589,6 +1638,9 @@ class ServeEngine:
 
     @torch.inference_mode()
     def tick(self) -> TickRecord:
+        if self.suspended:
+            raise RuntimeError("ServeEngine is suspended; call resume() "
+                               "before ticking")
         now = self._now()
         sched = self.scheduler
         kv0 = self._kv_prev
@@ -1689,7 +1741,10 @@ class ServeEngine:
             emitted = 0
             t_step = 0.0
             drafted = accepted = draft_disp = 0
-            active = sorted(self._by_slot)
+            # a prefill-only pool half never decodes: prefilled slots wait
+            # in _by_slot for the disagg handoff (the else branch still
+            # advances schedule time and settles the prefill scatters)
+            active = sorted(self._by_slot) if self.decode_enabled else []
             if active:
                 emitted, t_step, drafted, accepted, draft_disp = \
                     self._solver_launch(active)()

@@ -845,3 +845,61 @@ def test_overlapped_decode_settle_does_not_wait_for_window_work(cuda):
     eng.run(_serve_burst(cfg.vocab_size))
     assert 3 in waits
     assert waits[3] < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_disagg_streams_equal_monolithic_on_the_card(cuda, overlap):
+    """fp32 (TF32 off), paged through the kernel: DisaggEngine (two
+    workers) gives the monolithic engine's streams, synchronous and
+    overlapped; both halves hold one params module (the same storage);
+    the prefill pool launches paged_attention only on chunk-shaped spans
+    (prefill_chunk x G rows) and the decode pool only on decode spans (G
+    rows)."""
+    from repro_torch.serve import DisaggEngine, ServeEngine
+    import repro_torch.kernels.paged_attention as paged_mod
+    cfg = _grouped_small("float32")
+    G = cfg.num_heads // cfg.kv_heads()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    want = ServeEngine(cfg, params=params, **SERVE_KW).run(
+        _serve_burst(cfg.vocab_size))
+    kw = {k: v for k, v in SERVE_KW.items() if k != "kv_layout"}
+    dis = DisaggEngine(cfg, params=params, n_workers=2, overlap=overlap,
+                       debug_checks=True, **kw)
+    assert dis.prefill.params is dis.decode.params is params
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        dis.prefill.params.parameters(), dis.decode.params.parameters()))
+    rows = {"prefill": [], "decode": []}
+    pool = []
+    real = paged_mod._launch
+
+    def recorded(q, *args):
+        rows[pool[-1]].append(q.shape[2])
+        return real(q, *args)
+
+    for name in rows:
+        half = getattr(dis, name)
+
+        def tick(tick=half.tick, name=name):
+            pool.append(name)
+            try:
+                return tick()
+            finally:
+                pool.pop()
+        half.tick = tick
+    paged_mod._launch = recorded
+    try:
+        got = dis.run(_serve_burst(cfg.vocab_size))
+    finally:
+        paged_mod._launch = real
+    assert {r.rid: r.generated for r in got.requests} == \
+        {r.rid: r.generated for r in want.requests}
+    assert got.handoffs == len(want.requests)
+    chunk = SERVE_KW["prefill_chunk"] * G
+    assert rows["prefill"] and set(rows["prefill"]) == {chunk}
+    assert rows["decode"] and set(rows["decode"]) == {G}
+    assert len(rows["prefill"]) == cfg.num_layers * got.prefill.summarize()[
+        "prefill_dispatches_total"]
+    assert len(rows["decode"]) == cfg.num_layers * got.decode.summarize()[
+        "decode_dispatches"]

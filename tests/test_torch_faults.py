@@ -9,8 +9,8 @@ port runs on the CPU with `debug_checks`.  Token streams, request states,
 retry counts, every wall-time-free `summarize` counter, the fault and
 recovery event lists and the injected fault sequence must be equal, and a
 recovered stream must equal the port's fault-free run.  The disaggregated
-and cluster tests of tests/test_faults.py wait for those layers
-(ROADMAP A6, A8)."""
+tests of tests/test_faults.py are in tests/test_torch_disagg_faults.py;
+the cluster tests wait for that layer (ROADMAP A8)."""
 
 import contextlib
 

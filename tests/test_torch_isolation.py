@@ -76,20 +76,23 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
         ServeEngine(cfg, kv_layout="paged")
 
 
-@pytest.mark.parametrize("kw", [dict(decode_enabled=False)])
+@pytest.mark.parametrize("kw", [dict(arch="rwkv6-1.6b")])
 def test_unported_options_raise(kw):
-    cfg = smoke_variant(get_config("smollm-360m"))
+    """A model family the port has no blocks for raises, naming its
+    ROADMAP item (every ServeEngine keyword is ported)."""
+    cfg = smoke_variant(get_config(kw["arch"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, device="cpu", **kw)
+        ServeEngine(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
     dict(brownout="auto"),
     dict(fault_injector=FaultInjector(FaultPlan([worker_crash(0)]))),
-    dict(queue_cap=4), dict(overlap=True)])
+    dict(queue_cap=4), dict(overlap=True), dict(decode_enabled=False)])
 def test_now_ported_options_construct(kw):
-    """Options that raised before faults, overload control and the
-    overlapped tick were ported build an engine on the CPU that ticks."""
+    """Options that raised before faults, overload control, the
+    overlapped tick and disaggregated serving were ported build an engine
+    on the CPU that ticks."""
     cfg = smoke_variant(get_config("smollm-360m"))
     eng = ServeEngine(cfg, device="cpu", kv_layout="paged", n_workers=2,
                       capacity=2, cache_len=16, prefill_bucket=8, **kw)
@@ -107,6 +110,9 @@ def test_now_ported_options_construct(kw):
         assert eng.scheduler.admission.enabled
     if "overlap" in kw:
         assert eng.overlap and rec.admitted == 2
+    if "decode_enabled" in kw:  # a prefill pool: prefills, never decodes
+        assert rec.admitted == 2 and rec.tokens_emitted == 0
+        assert len(eng._by_slot) + len(eng._prefilling) == 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -10,8 +10,8 @@ equal the JAX engine's `overlap=True` streams; and every wall-time-free
 overlapped run's.  Workloads that arrive over time run on a tick clock
 (one tick, one simulated second), so the counters do not depend on the
 host's speed.  The three disaggregated cases of tests/test_overlap.py
-(the bit-identity pair and the drain test) wait for disaggregated serving
-(ROADMAP A6)."""
+(the bit-identity pair and the drain test) are in
+tests/test_torch_disagg.py, run the same three ways."""
 
 import contextlib
 

@@ -10,9 +10,12 @@ test does, through `run()`.  Both run the smoke smollm-360m in fp32 on the
 same parameters; the port runs on the CPU with `debug_checks`.  Token
 streams, request states, retry-after hints, the `summarize` counters (on
 the tick clock every key but the JAX engine's jit-cache sizes) and the
-fault, recovery, brownout and breaker event lists must be equal.  The
-disaggregated and cluster tests of tests/test_overload.py wait for those
-layers (ROADMAP A6, A8)."""
+fault, recovery, brownout and breaker event lists must be equal.
+tests/test_overload.py's disaggregated test with limits that never bind
+is a case of `test_bit_identity_when_limits_never_bind` here; its handoff
+deadline sweep and split-policy tests are in
+tests/test_torch_disagg_handoff.py.  The cluster tests wait for that
+layer (ROADMAP A8)."""
 
 import contextlib
 
@@ -30,7 +33,8 @@ from repro.obs import SLOTracker as JSLOTracker
 from repro.serve import (AdmissionController as JAdmissionController,
                          CircuitBreaker as JCircuitBreaker,
                          DegradationLadder as JDegradationLadder,
-                         ServeEngine, TokenBucket as JTokenBucket,
+                         DisaggEngine, ServeEngine,
+                         TokenBucket as JTokenBucket,
                          synthetic_requests)
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import smoke_variant as t_smoke_variant
@@ -39,6 +43,7 @@ from repro_torch.obs import SLOTracker, Tracer, meets_slo, overload_timeline
 from repro_torch.serve import (AdmissionController, CircuitBreaker,
                                DegradationLadder, RequestState,
                                TokenBucket)
+from repro_torch.serve import DisaggEngine as TDisaggEngine
 from repro_torch.serve import ServeEngine as TServeEngine
 from repro_torch.serve import synthetic_requests as t_synthetic_requests
 from repro_torch.serve.scheduler import SlotScheduler
@@ -265,18 +270,33 @@ def test_bounded_queue_cap_and_accounting(model):
     assert s["shed_requests"] == 0  # backpressure, not shedding
 
 
-@pytest.mark.parametrize("layout", ["flat", "paged"])
+@pytest.mark.parametrize("layout", ["flat", "paged", "disagg"])
 def test_bit_identity_when_limits_never_bind(model, layout):
     """Generous limits + SLO tracking give the streams of an engine without
-    overload control, on both layouts, in both packages."""
+    overload control, on both layouts and disaggregated (two workers, one
+    admission controller shared by the pools), in both packages."""
     loose = dict(tenant_rate=1000.0, queue_cap=1000,
                  slo_ttft=1e9, slo_tpot=1e9)
-    _, _, tcfg, tparams = model
-    want = _streams(TServeEngine(tcfg, params=tparams, device="cpu",
-                                 kv_layout=layout, n_workers=1, **KW).run(
-        _burst(t_synthetic_requests, tcfg.vocab_size)))
-    _, _, _, tm = _both_run(model, _burst, kv_layout=layout, n_workers=1,
-                            **loose, **KW)
+    cfg, params, tcfg, tparams = model
+    if layout == "disagg":
+        want = _streams(TDisaggEngine(
+            tcfg, params=tparams, device="cpu", n_workers=2,
+            debug_checks=True, **KW).run(
+            _burst(t_synthetic_requests, tcfg.vocab_size)))
+        jm, tm = (cls(c, params=p, n_workers=2, **loose, **KW, **extra).run(
+            _burst(make, c.vocab_size)).combined()
+            for cls, c, p, make, extra in (
+                (DisaggEngine, cfg, params, synthetic_requests, {}),
+                (TDisaggEngine, tcfg, tparams, t_synthetic_requests,
+                 dict(device="cpu", debug_checks=True))))
+        _assert_same(jm, tm, tick_clock=False)
+    else:
+        want = _streams(TServeEngine(tcfg, params=tparams, device="cpu",
+                                     kv_layout=layout, n_workers=1,
+                                     **KW).run(
+            _burst(t_synthetic_requests, tcfg.vocab_size)))
+        _, _, _, tm = _both_run(model, _burst, kv_layout=layout,
+                                n_workers=1, **loose, **KW)
     assert _streams(tm) == want
     assert sum(1 for r in tm.requests
                if r.state is RequestState.REJECTED) == 0

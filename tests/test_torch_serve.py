@@ -277,25 +277,22 @@ def test_launch_serve_cli_takes_the_new_flags(monkeypatch, tmp_path):
 
 def test_engine_takes_every_keyword_of_the_jax_engine(model):
     """The port's `ServeEngine.__init__` names every keyword of the JAX
-    package's with its default; an unported one raises NotImplementedError
-    (naming its ROADMAP queue-A item) when given another value, and is
-    accepted at its default."""
+    package's with its default, and takes each: `decode_enabled=False`
+    (a disaggregated prefill pool) builds on the paged layout and raises
+    the JAX engine's ValueError on the flat one."""
     import inspect
-    from repro_torch.serve import engine as port_engine
     ref = inspect.signature(ServeEngine.__init__).parameters
     mine = inspect.signature(TServeEngine.__init__).parameters
     assert set(ref) <= set(mine)
+    assert all(mine[n].default == ref[n].default for n in ref
+               if n not in ("self", "cfg", "paged_impl"))
     _, _, tcfg, tparams = model
     small = dict(capacity=2, cache_len=16, prefill_bucket=8, device="cpu",
                  params=tparams)
-    others = {"decode_enabled": False}
-    assert set(others) == set(port_engine._UNPORTED)
-    for name, value in others.items():
-        default, item = port_engine._UNPORTED[name]
-        assert mine[name].default == ref[name].default == default
-        with pytest.raises(NotImplementedError, match=item):
-            TServeEngine(tcfg, **small, **{name: value})
-        TServeEngine(tcfg, **small, **{name: default})
+    assert not TServeEngine(tcfg, **small, kv_layout="paged",
+                            decode_enabled=False).decode_enabled
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        TServeEngine(tcfg, **small, decode_enabled=False)
     for name in ("max_cached_meshes", "max_cached_fns"):
         assert mine[name].default == ref[name].default
         TServeEngine(tcfg, **small, **{name: 1})
