@@ -1993,29 +1993,48 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
             "step_device_ms": launch["step_device_ms"]}
 
 
+def counted_launches(paged_mod, run):
+    """Call `run(log)` with the paged-attention launch counts zeroed just
+    before and read just after; `log` gains (rows QG, route) at each
+    launch.  -> (what `run` returns, (launches, tensor cores, split),
+    `log`)."""
+    paged_attention = paged_mod.paged_attention
+    log, restore = record_paged_launches(paged_mod)
+    paged_attention.launches = paged_attention.launches_tc = 0
+    paged_attention.launches_split = 0
+    try:
+        out = run(log)
+    finally:
+        restore()
+    n = paged_counts(paged_attention)
+    if len(log) != n[0]:
+        fail(f"{len(log)} paged launches logged, {n[0]} counted")
+    return out, n, log
+
+
+def check_launches(what, cfg, log, dispatches, rows=None):
+    """Fail unless `log` holds layers x `dispatches` launches, each on the
+    launcher's route and, where `rows` is given, of rows in `rows`."""
+    hd = cfg.head_dim_()
+    wrong = [(qg, r) for qg, r in log
+             if r != paged_route(cfg.dtype, qg, hd)
+             or (rows is not None and qg not in rows)]
+    if not log or len(log) != cfg.num_layers * dispatches or wrong:
+        fail(f"{what}: {len(log)} launches for {dispatches} paged "
+             f"dispatches of {cfg.num_layers} layers; wrong (rows, route): "
+             f"{wrong[:5]}")
+
+
 def counted_paged_run(paged_mod, what, eng, reqs):
     """Run `eng` (paged, through the kernel) over `reqs` with the
     paged-attention launch counts zeroed just before and read just after;
     fail unless the launches are layers x paged dispatches, each on the
     launcher's route.  -> (metrics, summary, (launches, tensor cores,
     split), the rows of the launches)."""
-    paged_attention = paged_mod.paged_attention
-    cfg = eng.cfg
-    log, restore = record_paged_launches(paged_mod)
-    paged_attention.launches = paged_attention.launches_tc = 0
-    paged_attention.launches_split = 0
-    m = eng.run(reqs)
-    n = paged_counts(paged_attention)
-    restore()
+    m, n, log = counted_launches(paged_mod, lambda log: eng.run(reqs))
     s = m.summarize()
-    dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
-    wrong = [(qg, r) for qg, r in log
-             if r != paged_route(cfg.dtype, qg, cfg.head_dim_())]
-    if n[0] <= 0 or n[0] != cfg.num_layers * dispatches \
-            or len(log) != n[0] or wrong:
-        fail(f"{what}: {n[0]} launches for {dispatches} paged dispatches "
-             f"of {cfg.num_layers} layers; misrouted (rows, route): "
-             f"{wrong[:5]}")
+    check_launches(what, eng.cfg, log,
+                   s["decode_dispatches"] + s["prefill_dispatches_total"])
     return m, s, n, sorted({qg for qg, _ in log})
 
 
@@ -2062,72 +2081,53 @@ def launch_vs_step(torch, eng, trc, reqs):
     return launch, span_s
 
 
-def counted_disagg_run(paged_mod, what, dis, reqs, drive=None):
+def counted_disagg_run(paged_mod, what, dis, reqs):
     """Run the DisaggEngine `dis` (paged, through the kernel) over `reqs`
     with the paged-attention launch counts zeroed just before and read
-    just after, each launch logged with its pool (each half's `tick` is
-    wrapped to mark it), its rows and its route; fail unless the prefill
-    pool's launches are all chunk-shaped (prefill_chunk x G rows) and equal
-    layers x its chunk dispatches, the decode pool's are all decode or
-    verify spans and equal layers x its solver dispatches, each on the
-    launcher's route.  `drive(dis, reqs)` replaces `dis.run(reqs)`.  ->
-    (metrics, (launches, tensor cores, split), per-pool launches)."""
-    paged_attention = paged_mod.paged_attention
+    just after, the log split into pools by marks that each half's `tick`
+    leaves; fail unless the prefill pool's launches are all chunk-shaped
+    (prefill_chunk x G rows) and equal layers x its chunk dispatches, the
+    decode pool's are all decode or verify spans and equal layers x its
+    decode dispatches, each on the launcher's route.  -> (metrics,
+    (launches, tensor cores, split), per-pool launches)."""
     cfg = dis.cfg
     G = cfg.num_heads // cfg.kv_heads()
+    marks = []  # (pool, first launch, past the last launch) per tick
+
+    def run(log):
+        for name in ("prefill", "decode"):
+            half = getattr(dis, name)
+
+            def tick(tick=half.tick, name=name):
+                start = len(log)
+                try:
+                    return tick()
+                finally:
+                    marks.append((name, start, len(log)))
+            half.tick = tick
+        try:
+            return dis.run(reqs)
+        finally:
+            for name in ("prefill", "decode"):
+                del getattr(dis, name).tick
+    m, n, log = counted_launches(paged_mod, run)
     pools = {"prefill": [], "decode": []}
-    current = []
-    for name in pools:
-        half = getattr(dis, name)
-
-        def tick(tick=half.tick, name=name):
-            current.append(name)
-            try:
-                return tick()
-            finally:
-                current.pop()
-        half.tick = tick
-    log, restore = record_paged_launches(paged_mod)
-    paged_attention.launches = paged_attention.launches_tc = 0
-    paged_attention.launches_split = 0
-    real = paged_mod._launch
-
-    def marked(q, *args, **kwargs):
-        out = real(q, *args, **kwargs)
-        pools[current[-1]].append(log[-1])
-        return out
-
-    paged_mod._launch = marked
-    try:
-        m = drive(dis, reqs) if drive is not None else dis.run(reqs)
-    finally:
-        paged_mod._launch = real
-        restore()
-    n = paged_counts(paged_attention)
-    for name in pools:
-        del getattr(dis, name).tick
+    for name, a, b in marks:
+        pools[name].extend(log[a:b])
     ps, ds = m.prefill.summarize(), m.decode.summarize()
-    chunk = dis.prefill.prefill_chunk * G
-    verify = {G} | ({(dis.decode.spec_k + 1) * G} if dis.decode.spec_k
-                    else set())
-    hd = cfg.head_dim_()
-    wrong = [(pool, qg, r) for pool, got in pools.items() for qg, r in got
-             if r != paged_route(cfg.dtype, qg, hd)
-             or (qg != chunk if pool == "prefill" else qg not in verify)]
-    if n[0] <= 0 or len(log) != n[0] \
-            or len(pools["prefill"]) + len(pools["decode"]) != n[0] \
-            or len(pools["prefill"]) != cfg.num_layers \
-            * ps["prefill_dispatches_total"] \
-            or len(pools["decode"]) != cfg.num_layers \
-            * (ds["decode_dispatches"] + ds["prefill_dispatches_total"]) \
-            or ds["prefill_dispatches_total"] or wrong:
-        fail(f"{what}: {n[0]} launches; prefill pool "
-             f"{len(pools['prefill'])} for {ps['prefill_dispatches_total']} "
-             f"chunk dispatches, decode pool {len(pools['decode'])} for "
-             f"{ds['decode_dispatches']} dispatches "
-             f"({ds['prefill_dispatches_total']} chunk dispatches) of "
-             f"{cfg.num_layers} layers; wrong (pool, rows, route): "
-             f"{wrong[:5]}")
+    if sum(map(len, pools.values())) != n[0] \
+            or ds["prefill_dispatches_total"]:
+        fail(f"{what}: {n[0]} launches, {len(pools['prefill'])} inside "
+             f"prefill pool ticks and {len(pools['decode'])} inside decode "
+             f"pool ticks; {ds['prefill_dispatches_total']} chunk "
+             f"dispatches in the decode pool")
+    check_launches(f"{what} prefill pool", cfg, pools["prefill"],
+                   ps["prefill_dispatches_total"],
+                   rows={dis.prefill.prefill_chunk * G})
+    check_launches(f"{what} decode pool", cfg, pools["decode"],
+                   ds["decode_dispatches"],
+                   rows={G} | ({(dis.decode.spec_k + 1) * G}
+                               if dis.decode.spec_k else set()))
     return m, n, {name: len(got) for name, got in pools.items()}
 
 

@@ -25,7 +25,9 @@ A `SplitPolicy` rebalances the prefill:decode worker split every few
 ticks from observed backlog tokens and per-pool host tick times, through
 `resize(k)` on each half.  Workers are logical: both halves run on the one
 device, share one `params` module (never copied) and one clock, and each
-allocates its own KV pool.
+allocates its own KV pool.  Both pools run attention as `ServeEngine`
+does by default, through the paged-attention kernel (``paged_impl=
+"kernel"``).
 
 The handoff goes through the host, as in the JAX package: `park` copies
 the pages to the host with a blocking `.cpu()` and the decode pool's
@@ -259,7 +261,7 @@ class DisaggEngine:
                  n_workers: int = 2, prefill_workers: Optional[int] = None,
                  prefill_capacity: Optional[int] = None,
                  split_policy: Optional[SplitPolicy] = None,
-                 page_size: int = 8, paged_impl: str = "xla",
+                 page_size: int = 8, paged_impl: str = "kernel",
                  prefix_share: Optional[bool] = None,
                  evict: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None,

@@ -15,8 +15,9 @@ accounting (handoffs, handoff bytes, drops, retries, split and degraded
 events), each half's summary, event lists, per-tick metadata transfers
 and engine rng state.  The split policies' wall-time input (per-pool host
 tick-time EMAs) never reaches a compared run: the runs here use no policy
-or `ScheduledSplitPolicy`, and `QueueSplitPolicy.decide` is compared as a
-function in tests/test_torch_disagg_handoff.py.
+or `ScheduledSplitPolicy`; tests/test_torch_disagg_handoff.py compares
+`QueueSplitPolicy.decide` as a function, and every other input a policy
+is shown, tick by tick, through a recording policy.
 
 The handoff, tracing, overload, moe and launcher tests are in
 tests/test_torch_disagg_handoff.py, the fault tests in

@@ -2,13 +2,18 @@
 the handoff mechanics of tests/test_disagg.py (no page leak across the
 pool boundary, restore re-sharing across managers and through the
 handoff, the handoff-delay metric, per-pool scoped tracing), the split
-policies (tests/test_overload.py's SLO mode, and `QueueSplitPolicy.decide`
-as a pure function of one `SplitObs` in both packages, both modes), the
-handoff deadline sweep of tests/test_overload.py, the moe family through
-`DisaggEngine`, and `launch.serve --disagg`.
+policies (tests/test_overload.py's SLO mode, `QueueSplitPolicy.decide`
+as a pure function of one `SplitObs` in both packages, both modes, and
+the `SplitObs` each package's `DisaggEngine` shows a policy each tick),
+`DisaggEngine`'s keyword defaults, the handoff deadline sweep of
+tests/test_overload.py, the moe family through `DisaggEngine`, and
+`launch.serve --disagg`.
 
 Conventions as in tests/test_torch_disagg.py, whose helpers run both
 packages and compare them."""
+
+import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -18,12 +23,15 @@ from repro.obs import Tracer as JTracer
 from repro.serve import KVMemoryManager as JKVMemoryManager
 from repro.serve import QueueSplitPolicy as JQueueSplitPolicy
 from repro.serve import ScheduledSplitPolicy as JScheduledSplitPolicy
+from repro.serve import DisaggEngine as JDisaggEngine
 from repro.serve import SplitObs as JSplitObs
+from repro.serve import SplitPolicy as JSplitPolicy
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.obs import Tracer, validate_chrome_trace
-from repro_torch.serve import (KVMemoryManager, QueueSplitPolicy,
-                               RequestState, ScheduledSplitPolicy,
-                               ServeEngine, SplitObs)
+from repro_torch.serve import (DisaggEngine, KVMemoryManager,
+                               QueueSplitPolicy, RequestState,
+                               ScheduledSplitPolicy, ServeEngine, SplitObs,
+                               SplitPolicy)
 from repro_torch.serve.pages import PageError
 
 from test_torch_disagg import (JAX_SIDE, KW, PORT_SIDE, burst,
@@ -244,6 +252,73 @@ def test_split_policy_slo_mode():
     assert pol.decide(cold, current=2) == 3
     with pytest.raises(ValueError):
         QueueSplitPolicy(mode="nope")
+
+
+class _Recorder:
+    """A split policy that never moves a worker and logs what it is shown:
+    each tick's current split and `SplitObs`, less the two per-pool host
+    tick-time EMAs (wall time)."""
+
+    def __init__(self):
+        self.log = []
+
+    def decide(self, obs, *, current):
+        seen = dataclasses.asdict(obs)
+        del seen["prefill_tick_s"], seen["decode_tick_s"]
+        self.log.append((current, seen))
+        return current
+
+
+class _JRecorder(_Recorder, JSplitPolicy):
+    pass
+
+
+class _TRecorder(_Recorder, SplitPolicy):
+    pass
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_split_observations_match_the_jax_package(model, overlap):
+    """What `DisaggEngine._observe` hands the split policy each tick (the
+    backlog tokens of both pools, the handoff depth, the SLO attainments)
+    equals the JAX package's, tick by tick, on the tick clock: staggered
+    arrivals, chunked prefill, three workers, SLO targets set."""
+    def reqs(side, vocab):
+        return side["make"](10, vocab_size=vocab,
+                            arrivals=np.repeat(np.arange(5.0), 2),
+                            prompt_len=(6, 30), max_new_tokens=(4, 9),
+                            rng=np.random.default_rng(5))
+
+    jrec, trec = _JRecorder(), _TRecorder()
+    _, _, _, tm = run_both(
+        model, reqs, n_workers=3, capacity=4, cache_len=48,
+        prefill_bucket=8, chunked_prefill=True, prefill_chunk=8,
+        slo_ttft=4.0, slo_tpot=1.0, overlap=overlap, seed=0,
+        jax_kw=dict(split_policy=jrec), port_kw=dict(split_policy=trec))
+    assert trec.log == jrec.log
+    assert tm.handoffs == 10
+    assert tm.split_events == [(0, 1, 2)]  # the initial split alone
+    seen = [o for _, o in trec.log]
+    # the log covers the inputs that move the split: both backlogs at
+    # once, and the attainments once finishes fill the window
+    assert any(o["prefill_backlog_tokens"] and o["decode_backlog_tokens"]
+               for o in seen)
+    assert any(o["ttft_attainment"] is not None for o in seen)
+
+
+def test_disagg_engine_takes_every_keyword_of_the_jax_engine():
+    """The port's `DisaggEngine.__init__` names every keyword of the JAX
+    package's with its default, but `paged_impl`: that one defaults as
+    the port's `ServeEngine` does, to the paged-attention kernel."""
+    ref = inspect.signature(JDisaggEngine.__init__).parameters
+    mine = inspect.signature(DisaggEngine.__init__).parameters
+    assert set(ref) <= set(mine)
+    assert all(mine[n].default == ref[n].default for n in ref
+               if n not in ("self", "cfg", "paged_impl"))
+    serve = inspect.signature(ServeEngine.__init__).parameters
+    assert mine["paged_impl"].default == serve["paged_impl"].default \
+        == "kernel"
+    assert mine["device"].default == "cuda"
 
 
 # ---------------------------------------------------------------------------
