@@ -89,7 +89,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               fp32 kernel streams (the streams phase's), the paged
               launches layers x paged dispatches, each on the launcher's
               route.  (b) bf16: the engine burst synchronously and
-              overlapped in turns (sync, ovl, ovl, sync, sync, ovl):
+              overlapped in turns (sync, ovl, ovl, sync):
               every run's tokens/s, TTFT and TPOT and each arm's median
               (reported); one overlapped run under torch.profiler, one
               under a Tracer (host_overlap_ratio; a full-pool decode
@@ -115,6 +115,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               handoff bytes and delay, the host time of the handoff
               spans, and how much extract time fell inside the decode
               pool's overlap window, beside the engine phase's numbers.
+   cluster  — the cluster orchestrator (`repro_torch.cluster`): jobs
+              lease simulated nodes of one DevicePool on the card (its
+              default devices) through the fair-share allocator, and each
+              lease change goes through the job's elastic path.  (a) fp32:
+              a ServeJob (paged, through the kernel, chunks of 256, 2
+              slots a node) under the engine burst is squeezed from 4
+              nodes to 1 by a higher-priority CoCoA job (F = 28, n cut to
+              1,100,000, 16 micro-tasks; every SCD launch blocked): its
+              streams must equal a solo ServeEngine's, the squeeze must
+              park slots (kv_moved_bytes > 0, the engine's mem.stats()),
+              and the CoCoA gap curve, alpha and w must equal a solo
+              run's bit for bit; a DisaggServeJob whose lease changes once
+              (3 -> 2 nodes): 8 handoffs and the solo streams; an
+              LMTrainJob at the 100m preset scaled to zero and resumed:
+              its state equals an uninterrupted ElasticTrainer's
+              (deterministic algorithms).  Paged launches = layers x the
+              jobs' paged dispatches, each on the launcher's route.  (b)
+              bf16: the contention trace untraced, then traced under
+              torch.profiler: the orchestrator's wall time, each job's
+              `advance` host time, device busy time, idle share and top
+              kernels, and the report's simulated makespan, utilization,
+              fairness and preemptions.
    moe      — the moe family at grok-1-314b's published widths (d_model
               6144, 48 heads over 8 KV: G 6, hd 128; 8 experts, top-2,
               capacity factor 1.25, d_ff 32768; vocab 131072), paged,
@@ -184,11 +206,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               rebalancing, 2 of 4 workers at twice the per-sample time.
 9. lm_elastic — ElasticTrainer on h2o-danube-1.8b at full width and depth
               (bf16, sgdm, remat) on batches of 8 x 4096 tokens from
-              ChunkBatchPipeline: 3 steps, K 4 -> 2 at step 1, suspended
+              ChunkBatchPipeline: 2 steps, K 4 -> 2 at step 1, suspended
               to the host after step 1, the first at K 2, and resumed
-              before step 2 (the state must come
-              back bit for bit); then, under deterministic algorithms, a
-              suspended run against an uninterrupted one (bit-equal).
+              (the state must come back bit for bit); then, under
+              deterministic algorithms, a suspended run against an
+              uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
               yardstick at the main path's shapes (the paged shapes also
               held within one bf16 ulp of the fp32 plain result; their
@@ -258,12 +280,31 @@ SCALE_EVENTS = [(0, 1), (10, 2), (25, 1)]  # the engine burst's k 1 -> 2 -> 1
 # traced run profiles DECODE_WINDOW ticks in which all 8 slots decode and
 # nothing else runs; (c) holds the stream for RING_HOLD_S while RING + 4
 # buffers are packed behind it
-OVERLAP_ORDER = (False, True, True, False, False, True)
+OVERLAP_ORDER = (False, True, True, False)
 DECODE_WINDOW = 5
 RING_HOLD_S = 0.1
 # the disagg phase's (a2): three workers, the prefill pool 1 -> 2 -> 1 at
 # ticks 2 and 5 (tests/test_disagg.py's schedule)
 DISAGG_SPLIT = [(2, 2), (5, 1)]
+# the cluster phase: the pool's nodes are simulated on the one card.  (a1)
+# a ServeJob (2 slots a node, up to 4 nodes) takes the engine burst at
+# t = 0 with chunks of 256 (prefill_bucket 256); a higher-priority CoCoA
+# job (HIGGS's F = 28; n cut from 11,000,000 to 1,100,000) arrives at t = 2,
+# takes 3 of the 4 nodes and parks 6 decoding slots; its sample time makes
+# an iteration on 3 nodes about one simulated second, so the server gets
+# its nodes back after 8.  (a2) a DisaggServeJob on 3 nodes (at least 2
+# while it has work) loses one to a CoCoA hog at t = 2 that outlasts it:
+# one lease change.  (a3) an LMTrainJob at danube's 100m preset on one
+# node, scaled to zero by a CoCoA hog at t = 2 and resumed when it ends.
+# (b) is (a1)'s trace in bf16.
+CLUSTER = dict(nodes=4, squeeze_at=2.0, slots_per_node=2,
+               serve=dict(capacity=8, cache_len=2048, prefill_bucket=256,
+                          page_size=16),
+               cocoa=dict(n=1_100_000, f=28, chunk=1000, lam=1e-3,
+                          k_tasks=16, iterations=8, sample_time=2.5e-6,
+                          max_nodes=3, priority=1),
+               hog=dict(n=110_000, f=28, chunk=1000, lam=1e-3),
+               disagg_nodes=3, lm_steps=6, lm_batch=8, lm_seq=128)
 # the moe phase: grok-1-314b at its published widths (48 heads over 8 KV:
 # G 6, hd 128; 8 experts, top-2, d_ff 32768; vocab 131072), its 64
 # layers cut to 2 for the fp32 gates (42.6 GB of weights) and 4 for the
@@ -327,7 +368,7 @@ FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
 LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
                 hetero="2.0x2", workers=4, seed=0)
 LM_ELASTIC = dict(batch=8, seq=4096, n_seqs=256, chunk_size=8, k0=4,
-                  scale_at=1, k1=2, steps=3, suspend_after=1, det_steps=2)
+                  scale_at=1, k1=2, steps=2, suspend_after=1, det_steps=2)
 
 
 T0 = time.perf_counter()
@@ -1347,7 +1388,7 @@ def same_state(torch, a, b) -> bool:
 
 
 def lm_elastic_phase(torch, np):
-    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 3 steps of
+    """ElasticTrainer on h2o-danube-1.8b at full width and depth: 2 steps of
     8 x 4096 tokens, K 4 -> 2 at step 1, suspended to the host after that
     step (a state that has just been scaled in) and resumed; then a suspended run against an uninterrupted one under
     deterministic algorithms."""
@@ -2277,6 +2318,298 @@ def disagg_phase(torch, np, M, cfg32, params32, want32, DisaggEngine,
             "by_run": [[k, v[0]] for k, v in launches]}
 
 
+def lease_changes(report, name):
+    """How often `name`'s lease changed between ticks it held nodes or
+    demanded them (its first grant not counted)."""
+    leases = [t.alloc.get(name, 0) for t in report.timeline
+              if name in t.demand]
+    return sum(1 for a, b in zip(leases, leases[1:]) if a != b)
+
+
+def cluster_phase(torch, np, M, cfg, cfg32, ServeEngine, synthetic_requests,
+                  paged_mod):
+    """The cluster orchestrator (`repro_torch.cluster`) at full width: jobs
+    contend for simulated nodes of one `DevicePool` (its default devices:
+    the card), and each lease change goes through the job's elastic path
+    on the card.  (a) fp32 gates: (a1) a ServeJob under the engine burst is
+    squeezed from 4 nodes to 1 by a higher-priority CoCoA job: its streams
+    must equal a solo ServeEngine's on the same requests and params, the
+    squeeze must park slots (kv_moved_bytes > 0, the engine's mem.stats()),
+    and the CoCoA gap curve, alpha and w must equal a solo run's bit for
+    bit; (a2) a DisaggServeJob whose lease changes once (3 -> 2): 8
+    handoffs and the solo streams; (a3) an LMTrainJob at the 100m preset,
+    scaled to zero and resumed: its parameters and momentum equal an
+    uninterrupted ElasticTrainer's after the same steps, under
+    deterministic algorithms.  Every paged launch takes the launcher's
+    route and they number layers x the jobs' paged dispatches; every SCD
+    launch takes the blocked kernel.  (b) bf16: (a1)'s trace untraced (the
+    orchestrator's wall time), then traced under torch.profiler: each
+    job's `advance` host time, device busy time, idle share and top
+    kernels, beside the report's simulated makespan, utilization, Jain
+    fairness and preemptions.  -> launches by run."""
+    from repro_torch import cluster as C
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.elastic import ElasticTrainer
+    from repro_torch.kernels.scd import scd_pass
+    from repro_torch.launch.train import scale_config
+    from repro_torch.obs import Tracer
+    c, srv_kw = CLUSTER, CLUSTER["serve"]
+    vocab = cfg32.vocab_size
+    G = cfg32.num_heads // cfg32.kv_heads()
+    rows = {srv_kw["prefill_bucket"] * G, G}  # chunks and decode spans
+    runs = []  # (run, paged (launches, tc, split), SCD (launches, blocked))
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def trainer(name, **kw):
+        return C.cocoa_train_job(name, seed=0, device=DEVICE, **kw)
+
+    def hog(name, iterations, k_tasks, priority, max_nodes):
+        h = c["hog"]
+        return trainer(name, iterations=iterations, k_tasks=k_tasks,
+                       priority=priority, max_nodes=max_nodes, n=h["n"],
+                       f=h["f"], chunk=h["chunk"], lam=h["lam"])
+
+    def burst(extra):
+        return C.ClusterTrace([
+            C.arrive(0.0, "svc"),
+            C.burst(0.0, "svc", 8, prompt_len=list(PROMPT_LEN),
+                    max_new_tokens=[32, 32], seed=0)] + extra)
+
+    def contention(model_cfg, tracer=None):
+        srv = C.ServeJob(C.JobSpec("svc", "serve", max_nodes=c["nodes"]),
+                         model_cfg, slots_per_node=c["slots_per_node"],
+                         kv_layout="paged", seed=0, device=DEVICE, **srv_kw)
+        tr = trainer("train", **c["cocoa"])
+        orch = C.ClusterOrchestrator(
+            C.DevicePool(c["nodes"]), [srv, tr],
+            burst([C.arrive(c["squeeze_at"], "train")]), dt=1.0,
+            max_ticks=500, tracer=tracer)
+        return orch, srv, tr
+
+    def checked(what, model_cfg, orch, serve_jobs, run=None):
+        """Drive `orch` (by `run(drive)` if given) with the paged and SCD
+        launch counts zeroed just before and read just after; fail unless
+        every job finished, the paged launches number layers x the serve
+        jobs' paged dispatches, each on the launcher's route, and every
+        SCD launch took the blocked kernel.  -> (report, orchestrator wall
+        s)."""
+        start = time.perf_counter()
+
+        def drive():
+            out = orch.run()
+            torch.cuda.synchronize()
+            return out
+
+        def counted(log):
+            scd_pass.launches = scd_pass.launches_blocked = 0
+            out = drive() if run is None else run(drive)
+            return out, (scd_pass.launches, scd_pass.launches_blocked)
+        (rep, scd), n, log = counted_launches(paged_mod, counted)
+        wall = time.perf_counter() - start
+        dispatches = 0
+        for job in serve_jobs:
+            eng = job.engine
+            if hasattr(eng, "prefill"):  # disagg: chunks, then decode
+                dispatches += eng.prefill.metrics.summarize()[
+                    "prefill_dispatches_total"]
+                eng = eng.decode
+            s = eng.metrics.summarize()
+            dispatches += s["decode_dispatches"] \
+                + s["prefill_dispatches_total"]
+        if serve_jobs:
+            check_launches(f"cluster {what}", model_cfg, log, dispatches,
+                           rows=rows)
+        elif n[0]:
+            fail(f"cluster {what}: {n[0]} paged launches without a server")
+        if not scd[0] or scd[1] != scd[0]:
+            fail(f"cluster {what}: {scd[0]} SCD launches, {scd[1]} of them "
+                 f"on the blocked kernel")
+        states = {k: j["state"] for k, j in rep.jobs.items()}
+        if set(states.values()) != {"finished"}:
+            fail(f"cluster {what}: job states {states}")
+        runs.append((what, n, scd))
+        return rep, wall
+
+    # ---- (a1) serving squeezed by CoCoA, fp32 ---------------------------
+    prompts = {r.rid: r.prompt
+               for r in requests(np, synthetic_requests, vocab)}
+    orch, srv, tr = contention(cfg32)
+    params32 = srv.engine.params
+    solo = ServeEngine(cfg32, params=params32, n_workers=1,
+                       max_admit_per_tick=4, kv_layout="paged", seed=0,
+                       device=DEVICE, **srv_kw)
+    want = streams(solo.run(requests(np, synthetic_requests, vocab)))
+    del solo
+    rep, wall = checked("contention_fp32", cfg32, orch, [srv])
+    div = first_divergence(torch, np, M, cfg32, params32,
+                           streams(srv.engine.metrics), want, prompts)
+    if div is not None:
+        emit({"phase": "cluster", "equal": False, "run": "contention", **div})
+        fail(f"cluster contention: the serve job's streams diverge from the "
+             f"solo engine's at request {div['rid']} step {div['step']}")
+    st = srv.engine.mem.stats()
+    kv = srv.kv_moved_bytes
+    if not (kv > 0 and kv == st["park_bytes"] + st["restore_bytes"]
+            and rep.kv_moved_bytes == kv and rep.preemptions >= 1):
+        fail(f"cluster contention: kv_moved_bytes {kv}, mem.stats {st}, "
+             f"report {rep.kv_moved_bytes}, preemptions {rep.preemptions}")
+    solo_t = trainer("solo", **c["cocoa"])
+    C.ClusterOrchestrator(C.DevicePool(c["nodes"]), [solo_t],
+                          C.ClusterTrace([C.arrive(0.0, "solo")]), dt=1.0,
+                          max_ticks=500).run()
+    same = (solo_t.loss_curve() == tr.loss_curve()
+            and np.array_equal(solo_t.solver.store.state["alpha"],
+                               tr.solver.store.state["alpha"])
+            and torch.equal(solo_t.solver.w, tr.solver.w))
+    if not same:
+        fail(f"cluster contention: the contended CoCoA run differs from its "
+             f"solo run: gaps {tr.loss_curve()} vs {solo_t.loss_curve()}")
+    sj = rep.jobs["svc"]
+    part_a = {"contention": {
+        "streams_equal_solo": True, "cocoa_bit_identical_to_solo": True,
+        "kv_moved_bytes": kv, "parked": sj["serve"]["parked_total"],
+        "restored": sj["serve"]["restored_total"],
+        "preemptions": rep.preemptions, "ticks": rep.ticks,
+        "serve_leases": [t.alloc.get("svc", 0) for t in rep.timeline],
+        "train_leases": [t.alloc.get("train", 0) for t in rep.timeline],
+        "gaps": tr.loss_curve(), "wall_s": wall}}
+    del orch, srv, tr, solo_t, params32
+    torch.cuda.empty_cache()
+
+    # ---- (a2) disaggregated serving, one lease change, fp32 --------------
+    dsv = C.DisaggServeJob(
+        C.JobSpec("svc", "serve", min_nodes=2, max_nodes=c["disagg_nodes"]),
+        cfg32, slots_per_node=c["slots_per_node"], seed=0, device=DEVICE,
+        **srv_kw)
+    if dsv.engine.prefill.params is not dsv.engine.decode.params:
+        fail("cluster disagg: the pools hold two parameter modules")
+    orch = C.ClusterOrchestrator(
+        C.DevicePool(c["disagg_nodes"]),
+        [dsv, hog("hog", 2, 16, priority=1, max_nodes=1)],
+        burst([C.arrive(c["squeeze_at"], "hog")]), dt=1.0, max_ticks=500)
+    rep, wall = checked("disagg_fp32", cfg32, orch, [dsv])
+    div = first_divergence(torch, np, M, cfg32, dsv.engine.prefill.params,
+                           streams(dsv.engine.metrics), want, prompts)
+    changes = lease_changes(rep, "svc")
+    if div is not None or dsv.engine.metrics.handoffs != 8 or changes != 1:
+        fail(f"cluster disagg: first divergence {div}, "
+             f"{dsv.engine.metrics.handoffs} handoffs, {changes} lease "
+             f"changes")
+    part_a["disagg"] = {
+        "streams_equal_solo": True, "handoffs": dsv.engine.metrics.handoffs,
+        "lease_changes": changes,
+        "split_events": [list(e) for e in dsv.engine.metrics.split_events],
+        "kv_moved_bytes": rep.kv_moved_bytes,
+        "preemptions": rep.preemptions, "ticks": rep.ticks, "wall_s": wall}
+    del orch, dsv
+    torch.cuda.empty_cache()
+
+    # ---- (a3) the LM job scaled to zero and resumed ----------------------
+    cfg100 = scale_config(get_config(ARCH), "100m")
+    tc = TrainConfig(learning_rate=3e-3, optimizer="sgdm", momentum=0.9,
+                     remat=False)
+    n_b, seq = c["lm_batch"], c["lm_seq"]
+    data = make_lm_tokens(c["lm_steps"] * n_b, seq, cfg100.vocab_size,
+                          seed=0)
+
+    def batch(i):
+        sl = slice(n_b * i, n_b * (i + 1))
+        return {"tokens": data["tokens"][sl], "labels": data["labels"][sl],
+                "weights": np.ones(n_b, np.float32)}
+
+    was_det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        lm = C.LMTrainJob(C.JobSpec("lm", "train", max_nodes=1), cfg100, tc,
+                          batch_fn=batch, steps=c["lm_steps"], seed=0,
+                          device=DEVICE)
+        orch = C.ClusterOrchestrator(
+            C.DevicePool(1), [lm, hog("hog", 3, 4, priority=2, max_nodes=1)],
+            C.ClusterTrace([C.arrive(0.0, "lm"),
+                            C.arrive(c["squeeze_at"], "hog")]),
+            dt=1.0, max_ticks=500)
+        rep, wall = checked("lm_fp32", cfg100, orch, [])
+        ref = ElasticTrainer(cfg100, tc, seed=0, device=DEVICE)
+        for i in range(c["lm_steps"]):
+            ref.train_step(batch(i))
+        lm_same = same_state(torch, state_on_host(lm.trainer, M),
+                             state_on_host(ref, M))
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+    leases = [t.alloc.get("lm", 0) for t in rep.timeline if "lm" in t.demand]
+    if not lm_same or lm.steps_done != c["lm_steps"] \
+            or 0 not in leases[1:] or lm.trainer.suspended:
+        fail(f"cluster lm: state equal to the uninterrupted run: {lm_same}; "
+             f"{lm.steps_done} steps; leases {leases}")
+    part_a["lm"] = {"bit_identical_to_uninterrupted": True,
+                    "losses": lm.loss_curve(), "leases": leases,
+                    "preemptions": rep.preemptions, "ticks": rep.ticks,
+                    "wall_s": wall}
+    del lm, ref, orch
+    torch.cuda.empty_cache()
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # ---- (b) bf16: the contention trace untraced, then profiled ----------
+    part_b = {}
+    for name in ("untraced", "profiled"):
+        trc = Tracer(name="cluster") if name == "profiled" else None
+        orch, srv, tr = contention(cfg, tracer=trc)
+        prof = {}
+        if trc is None:
+            rep, wall = checked(f"contention_bf16_{name}", cfg, orch, [srv])
+        else:
+            def profiled(drive):
+                box = {}
+                prof.update(profile_run(
+                    torch, lambda: box.setdefault("report", drive())))
+                return box["report"]
+            rep, wall = checked(f"contention_bf16_{name}", cfg, orch, [srv],
+                                run=profiled)
+        sv = rep.jobs["svc"]["serve"]
+        if sv["requests_finished"] != 8 or sv["tokens_generated"] != 8 * 32:
+            fail(f"cluster (b) {name}: {sv['requests_finished']} finished, "
+                 f"{sv['tokens_generated']} tokens")
+        part_b[name] = {
+            # the profiled run's own wall time; `wall` there also holds
+            # the profiler's processing of the window
+            "orchestrator_wall_s": prof.get("wall_s", wall),
+            "wall_with_profiler_s": wall, "ticks": rep.ticks,
+            "simulated": {"makespan_s": rep.makespan,
+                          "utilization": rep.utilization,
+                          "fairness_jain": rep.fairness_jain,
+                          "preemptions": rep.preemptions,
+                          "serve_tokens_per_s": sv["tokens_per_s"],
+                          "serve_ttft_p50_s": sv["ttft_p50_s"],
+                          "serve_tpot_p50_s": sv["tpot_p50_s"]},
+            "kv_moved_bytes": rep.kv_moved_bytes,
+            "final_gap": rep.jobs["train"]["final_metric"]}
+        if trc is not None:
+            part_b[name]["advance_host_ms"] = {
+                job: 1e3 * sum(e.dur for e in trc.spans("advance",
+                                                        track=job))
+                for job in ("svc", "train")}
+            part_b[name]["allocator_host_ms"] = 1e3 * sum(
+                e.dur for e in trc.spans("allocator.decide"))
+            part_b[name]["profile"] = prof
+        del orch, srv, tr
+        torch.cuda.empty_cache()
+    seconds["b"] = time.perf_counter() - t0
+    emit({"phase": "cluster", "arch": ARCH, **c,
+          "reduced": {"cocoa_n": "11,000,000 -> 1,100,000 (time)",
+                      "nodes": "simulated on one card"},
+          "a_fp32": part_a, "b_bf16": part_b, "seconds": seconds})
+    paged = [sum(n[i] for _, n, _ in runs) for i in range(3)]
+    return {"launches": paged[0], "launches_tc": paged[1],
+            "launches_split": paged[2],
+            "by_run": [[k, n[0]] for k, n, _ in runs],
+            "scd_launches": sum(s[0] for _, _, s in runs),
+            "scd_launches_blocked": sum(s[1] for _, _, s in runs),
+            "scd_by_run": [[k, s[0]] for k, _, s in runs]}
+
+
 def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
              **kw):
     """The engine workload on the flat layout; every request must finish
@@ -2987,6 +3320,11 @@ def main() -> None:
     del params32
     torch.cuda.empty_cache()
 
+    # ---- cluster: jobs contending for simulated nodes of the card --------
+    clu = cluster_phase(torch, np, M, cfg, cfg32, ServeEngine,
+                        synthetic_requests, paged_mod)
+    torch.cuda.empty_cache()
+
     # ---- moe: grok-1-314b at full width through the kernel ---------------
     moe = moe_phase(torch, np, F, M, get_config, ServeEngine,
                     synthetic_requests, Request, paged_mod)
@@ -3020,12 +3358,14 @@ def main() -> None:
                             weighted_merge, weighted_merge_plain)
     scd_t, merge_t = train["scd"], train["weighted_merge"]
     all_launches = launches + spec["launches"] + fault["launches"] \
-        + ovl["launches"] + dis["launches"] + moe["launches"]
+        + ovl["launches"] + dis["launches"] + moe["launches"] \
+        + clu["launches"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
-        + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"]
+        + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"] \
+        + clu["launches_tc"]
     all_split = launches_split + fault["launches_split"] \
         + ovl["launches_split"] + dis["launches_split"] \
-        + moe["launches_split"]
+        + moe["launches_split"] + clu["launches_split"]
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -3037,7 +3377,8 @@ def main() -> None:
                              "faults": fault["by_run"],
                              "overlap": ovl["by_run"],
                              "disagg": dis["by_run"],
-                             "moe": moe["by_run"]},
+                             "moe": moe["by_run"],
+                             "cluster": clu["by_run"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
         "routes": {"split (decode)": launches_split,
@@ -3067,6 +3408,13 @@ def main() -> None:
                    "CUDA cores (moe: fp32 chunks and verify QG 30)":
                        moe["launches"] - moe["launches_tc"]
                        - moe["launches_split"],
+                   "tensor cores (cluster: bf16 chunks)":
+                       clu["launches_tc"],
+                   "split (cluster: decode, fp32 and bf16)":
+                       clu["launches_split"],
+                   "CUDA cores (cluster: fp32 chunks)":
+                       clu["launches"] - clu["launches_tc"]
+                       - clu["launches_split"],
                    "CUDA cores": all_launches - all_tc - all_split},
         "sass": sass["paged_attention"],
         "max_abs_err": max(worst["float32"], moe["max_abs_err"]["float32"]),
@@ -3081,11 +3429,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/scd.py:62",
         "replaces_function": "src/repro/kernels/scd.py::scd_pass "
                              "(body _scd_kernel :25)",
-        "launches": cocoa["scale_in"]["launches"],
-        "launches_rebalance": cocoa["rebalance"]["launches"],
-        "launches_blocked": cocoa["scale_in"]["launches_blocked"],
-        "launches_blocked_rebalance": cocoa["rebalance"][
-            "launches_blocked"],
+        "launches": cocoa["scale_in"]["launches"]
+                    + cocoa["rebalance"]["launches"] + clu["scd_launches"],
+        "launches_by_path": {
+            "cocoa": {"scale_in": cocoa["scale_in"]["launches"],
+                      "rebalance": cocoa["rebalance"]["launches"]},
+            "cluster": clu["scd_by_run"]},
+        "launches_blocked": cocoa["scale_in"]["launches_blocked"]
+                            + cocoa["rebalance"]["launches_blocked"]
+                            + clu["scd_launches_blocked"],
         "launches_tc": None, "sass": sass["scd"],
         "max_abs_err": scd_err, "ms": scd_t["ms"],
         "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],

@@ -9,10 +9,12 @@ tick, emits a `fault.inject` trace instant + counter for each, and keeps
 the injected log for post-run inspection.
 
 The events themselves are interpretation-free: each layer routes the
-kinds it understands (the port's serving engine takes the two worker
-kinds, see `ServeEngine.apply_fault`; the disagg and cluster kinds wait
-for those layers).  The module is numpy only and takes its tracer as an
-argument.  Kinds:
+kinds it understands (the serving engine the two worker kinds, see
+`ServeEngine.apply_fault`; `DisaggEngine` its pool routing and handoff
+drops, `DisaggEngine.apply_fault`; the cluster orchestrator routes its
+trace's node failures to each job's recovery path, and `DisaggServeJob`
+hands a lost node to its engine as a ``worker_crash``).  The module is
+numpy only and takes its tracer as an argument.  Kinds:
 
 - ``worker_crash``: abrupt zero-grace loss of a logical worker; every KV
   page / slot resident on it is gone.  `target` picks the worker id

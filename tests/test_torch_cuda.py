@@ -903,3 +903,51 @@ def test_disagg_streams_equal_monolithic_on_the_card(cuda, overlap):
         "prefill_dispatches_total"]
     assert len(rows["decode"]) == cfg.num_layers * got.decode.summarize()[
         "decode_dispatches"]
+
+
+@pytest.mark.cuda
+def test_cluster_contention_on_the_card(cuda):
+    """fp32 (TF32 off): a ServeJob (paged, through the kernel) squeezed by
+    a higher-priority CoCoA job (F = 28, the blocked SCD kernel) on a pool
+    of simulated nodes of the card.  The server's streams equal a solo
+    ServeEngine's on the same requests and params, the CoCoA gap curve,
+    alpha and w equal a solo run's bit for bit, and both kernels were
+    launched by the orchestrated run."""
+    from repro_torch import cluster as C
+    from repro_torch.serve import ServeEngine
+    import repro_torch.kernels.paged_attention as paged_mod
+    cfg = _grouped_small("float32")
+    kw = dict(capacity=4, cache_len=128, prefill_bucket=32, page_size=16)
+
+    def trainer(name):
+        return C.cocoa_train_job(name, iterations=4, k_tasks=4, n=4000, f=28,
+                                 chunk=100, priority=1, max_nodes=2, seed=0)
+
+    srv = C.ServeJob(C.JobSpec("svc", "serve", max_nodes=3), cfg,
+                     kv_layout="paged", seed=0, **kw)
+    tr = trainer("train")
+    assert srv.engine.device.type == "cuda" and tr.solver.w.is_cuda
+    trace = C.ClusterTrace([
+        C.arrive(0.0, "svc"),
+        C.burst(0.0, "svc", 6, prompt_len=[20, 70], max_new_tokens=[6, 12],
+                seed=3),
+        C.arrive(1.0, "train")])
+    orch = C.ClusterOrchestrator(C.DevicePool(3), [srv, tr], trace)
+    assert orch.pool.devices[0].type == "cuda"
+    paged_mod.paged_attention.launches = scd_pass.launches = 0
+    rep = orch.run()
+    torch.cuda.synchronize()
+    assert paged_mod.paged_attention.launches > 0 and scd_pass.launches > 0
+    assert {j["state"] for j in rep.jobs.values()} == {"finished"}
+    assert rep.preemptions >= 1
+    want = ServeEngine(cfg, params=srv.engine.params, kv_layout="paged",
+                       seed=0, **kw).run(_serve_burst(cfg.vocab_size))
+    assert {r.rid: r.generated for r in srv.engine.metrics.requests} == \
+        {r.rid: r.generated for r in want.requests}
+    solo = trainer("solo")
+    C.ClusterOrchestrator(C.DevicePool(3), [solo],
+                          C.ClusterTrace([C.arrive(0.0, "solo")])).run()
+    assert solo.loss_curve() == tr.loss_curve()
+    assert np.array_equal(solo.solver.store.state["alpha"],
+                          tr.solver.store.state["alpha"])
+    assert torch.equal(solo.solver.w, tr.solver.w)

@@ -21,8 +21,8 @@ is shown, tick by tick, through a recording policy.
 
 The handoff, tracing, overload, moe and launcher tests are in
 tests/test_torch_disagg_handoff.py, the fault tests in
-tests/test_torch_disagg_faults.py; the orchestrator test waits for the
-cluster layer (ROADMAP A8)."""
+tests/test_torch_disagg_faults.py; the orchestrator test
+(tests/test_disagg.py:268) is in tests/test_torch_cluster_faults.py."""
 
 import jax
 import numpy as np

@@ -139,12 +139,16 @@ SCANNED_MODULES = ["faults", "core.cocoa", "core.local_sgd", "core.nets",
                     "kernels.scd", "kernels.chunk_reduce", "kernels.ops",
                     "kernels.flash_attention", "data.pipeline",
                     "optim.optimizers", "optim.schedule", "launch.steps",
-                    "launch.train", "launch.elastic", "checkpoint.ckpt"]
+                    "launch.train", "launch.elastic", "checkpoint.ckpt",
+                    "cluster.trace", "cluster.allocator", "cluster.pool",
+                    "cluster.jobs", "cluster.orchestrator", "cluster"]
 
 
 @pytest.mark.parametrize("module", SCANNED_MODULES)
 def test_training_modules_import_neither_jax_nor_repro(module):
     path = PORT / (module.replace(".", "/") + ".py")
+    if not path.is_file():  # a package: its __init__
+        path = PORT / module.replace(".", "/") / "__init__.py"
     assert path.is_file(), path
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
 
@@ -187,3 +191,48 @@ def test_params_from_numpy_defaults_to_cuda(fn):
     mod = importlib.import_module(f"repro_torch.{fn}")
     sig = inspect.signature(mod.params_from_numpy)
     assert sig.parameters["device"].default == "cuda"
+
+
+def _cluster_ctor(name, **kw):
+    """Build one of the cluster's device-holding objects at smoke size;
+    `kw` is the device keyword, or nothing for the default."""
+    from repro_torch import cluster as C
+    from repro_torch.configs import TrainConfig
+    cfg = smoke_variant(get_config("smollm-360m"))
+    spec = C.JobSpec(name, "serve" if "serve" in name else "train")
+    if name == "pool":
+        return C.DevicePool(2, **kw)
+    if name == "cocoa_train_job":
+        return C.cocoa_train_job("t", iterations=1, k_tasks=2, n=40, f=4,
+                                 chunk=10, **kw)
+    if name == "lm_train_job":
+        return C.LMTrainJob(spec, cfg, TrainConfig(), batch_fn=dict,
+                            steps=1, **kw)
+    if name == "serve_job":
+        return C.ServeJob(spec, cfg, capacity=2, cache_len=16, **kw)
+    return C.DisaggServeJob(spec, cfg, capacity=2, cache_len=16, **kw)
+
+
+@pytest.mark.parametrize("name", ["pool", "cocoa_train_job", "lm_train_job",
+                                  "serve_job", "disagg_serve_job"])
+def test_cluster_defaults_to_cuda_and_refuses_without_it(monkeypatch, name):
+    """The pool lists the CUDA devices and each job builds its engine,
+    solver or trainer on CUDA unless told otherwise; without a card they
+    raise, and with the CPU named they build there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cluster_ctor(name)
+    kw = (dict(devices=[torch.device("cpu")]) if name == "pool"
+          else dict(device="cpu"))
+    obj = _cluster_ctor(name, **kw)
+    if name == "pool":
+        assert obj.devices == [torch.device("cpu")] * 2
+    elif name == "cocoa_train_job":
+        assert obj.solver.device.type == "cpu"
+    elif name == "lm_train_job":
+        assert obj.trainer.devices == [torch.device("cpu")]
+    else:
+        eng = obj.engine
+        for half in ([eng.prefill, eng.decode] if hasattr(eng, "prefill")
+                     else [eng]):
+            assert half.device.type == "cpu"

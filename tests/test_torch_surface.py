@@ -1,13 +1,14 @@
 """The port's package surface matches the JAX package's: every name the
-JAX package's `repro.serve` and `repro.models` export imports from
-`repro_torch.serve` and `repro_torch.models`, and each port `__all__`
-lists it.  The sharding-only names of `repro.models` (parameter and cache
+JAX package's `repro.serve`, `repro.models` and `repro.cluster` export
+imports from `repro_torch.serve`, `repro_torch.models` and
+`repro_torch.cluster`, and each port `__all__` lists it.  The sharding-only names of `repro.models` (parameter and cache
 partition specs and shape structs, the parameter count over a mesh) wait
 for the TPU-pod tooling (ROADMAP A10)."""
 import importlib
 
 import pytest
 
+import repro.cluster
 import repro.models
 import repro.serve
 
@@ -15,7 +16,7 @@ SHARDING_ONLY = {"param_specs", "param_sds", "cache_specs", "cache_sds",
                  "count_params"}
 
 
-@pytest.mark.parametrize("package", ["serve", "models"])
+@pytest.mark.parametrize("package", ["serve", "models", "cluster"])
 def test_every_reference_export_imports_from_the_port(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
