@@ -173,11 +173,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    flat     — the flat KV layout at full width, bf16: h2o-danube-1.8b and
               smollm-360m (15 heads over 5 KV heads, the flat head layout)
               on the engine workload, every request finishing (each
-              after a warm-up run, then again under torch.profiler,
-              device activity only); then
+              after a warm-up run; danube's then again under
+              torch.profiler, device activity only); then
               spec="draft" on the flat layout with a 4-layer
               h2o-danube-1.8b drafting for itself (draft params = the
               target's).
+   families — the model families beside dense and moe, no kernel on
+              their path (every kernel's count zeroed before, read after:
+              0): rwkv6-1.6b (ssm) and whisper-small (audio) at full size,
+              llama-3.2-vision-90b (vlm) at published widths with one
+              block of 5 layers (4 self + 1 cross; its cross gate set to
+              0.5, zeros at init), random weights from a seed.  Each: (a)
+              fp32 (TF32 off): a 128-token prefill, then 64 decode_steps,
+              each step's logits against forward's over all 192 tokens,
+              and the cache after them against a prefill of all 192
+              (rwkv's shift/wkv state; k/v, xk/xv), at rtol 2e-2, atol
+              1e-1 (tests/test_arch_smoke.py's prefill-vs-decode
+              tolerance); (b) bf16: prefill ms, greedy decode through
+              launch.steps.make_serve_step (a step's device time against
+              the bytes it must move, a launch's host time, tokens/s);
+              (c) bf16 training steps through make_train_step (rwkv 8 x
+              1024, whisper 4 x 448 tokens): step wall time, peak memory,
+              finite loss, parameters moved.  Then jamba-1.5-large-398b's
+              mamba mixer at its published widths (d_inner 16384, state
+              16; the model does not fit the card) in fp32: mamba_forward
+              over 2 x 1024 tokens against 1024 stepwise mamba_decode
+              calls (outputs, conv and h states).
 5. cocoa    — the paper's GLM at HIGGS's shape: CoCoA/SCD on the uni-task
               engine over 11,000,000 x 28 synthetic samples in 1,100
               chunks, lambda 1e-3, scaling in 16 -> 2 over 12 iterations
@@ -246,6 +267,7 @@ PROMPT_LEN = (32, 1536)  # the serving workloads' prompt lengths (8 x 32 new)
 FLAT = dict(capacity=8, cache_len=2048, prefill_bucket=64, kv_layout="flat")
 SPEC_K = 4  # the JAX engine's default draft depth
 FLAT_ARCH = "smollm-360m"
+FLAT_PROFILED = (ARCH,)  # flat runs profiled (smollm's is left out: time)
 DRAFT_LAYERS = 4  # depth of the draft arm's target (and draft) model
 # the faults phase: (a) crash recovery on the engine burst over two
 # workers: a crash while the first long prompts are mid-chunked-prefill on
@@ -369,6 +391,35 @@ LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
                 hetero="2.0x2", workers=4, seed=0)
 LM_ELASTIC = dict(batch=8, seq=4096, n_seqs=256, chunk_size=8, k0=4,
                   scale_at=1, k1=2, steps=2, suspend_after=1, det_steps=2)
+# the remaining model families (phase families): each model at its
+# published widths, random weights from a seed; "gate" is the fp32 check
+# (prefill of `prompt`, then `decode` decode_steps against forward over
+# prompt + decode), "bf16" the reported run (B prompts of `prompt` tokens,
+# `steps` greedy decode steps), "train" steps of B x seq tokens
+FAMILY_RUNS = {
+    "rwkv6-1.6b": dict(layers=None, gate=dict(B=2, prompt=128, decode=64,
+                                              state_prompt=32,
+                                              state_whole=48),
+                       bf16=dict(B=8, prompt=1024, steps=32),
+                       train=dict(B=8, seq=1024, steps=2)),
+    "whisper-small": dict(layers=None,
+                          gate=dict(B=2, prompt=128, decode=64),
+                          bf16=dict(B=4, prompt=448, steps=32),
+                          train=dict(B=4, seq=448, steps=2)),
+    # one block of 5 (4 self-attention + 1 cross-attention layers) of 100
+    "llama-3.2-vision-90b": dict(layers=5,
+                                 gate=dict(B=2, prompt=128, decode=64),
+                                 bf16=dict(B=2, prompt=512, steps=16),
+                                 train=None),
+}
+# jamba-1.5-large-398b: one mamba mixer at its published widths (a whole
+# 8-layer block holds 77.3 GB of bf16 experts; the model runs on the CPU)
+JAMBA_MIXER = dict(arch="jamba-1.5-large-398b", B=2, S=1024)
+# tests/test_arch_smoke.py::test_prefill_matches_decode's tolerance:
+# chunked prefill against stepwise decode
+FAMILY_TOL = dict(rtol=2e-2, atol=1e-1)
+FAMILY_CROSS_GATE = 0.5  # vlm's cross gate (zeros at init: no cross-attn)
+FAMILY_DECODE_WINDOW = 3  # bf16 decode steps profiled
 
 
 T0 = time.perf_counter()
@@ -2636,10 +2687,11 @@ def flat_run(np, ServeEngine, synthetic_requests, cfg, params, profile=None,
 def flat_phase(torch, np, M, cfg, get_config, ServeEngine,
                synthetic_requests):
     """The flat KV layout at full width, bf16: h2o-danube-1.8b and
-    smollm-360m (a warm-up run, the measured run, then one under the
-    profiler, device activity only; no custom kernel runs here, so the
-    profile's share is the elementwise kernels'), then spec="draft" with a 4-layer danube drafting
-    for itself."""
+    smollm-360m (a warm-up run, the measured run, then for the archs of
+    FLAT_PROFILED one under the profiler, device activity only; no custom
+    kernel runs here, so the profile's share is the elementwise
+    kernels'), then spec="draft" with a 4-layer danube drafting for
+    itself."""
     from repro_torch.models import attention as attn
     out = {}
     for arch, c in ((ARCH, cfg), (FLAT_ARCH, get_config(FLAT_ARCH))):
@@ -2649,9 +2701,11 @@ def flat_phase(torch, np, M, cfg, get_config, ServeEngine,
         torch.cuda.reset_peak_memory_stats()
         s, _, _ = flat_run(np, ServeEngine, synthetic_requests, c, params)
         peak = torch.cuda.max_memory_allocated()
-        prof = flat_run(np, ServeEngine, synthetic_requests, c, params,
-                        profile=lambda run: profile_run(
-                            torch, run, kernel="elementwise"))[2]
+        prof = {}
+        if arch in FLAT_PROFILED:
+            prof = flat_run(np, ServeEngine, synthetic_requests, c, params,
+                            profile=lambda run: profile_run(
+                                torch, run, kernel="elementwise"))[2]
         out[arch] = {"layers": c.num_layers, "d_model": c.d_model,
                      "heads": c.num_heads, "kv_heads": c.kv_heads(),
                      "head_layout": attn.head_layout(c)[0],
@@ -2685,6 +2739,360 @@ def flat_phase(torch, np, M, cfg, get_config, ServeEngine,
     del params
     torch.cuda.empty_cache()
     emit({"phase": "flat", **FLAT, "dtype": cfg.dtype, "runs": out})
+
+
+def excess(got, want, rtol, atol) -> float:
+    """max of |got - want| - (atol + rtol |want|): <= 0 when close."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def family_memory(torch, cfg, B, gen, dtype):
+    """The vlm patch / audio frame stub embeddings (B, T, D), or None."""
+    from repro_torch.launch.steps import memory_len
+    T = memory_len(cfg)
+    if not T:
+        return None
+    return (torch.randn((B, T, cfg.d_model), generator=gen, device=DEVICE)
+            * 0.02).to(dtype)
+
+
+def family_params(torch, M, cfg):
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                           DEVICE)
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            params.blocks.cross_gate.fill_(FAMILY_CROSS_GATE)
+    return params
+
+
+def record_wkv_decay(torch, ssm):
+    """Wrap `ssm.rwkv_wkv_chunked` so every multi-token call logs, per
+    chunk offset, the lowest cumulative log decay from the chunk's start
+    over rows, heads and channels.  Returns (log, restore)."""
+    real = ssm.rwkv_wkv_chunked
+    lows = []
+
+    def wrapped(r, k, v, log_w, u, state):
+        B, S, H, hd = r.shape
+        if S > 1:
+            c = min(ssm.RWKV_CHUNK, S)
+            lows.append(log_w.float().reshape(B, S // c, c, H, hd)
+                        .cumsum(2).amin(dim=(0, 1, 3, 4)))
+        return real(r, k, v, log_w, u, state)
+
+    ssm.rwkv_wkv_chunked = wrapped
+    return lows, lambda: setattr(ssm, "rwkv_wkv_chunked", real)
+
+
+def clip_free_until(torch, lows, c) -> int:
+    """The last chunk offset t (of chunks of c) at which the reference's
+    log-space clip at -60 cannot have engaged in any logged call: every
+    earlier offset i < t kept its cumulative decay >= -60, so the chunked
+    scan at t is exact.  c - 1 when it never engaged."""
+    m = torch.stack([x for x in lows if x.numel() == c]).amin(0)
+    bad = (m < -60.0).nonzero()
+    return int(bad[0, 0]) if len(bad) else c - 1
+
+
+def family_gate(torch, M, cfg, params, spec):
+    """fp32: a prefill of `prompt` tokens, then `decode` decode_steps;
+    each step's logits against forward's over every token at its
+    position, and the cache after the last step against a prefill of
+    every token (rwkv's shift and wkv state; k/v rows, the memory's
+    xk/xv), at FAMILY_TOL.
+
+    ssm: the JAX package's chunked WKV clips its log-space decays at -60,
+    so where a chunk's cumulative decay passes -60 (at the init's decay of
+    ~e^-1 a token: a chunk's last offsets) forward is not the stepwise
+    recurrence, in the reference too (tests/test_torch_families_decode.py
+    holds the port to the reference's gap).  There the logits gate holds
+    the offsets the clip cannot reach in this run (`clip_free_until`) and
+    reports the rest and the 192-token state; the state gate holds a
+    prefill of `state_prompt` (one chunk under 64 tokens, clip-free by the
+    same log) plus decode steps to a prefill of `state_whole`."""
+    from repro_torch.models import ssm
+    B, P, D = spec["B"], spec["prompt"], spec["decode"]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + D), generator=gen,
+                         device=DEVICE)
+    mem = family_memory(torch, cfg, B, gen, torch.float32)
+    lows, restore = record_wkv_decay(torch, ssm)
+
+    def states(a, b):
+        return {k: (float((v - b["blocks"][k]).abs().max()),
+                    excess(v, b["blocks"][k], **FAMILY_TOL))
+                for k, v in a["blocks"].items()}
+
+    try:
+        with torch.inference_mode():
+            full = M.forward(cfg, params, toks, memory=mem)
+            _, cache = M.prefill(cfg, params, toks[:, :P], memory=mem,
+                                 cache_len=P + D)
+            errs = []  # (position, max abs err, excess over FAMILY_TOL)
+            for t in range(P, P + D):
+                logits, cache = M.decode_step(cfg, params, cache,
+                                              toks[:, t:t + 1], t)
+                errs.append((t, float((logits[:, 0] - full[:, t]).abs()
+                                      .max()),
+                             excess(logits[:, 0], full[:, t],
+                                    **FAMILY_TOL)))
+            _, whole = M.prefill(cfg, params, toks, memory=mem,
+                                 cache_len=P + D)
+            state = states(cache, whole)
+            if cfg.family == "ssm":
+                Ps, Pw = spec["state_prompt"], spec["state_whole"]
+                _, short = M.prefill(cfg, params, toks[:, :Ps])
+                for t in range(Ps, Pw):
+                    _, short = M.decode_step(cfg, params, short,
+                                             toks[:, t:t + 1], t)
+                _, ref = M.prefill(cfg, params, toks[:, :Pw])
+                short_state = states(short, ref)
+    finally:
+        restore()
+    del full
+    out = {"B": B, "prompt": P, "decode_steps": D,
+           "logits_max_abs_err": max(e for _, e, _ in errs),
+           "state_max_abs_err": {k: e[0] for k, e in state.items()}}
+    gated, gated_state = errs, state
+    if cfg.family == "ssm":
+        c = min(ssm.RWKV_CHUNK, P + D)
+        until = clip_free_until(torch, lows, c)
+        if clip_free_until(torch, lows, Pw) < Pw - 1 \
+                or clip_free_until(torch, lows, Ps) < Ps - 1:
+            fail(f"families {cfg.name}: the clip engaged inside the "
+                 f"{Ps}- or {Pw}-token prefill; its state gate is void")
+        gated = [e for e in errs if e[0] % c <= until]
+        gated_state = short_state
+        out.update({
+            "chunk": c, "clip_free_until_offset": until,
+            "lowest_chunk_cum_decay": float(torch.stack(
+                [x for x in lows if x.numel() == c]).amin()),
+            "logits_gated_positions": len(gated),
+            "logits_max_abs_err_gated": max(e for _, e, _ in gated),
+            "logits_past_clip": [[t, e] for t, e, _ in errs
+                                 if t % c > until],
+            "state_gate": {"prompt": Ps, "whole": Pw,
+                           "max_abs_err": {k: e[0] for k, e
+                                           in short_state.items()}}})
+    bad = [(t, e) for t, e, x in gated if not x <= 0]
+    if bad:
+        fail(f"families {cfg.name}: decode logits off forward's at "
+             f"{bad[:4]} (FAMILY_TOL {FAMILY_TOL})")
+    bad = {k: e for k, e in gated_state.items() if not e[1] <= 0}
+    if bad:
+        fail(f"families {cfg.name}: prefill + decode state differs from "
+             f"the prefill of every token: {bad}")
+    return out
+
+
+def family_bf16(torch, M, steps_mod, cfg, params, spec):
+    """bf16: prefill (timed), greedy decode through `make_serve_step`
+    (each launch's host time; tokens/s over the loop), then a window of
+    decode steps under torch.profiler (a step's device time against the
+    bytes it must move: every weight once, the recurrent state read and
+    written, the K/V rows and the memory's xk/xv read; the idle share, the
+    largest kernels) and under cProfile (the host's largest items)."""
+    B, P, N = spec["B"], spec["prompt"], spec["steps"]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         device=DEVICE)
+    mem = family_memory(torch, cfg, B, gen, torch.bfloat16)
+    serve = steps_mod.make_serve_step(cfg)
+    with torch.inference_mode():
+        def prefill():
+            return M.prefill(cfg, params, toks, memory=mem,
+                             cache_len=P + N)
+
+        prefill_ms = cuda_ms(torch, prefill)
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        out, host_ms = [], []
+        t0 = time.perf_counter()
+        for t in range(P, P + N):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            h0 = time.perf_counter()
+            logits, cache = serve(params, cache, tok, t)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        stream = torch.cat(out, 1)
+        if not bool(torch.isfinite(logits).all()) or stream.shape != (B, N) \
+                or not bool(((stream >= 0) & (stream < cfg.vocab_size))
+                            .all()):
+            fail(f"families {cfg.name}: bf16 decode gave non-finite logits "
+                 f"or tokens out of range")
+        tok = out[-1]
+
+        def window():  # steps at the last position: the cache stays put
+            for _ in range(FAMILY_DECODE_WINDOW):
+                serve(params, cache, tok, P + N - 1)
+
+        prof = profile_run(torch, window, kernel="elementwise", attempts=3)
+        if prof["device_busy_s"] is None:
+            fail(f"families {cfg.name}: no device record of the decode "
+                 f"window: {prof}")
+        host_top = host_profile(torch, window, n=6)
+    step_ms = prof["device_busy_s"] * 1e3 / FAMILY_DECODE_WINDOW
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    # what the timed step moves besides the weights: the recurrent state
+    # read and written; the K/V rows (all live at the last step: the cache
+    # is P + N rows) and the memory's xk/xv read
+    cache_bytes = sum(v.numel() * v.element_size()
+                      * (2 if k in ("shift_a", "shift_f", "wkv") else 1)
+                      for k, v in cache["blocks"].items())
+    host_ms.sort()
+    return {"B": B, "prompt": P, "steps": N, "prefill_ms": prefill_ms,
+            "decode_step_device_ms": step_ms,
+            "weight_bytes": weight_bytes,
+            "weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "cache_bytes": cache_bytes,
+            "bound_ms": (weight_bytes + cache_bytes)
+                        / HBM_BYTES_PER_S * 1e3,
+            "decode_launch_host_ms_median": host_ms[len(host_ms) // 2],
+            "decode_launch_host_ms_range": [host_ms[0], host_ms[-1]],
+            "decode_wall_s": decode_s, "tokens_per_s": B * N / decode_s,
+            "decode_window": {"steps": FAMILY_DECODE_WINDOW,
+                              "wall_s": prof["wall_s"],
+                              "device_idle_share": prof["device_idle_share"],
+                              "top_kernels": prof["top_kernels"][:5],
+                              "host_top": host_top}}
+
+
+def family_train(torch, M, steps_mod, cfg, params, spec):
+    """bf16 sgdm with remat through `make_train_step`: each step's wall
+    time and the peak memory (with a copy of the weights held to check
+    that they moved); the loss finite, the parameters moved."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.optim import init_opt_state
+    B, S = spec["B"], spec["seq"]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    step = steps_mod.make_train_step(cfg, TrainConfig(learning_rate=1e-3,
+                                                      remat=True))
+    opt = init_opt_state(M.param_dict(params))
+    before = {k: v.detach().clone() for k, v in M.param_dict(params).items()}
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(spec["steps"]):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=gen, device=DEVICE),
+                 "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=gen, device=DEVICE),
+                 "weights": torch.ones((B,), device=DEVICE)}
+        mem = family_memory(torch, cfg, B, gen, torch.bfloat16)
+        if mem is not None:
+            batch["memory"] = mem
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(int(not torch.equal(M.param_dict(params)[k].detach(), v))
+                for k, v in before.items())
+    if not all(math.isfinite(x) for x in losses) or not moved:
+        fail(f"families {cfg.name}: train losses {losses}, {moved} of "
+             f"{len(before)} leaves moved")
+    return {"B": B, "seq": S, "losses": losses, "step_wall_s": walls,
+            "peak_mem_gb": peak / 1e9,
+            "of_it_weight_copy_gb": sum(v.numel() * v.element_size()
+                                        for v in before.values()) / 1e9,
+            "leaves_moved": moved, "leaves": len(before)}
+
+
+def mamba_mixer_gate(torch, get_config):
+    """jamba's mamba mixer at its published widths in fp32: mamba_forward
+    over B x S tokens against S stepwise mamba_decode calls from the same
+    zero state (outputs, final conv and h states)."""
+    from repro_torch.models import layers, ssm
+    cfg = dataclasses.replace(get_config(JAMBA_MIXER["arch"]),
+                              dtype="float32")
+    B, S = JAMBA_MIXER["B"], JAMBA_MIXER["S"]
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    p = layers.init_tree(ssm.mamba_defs(cfg), gen, torch.float32,
+                         torch.device(DEVICE))
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=DEVICE)
+    di = cfg.ssm_expand * cfg.d_model
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out, (conv, h) = ssm.mamba_forward(cfg, p, x)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        state = (torch.zeros((B, cfg.ssm_conv_width - 1, di),
+                             device=DEVICE),
+                 torch.zeros((B, di, cfg.ssm_state_dim), device=DEVICE))
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(S):
+            o, state = ssm.mamba_decode(cfg, p, x[:, t:t + 1], state)
+            outs.append(o)
+        step = torch.cat(outs, 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    res = {"out": (out, step), "conv": (conv, state[0]),
+           "h": (h, state[1])}
+    errs = {k: float((a - b).abs().max()) for k, (a, b) in res.items()}
+    bad = {k: errs[k] for k, (a, b) in res.items()
+           if not excess(a, b, **FAMILY_TOL) <= 0}
+    if bad:
+        fail(f"families mamba mixer: chunked != stepwise: {bad}")
+    return {"arch": JAMBA_MIXER["arch"], "d_model": cfg.d_model,
+            "d_inner": di, "state": cfg.ssm_state_dim,
+            "conv": cfg.ssm_conv_width, "B": B, "S": S,
+            "params": sum(v.numel() for v in p.values()),
+            "max_abs_err": errs, "forward_s": forward_s,
+            "stepwise_decode_s": decode_s}
+
+
+def families_phase(torch, M, get_config, steps_mod, counted):
+    """The ssm, audio and vlm models at published widths (fp32 gates,
+    bf16 prefill, decode and training) and jamba's mamba mixer.  No
+    kernel of the port lies on this path (the scans, the WKV recurrence
+    and cross-attention are plain PyTorch, as the JAX package leaves them
+    to XLA): every kernel's count is zeroed before and read after."""
+    for k in counted.values():
+        for attr in ("launches", "launches_tc", "launches_split",
+                     "launches_blocked"):
+            if hasattr(k, attr):
+                setattr(k, attr, 0)
+    t_phase = time.perf_counter()
+    runs = {}
+    for arch, run in FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        if run["layers"]:
+            base = dataclasses.replace(base, num_layers=run["layers"])
+        cfg32 = dataclasses.replace(base, dtype="float32")
+        params = family_params(torch, M, cfg32)
+        n_params = sum(p.numel() for p in params.parameters())
+        gate = family_gate(torch, M, cfg32, params, run["gate"])
+        del params
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(base, dtype="bfloat16")
+        params = family_params(torch, M, cfg)
+        bf16 = family_bf16(torch, M, steps_mod, cfg, params, run["bf16"])
+        train = (family_train(torch, M, steps_mod, cfg, params, run["train"])
+                 if run["train"] else None)
+        del params
+        torch.cuda.empty_cache()
+        runs[arch] = {"family": cfg.family, "layers": cfg.num_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                      "params": n_params, "fp32_gate": gate, "bf16": bf16,
+                      "train": train, "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    mixer = mamba_mixer_gate(torch, get_config)
+    mixer["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launches = {name: k.launches for name, k in counted.items()}
+    if any(launches.values()):
+        fail(f"families: kernels launched on a path that has none: "
+             f"{launches}")
+    emit({"phase": "families", "tolerance": FAMILY_TOL,
+          "vlm_cross_gate": FAMILY_CROSS_GATE, "runs": runs,
+          "mamba_mixer": mixer, "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
@@ -3333,6 +3741,14 @@ def main() -> None:
     # ---- flat: the flat KV layout at full width, bf16 --------------------
     flat_phase(torch, np, M, cfg, get_config, ServeEngine,
                synthetic_requests)
+    torch.cuda.empty_cache()
+
+    # ---- families: ssm, audio and vlm at published widths; jamba's mixer --
+    from repro_torch.launch import steps as steps_mod
+    fam = families_phase(torch, M, get_config, steps_mod, {
+        "paged_attention": paged_attention, "scd_pass": scd_pass,
+        "weighted_merge": weighted_merge, "flash_attention": flash_attention})
+    torch.cuda.empty_cache()
 
     # ---- 5. cocoa, 6. lsgd: the training path at full width --------------
     torch.cuda.reset_peak_memory_stats()
@@ -3359,7 +3775,7 @@ def main() -> None:
     scd_t, merge_t = train["scd"], train["weighted_merge"]
     all_launches = launches + spec["launches"] + fault["launches"] \
         + ovl["launches"] + dis["launches"] + moe["launches"] \
-        + clu["launches"]
+        + clu["launches"] + fam["paged_attention"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
         + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"] \
         + clu["launches_tc"]
@@ -3378,7 +3794,8 @@ def main() -> None:
                              "overlap": ovl["by_run"],
                              "disagg": dis["by_run"],
                              "moe": moe["by_run"],
-                             "cluster": clu["by_run"]},
+                             "cluster": clu["by_run"],
+                             "families": fam["paged_attention"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
         "routes": {"split (decode)": launches_split,
@@ -3430,11 +3847,13 @@ def main() -> None:
         "replaces_function": "src/repro/kernels/scd.py::scd_pass "
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"]
-                    + cocoa["rebalance"]["launches"] + clu["scd_launches"],
+                    + cocoa["rebalance"]["launches"] + clu["scd_launches"]
+                    + fam["scd_pass"],
         "launches_by_path": {
             "cocoa": {"scale_in": cocoa["scale_in"]["launches"],
                       "rebalance": cocoa["rebalance"]["launches"]},
-            "cluster": clu["scd_by_run"]},
+            "cluster": clu["scd_by_run"],
+            "families": fam["scd_pass"]},
         "launches_blocked": cocoa["scale_in"]["launches_blocked"]
                             + cocoa["rebalance"]["launches_blocked"]
                             + clu["scd_launches_blocked"],
@@ -3448,7 +3867,10 @@ def main() -> None:
         "replaces": "src/repro/kernels/chunk_reduce.py:25",
         "replaces_function": "src/repro/kernels/chunk_reduce.py::"
                              "weighted_merge (body _merge_kernel :17)",
-        "launches": lsgd["launches"], "launches_tc": None,
+        "launches": lsgd["launches"] + fam["weighted_merge"],
+        "launches_by_path": {"lsgd": lsgd["launches"],
+                             "families": fam["weighted_merge"]},
+        "launches_tc": None,
         "sass": sass["chunk_reduce"],
         "max_abs_err": merge_err["float32"],
         "max_abs_err_bf16": merge_err["bfloat16"],
@@ -3462,7 +3884,10 @@ def main() -> None:
         "replaces_function": "src/repro/kernels/flash_attention.py::"
                              "flash_attention (body _flash_kernel :25; "
                              "model-layout wrapper kernels/ops.py:24)",
-        "launches": flash["launches"], "launches_tc": flash["launches_tc"],
+        "launches": flash["launches"] + fam["flash_attention"],
+        "launches_by_path": {"flash": flash["launches"],
+                             "families": fam["flash_attention"]},
+        "launches_tc": flash["launches_tc"],
         "sass": sass["flash_attention"],
         "max_abs_err": flash_err["float32"],
         "max_abs_err_bf16": flash_err["bfloat16"],

@@ -1,5 +1,6 @@
-"""Train steps of the LM trainer on one device: the Chicle-weighted
-SGD/AdamW step (with gradient accumulation) and true local SGD.
+"""Steps of the LM trainer and of generation on one device: the Chicle-
+weighted SGD/AdamW step (with gradient accumulation), true local SGD, and
+the prefill and flat-cache decode (serve) steps.
 
 Train batches carry a per-example `weights` vector assembled by
 `data.ChunkBatchPipeline` from the chunk->worker table; the weighted-mean
@@ -23,6 +24,15 @@ from ..models import model as M
 from ..optim import optimizers as opt
 
 Tree = Dict[str, torch.Tensor]
+
+
+def memory_len(cfg: ModelConfig) -> int:
+    """Length of the second input stream: audio frames, vlm patches."""
+    if cfg.family == "audio":
+        return cfg.encoder_seq
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens
+    return 0
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -147,3 +157,22 @@ def make_lsgd_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, new_mom, {"loss": torch.stack(losses).mean()}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, window: Optional[int] = None):
+    """(params, batch) -> (last-token logits, cache) of `M.prefill` over
+    batch["tokens"] (and batch["memory"] for vlm/audio)."""
+    def prefill_step(params, batch):
+        return M.prefill(cfg, params, batch["tokens"],
+                         memory=batch.get("memory"), window=window)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, window: Optional[int] = None,
+                    ring: bool = False):
+    """(params, cache, token, pos) -> (logits, cache) of one flat-cache
+    `M.decode_step` (the cache updated in place)."""
+    def serve_step(params, cache, token, pos):
+        return M.decode_step(cfg, params, cache, token, pos, window=window,
+                             ring=ring)
+    return serve_step

@@ -11,6 +11,11 @@ CLI:
       --smoke --steps 50 --global-batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
       --scale 100m --steps 300 --elastic 8:4,30:2,60:4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --smoke --device cpu
+
+vlm and audio batches carry a `memory` stream of stub zeros (B, T,
+d_model) in the model's dtype, as the JAX package's loop does.
 """
 from __future__ import annotations
 
@@ -137,6 +142,10 @@ def train(arch: str, *, scale: Optional[str] = None, smoke: bool = False,
         batch = steps.to_device(
             scheduled_batch(it, pipe, policies, seed=seed, stats=stats),
             device)
+        if steps.memory_len(cfg):  # audio frames / vlm patches: stub zeros
+            batch["memory"] = torch.zeros(
+                (global_batch, steps.memory_len(cfg), cfg.d_model),
+                dtype=M.torch_dtype(cfg), device=device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         assignment.end_iteration()
 

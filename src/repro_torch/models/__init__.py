@@ -1,5 +1,6 @@
-"""The port's models (`repro_torch.models`): the dense and moe transformer
-families, with the JAX package's model API re-exported from `model`.  The
+"""The port's models (`repro_torch.models`): every family of the JAX
+package (dense, moe, hybrid, vlm, audio, ssm), with its model API
+re-exported from `model`.  The
 sharding-only names of the JAX package's `models` (param_specs,
 param_sds, cache_specs, cache_sds, count_params) have no counterpart on
 one device yet."""

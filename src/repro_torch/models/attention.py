@@ -20,7 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .layers import ParamDef, rms_norm, rope
+from .layers import ParamDef, head_out, head_proj, rms_norm, rope
 
 NEG_INF = -1e30
 TENSOR_PAD = 16  # pad target of the Q heads (the JAX package's model axis)
@@ -87,19 +87,14 @@ def expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
     return k.index_select(-2, idx)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum('bsd,dhe->bshe') as one matmul."""
-    d, h, e = w.shape
-    return (x @ w.reshape(d, h * e)).reshape(*x.shape[:-1], h, e)
-
-
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q (B,S,H_pad,hd), k/v (B,S,KV,hd) (compact)."""
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    """x: (B, S, D) -> q (B,S,H_pad,hd), k/v (B,S,KV,hd) (compact).
+    positions None: no rotary embedding (cross-attention, the encoder)."""
+    q = head_proj(x, p["wq"])
+    k = head_proj(x, p["wk"])
+    v = head_proj(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -107,15 +102,17 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if positions is None:
+        return q, k, v
     return rope(q, positions, cfg.rope_theta), \
         rope(k, positions, cfg.rope_theta), v
 
 
-def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
                window: int) -> torch.Tensor:
     """(Sq, Sk) additive fp32 causal (and sliding-window) bias."""
     d = q_pos[..., :, None] - k_pos[..., None, :]
-    ok = d >= 0
+    ok = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
     if window:
         ok &= d < window
     zero = torch.zeros((), dtype=torch.float32, device=d.device)
@@ -123,10 +120,11 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
 
 
 def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, *, window: int = 0,
-                      q_block: int = 512) -> torch.Tensor:
-    """Exact causal attention over query blocks (plain matmul + softmax, as
-    the JAX package leaves it to XLA).  While autograd records, each query
+                      v: torch.Tensor, *, causal: bool = True,
+                      window: int = 0, q_block: int = 512) -> torch.Tensor:
+    """Exact attention over query blocks (plain matmul + softmax, as the
+    JAX package leaves it to XLA), causal unless `causal` is False (the
+    bidirectional encoder).  While autograd records, each query
     block is recomputed in backward (the JAX package's `@jax.checkpoint
     one_block`), so no block's fp32 scores and probabilities outlive it.
 
@@ -143,7 +141,7 @@ def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     def one_block(q_blk: torch.Tensor, q0: int) -> torch.Tensor:
         qb = q_blk.shape[1]
         bias = _mask_bias(q0 + torch.arange(qb, device=q.device), k_pos,
-                          window=window)
+                          causal=causal, window=window)
         qs = (q_blk * scale).transpose(1, 2)  # (B, H, qb, hd), q's dtype
         # fp32 scores from the working-dtype operands (JAX's
         # preferred_element_type=float32)
@@ -230,5 +228,4 @@ def paged_k_pos(lengths: torch.Tensor, seq_len: int) -> torch.Tensor:
 
 def attn_out(p, ctx: torch.Tensor) -> torch.Tensor:
     """einsum('bshe,hed->bsd') as one matmul."""
-    h, e, d = p["wo"].shape
-    return ctx.reshape(*ctx.shape[:-2], h * e) @ p["wo"].reshape(h * e, d)
+    return head_out(ctx, p["wo"])

@@ -17,6 +17,11 @@ import torch
 import torch.nn.functional as F
 
 
+def torch_dtype(cfg) -> torch.dtype:
+    """The working dtype a ModelConfig names."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
@@ -114,6 +119,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhe->bshe') as one matmul."""
+    d, h, e = w.shape
+    return (x @ w.reshape(d, h * e)).reshape(*x.shape[:-1], h, e)
+
+
+def head_out(ctx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bshe,hed->bsd') as one matmul."""
+    h, e, d = w.shape
+    return ctx.reshape(*ctx.shape[:-2], h * e) @ w.reshape(h * e, d)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

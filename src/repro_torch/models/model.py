@@ -1,6 +1,7 @@
-"""Top-level model API: parameters, full-sequence forward, the Chicle-
-weighted LM loss, prefill, the flat-cache decode and verify steps, and the
-paged-KV decode / verify / chunked-prefill steps.
+"""Top-level model API for every family: parameters, full-sequence
+forward, the Chicle-weighted LM loss, prefill and the flat-cache decode
+step; for the dense and moe families also the flat-cache verify step and
+the paged-KV decode / verify / chunked-prefill steps.
 
 The parameters live in a `Transformer` module whose attribute tree is the
 JAX package's parameter pytree (same keys, blocks stacked along a leading
@@ -8,8 +9,12 @@ layer dim, Q heads padded as in JAX), so `params_from_numpy` carries a JAX
 tree across one to one.  The JAX package's `lax.scan` over blocks is a loop
 over layers here, and its `jax.checkpoint` of the block body is
 `torch.utils.checkpoint` per block.  Paged KV pools are plain tensors that
-the steps update in place; so are the flat per-slot caches and their
-`k_pos`.
+the steps update in place; so are the flat per-slot caches, their `k_pos`
+and the recurrent states (mamba conv/h, rwkv shift/wkv).
+
+vlm and audio take a second input stream, `memory`: (B, T, D) stub patch
+embeddings (vlm) or frame embeddings (audio, through the bidirectional
+encoder first), cross-attended by the decoder.
 """
 from __future__ import annotations
 
@@ -22,23 +27,39 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import transformer as tfm
-from .layers import ParamDef, cross_entropy, init_tree, map_defs, rms_norm
+from .layers import (ParamDef, cross_entropy, init_tree, map_defs, rms_norm,
+                     torch_dtype)
 
 AUX_LOSS_COEF = 0.01
 
 
-def torch_dtype(cfg: ModelConfig) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+def _ln_def(cfg: ModelConfig) -> ParamDef:
+    return ParamDef((cfg.d_model,), (None,), init="ones")
 
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    nb = tfm.n_blocks(cfg)
-    return {
+    defs: Dict[str, Any] = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("tensor", "fsdp"),
                           init="small"),
-        "final_ln": ParamDef((cfg.d_model,), (None,), init="ones"),
-        "blocks": map_defs(lambda d: d.stacked(nb), tfm.block_defs(cfg)),
+        "final_ln": _ln_def(cfg),
     }
+    if cfg.family == "audio":
+        defs["blocks"] = map_defs(lambda d: d.stacked(cfg.num_layers),
+                                  tfm.block_defs(cfg, "xdec"))
+        enc = map_defs(lambda d: d.stacked(cfg.encoder_layers),
+                       tfm.block_defs(cfg, "dense"))
+        defs["encoder"] = {"blocks": enc, "final_ln": _ln_def(cfg)}
+    else:
+        nb = tfm.n_blocks(cfg)
+        defs["blocks"] = map_defs(lambda d: d.stacked(nb),
+                                  tfm.block_defs(cfg))
+    return defs
+
+
+def _block_type(cfg: ModelConfig) -> str:
+    if cfg.family not in tfm.FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return "xdec" if cfg.family == "audio" else cfg.family
 
 
 class ParamTree(nn.Module):
@@ -65,28 +86,37 @@ class ParamTree(nn.Module):
 
 class Transformer(ParamTree):
     """The model's parameters: `embed`, `final_ln` and `blocks` (each leaf
-    stacked (n_blocks, ...); a moe block's experts (n_blocks, E, ...))."""
+    stacked (n_blocks, ...); a moe block's experts (n_blocks, E, ...));
+    audio also `encoder` {`blocks` (encoder_layers, ...), `final_ln`}."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__(tree)
         self.cfg = cfg
-        self._views = None
+        self._views: Dict[str, list] = {}
 
     def _apply(self, fn, recurse=True):
-        self._views = None  # per-layer views would point at the old storage
+        self._views = {}  # per-layer views would point at the old storage
         return super()._apply(fn, recurse)
 
-    def layers(self):
+    def _layer_views(self, name: str, stack: ParamTree, n: int):
         """Per-layer parameter dicts (views into the stacked leaves).  The
         views are cached for inference; while the leaves take gradients
         they are made anew, so autograd sees each one."""
         if self.embed.requires_grad and torch.is_grad_enabled():
-            return [self.blocks.layer(i)
-                    for i in range(tfm.n_blocks(self.cfg))]
-        if self._views is None:
-            self._views = [self.blocks.layer(i)
-                           for i in range(tfm.n_blocks(self.cfg))]
-        return self._views
+            return [stack.layer(i) for i in range(n)]
+        if name not in self._views:
+            self._views[name] = [stack.layer(i) for i in range(n)]
+        return self._views[name]
+
+    def layers(self):
+        """The (decoder) blocks' per-layer parameter dicts."""
+        return self._layer_views("blocks", self.blocks,
+                                 tfm.n_blocks(self.cfg))
+
+    def encoder_layers(self):
+        """The audio encoder's per-layer parameter dicts."""
+        return self._layer_views("encoder", self.encoder.blocks,
+                                 self.cfg.encoder_layers)
 
 
 def param_dict(params: nn.Module) -> Dict[str, torch.Tensor]:
@@ -160,49 +190,77 @@ def _logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, params.final_ln) @ params.embed.t()
 
 
-def _block_x(cfg, bp, x, positions, window, q_block):
-    x, _, _, aux = tfm.block_apply(cfg, bp, x, positions, window=window,
-                                   q_block=q_block)
+def _block_x(cfg, bp, x, positions, bt, window, memory, q_block):
+    x, _, aux = tfm.block_apply(cfg, bp, x, positions, block_type=bt,
+                                window=window, memory=memory,
+                                q_block=q_block)
     return x, aux
 
 
+def _encoder_block(cfg, bp, x):
+    return tfm.block_apply(cfg, bp, x, None, block_type="dense",
+                           causal=False)[0]
+
+
+def _encoder_forward(cfg: ModelConfig, params: Transformer,
+                     frames: torch.Tensor, remat: bool) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, T, D):
+    bidirectional, no rope."""
+    x = frames
+    for bp in params.encoder_layers():
+        if remat:
+            x = checkpoint(_encoder_block, cfg, bp, x, use_reentrant=False)
+        else:
+            x = _encoder_block(cfg, bp, x)
+    return rms_norm(x, params.encoder.final_ln)
+
+
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+            memory: Optional[torch.Tensor] = None,
             window: Optional[int] = None, return_cache: bool = False,
             return_aux: bool = False, q_block: int = 512,
             remat: bool = True):
     """Full-sequence causal forward.  tokens: (B, S) int.
 
+    memory: (B, T, D) stub patch embeddings (vlm) or frame embeddings
+    (audio: through the encoder first).
     remat: while autograd records, each block's activations are recomputed
     in backward instead of kept (the JAX package's `jax.checkpoint(body)`).
 
     Returns logits (B, S, V); with return_aux (logits, aux), aux the sum of
-    the blocks' moe load-balance losses (0 for dense); with return_cache
-    the cache {"k", "v": (nb, B, S, KV, hd)} comes last."""
+    the blocks' moe load-balance losses (0 without moe); with return_cache
+    the family's cache after the sequence comes last: each
+    `transformer.block_cache_shapes` entry stacked over blocks, k/v rows
+    S long (dense/moe/xdec/hybrid: {"k", "v": (nb, B, S, KV, hd)})."""
     B, S = tokens.shape
+    bt = _block_type(cfg)
     win = cfg.sliding_window if window is None else window
     x = params.embed[tokens.long()]
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    ks, vs = [], []
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = remat and torch.is_grad_enabled() and not return_cache
+    if cfg.family == "audio":
+        memory = _encoder_forward(cfg, params, memory, remat)
+    caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for bp in params.layers():
         if remat:
-            x, a = checkpoint(_block_x, cfg, bp, x, positions, win, q_block,
-                              use_reentrant=False)
+            x, a = checkpoint(_block_x, cfg, bp, x, positions, bt, win,
+                              memory, q_block, use_reentrant=False)
         else:
-            x, k, v, a = tfm.block_apply(cfg, bp, x, positions, window=win,
-                                         q_block=q_block)
+            x, c, a = tfm.block_apply(
+                cfg, bp, x, positions, block_type=bt, window=win,
+                cache={} if return_cache else None, memory=memory,
+                q_block=q_block)
             if return_cache:
-                ks.append(k)
-                vs.append(v)
+                caches.append(c)
         if a is not None:
             aux = aux + a
     out = (_logits(params, x),)
     if return_aux:
         out += (aux,)
     if return_cache:
-        out += ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+        out += ({k: torch.stack([c[k] for c in caches]) for k in caches[0]},)
     return out if len(out) > 1 else out[0]
 
 
@@ -215,14 +273,16 @@ def loss_fn(cfg: ModelConfig, params: Transformer,
 
     batch: tokens (B, S) int, labels (B, S) int, weights (B,) float — the
     per-example weights carry the uni-task chunk weighting |D_k|/|D^|
-    (Stich 2018): grad(loss) == the weighted merge of per-worker updates.
+    (Stich 2018): grad(loss) == the weighted merge of per-worker updates;
+    vlm and audio also memory (B, T, D).
 
     total_weight: the FULL global-batch weight sum when this call sees only
     a microbatch (gradient accumulation), so microbatch grads sum to the
     full-batch gradient.  Returns (loss + AUX_LOSS_COEF * aux, metrics
     {"loss", "aux_loss"}); aux is the moe load-balance loss summed over
     blocks, 0 for the dense model."""
-    logits, aux = forward(cfg, params, batch["tokens"], remat=remat,
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          memory=batch.get("memory"), remat=remat,
                           q_block=q_block, return_aux=True)
     ce = cross_entropy(logits, batch["labels"])  # (B, S)
     w = batch["weights"].float()
@@ -234,61 +294,75 @@ def loss_fn(cfg: ModelConfig, params: Transformer,
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+            memory: Optional[torch.Tensor] = None,
             window: Optional[int] = None, q_block: int = 512,
             cache_len: Optional[int] = None,
             true_len: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward over the prompt -> (last-token logits (B, 1, V), cache).
 
-    The cache's rows {"blocks": {"k", "v": (nb, B, cache_len, KV, hd)}}
-    are zero-padded past S up to cache_len (the flat engine passes its
-    cache_len; the paged engine the bucket length, and its insert chops the
-    rows into pages).  Without true_len, cache["k_pos"] is one shared
-    (cache_len,) vector (arange(S), -1 past it); true_len: optional (B,)
-    real prompt lengths of right-padded rows, the logits are then taken at
-    each row's true last token and k_pos is per row (B, cache_len), -1 past
-    each row's length (as `init_cache(per_slot=True)`)."""
-    logits, rows = forward(cfg, params, tokens, window=window,
-                           return_cache=True, q_block=q_block)
+    The cache's blocks are `forward`'s cache, its k/v rows zero-padded
+    past S up to cache_len (the flat engine passes its cache_len; the
+    paged engine the bucket length, and its insert chops the rows into
+    pages); the recurrent states and the memory's xk/xv are not padded.
+    Without true_len, cache["k_pos"] is one shared (cache_len,) vector
+    (arange(S), -1 past it); true_len: optional (B,) real prompt lengths
+    of right-padded rows, the logits are then taken at each row's true
+    last token and k_pos is per row (B, cache_len), -1 past each row's
+    length (as `init_cache(per_slot=True)`).  The ssm family has no k_pos
+    (its state has no positions)."""
+    logits, rows = forward(cfg, params, tokens, memory=memory,
+                           window=window, return_cache=True, q_block=q_block)
+    bt = _block_type(cfg)
     S = tokens.shape[1]
     cache_len = cache_len or S
-    if cache_len > S:
-        pad = (0, 0, 0, 0, 0, cache_len - S)  # the seq axis of (nb,B,S,KV,hd)
-        rows = {k: torch.nn.functional.pad(v, pad) for k, v in rows.items()}
+    if cache_len > S and bt != "ssm":
+        # the seq axis of (nb, [k-1,] B, S, KV, hd) is third from the end
+        pad = (0, 0, 0, 0, 0, cache_len - S)
+        rows = {k: torch.nn.functional.pad(v, pad) if k in ("k", "v")
+                else v for k, v in rows.items()}
+    cache: Dict[str, Any] = {"blocks": rows}
     pos_row = torch.arange(cache_len, dtype=torch.int32,
                            device=tokens.device)
     if true_len is None:
-        k_pos = torch.where(pos_row < S, pos_row, -1)
-        return logits[:, -1:], {"blocks": rows, "k_pos": k_pos}
-    k_pos = torch.where(pos_row[None] < true_len[:, None], pos_row[None], -1)
+        if bt != "ssm":
+            cache["k_pos"] = torch.where(pos_row < S, pos_row, -1)
+        return logits[:, -1:], cache
+    if bt != "ssm":
+        cache["k_pos"] = torch.where(pos_row[None] < true_len[:, None],
+                                     pos_row[None], -1)
     last = (true_len.long() - 1)[:, None, None].expand(-1, 1,
                                                        logits.shape[-1])
-    return torch.gather(logits, 1, last), {"blocks": rows, "k_pos": k_pos}
+    return torch.gather(logits, 1, last), cache
 
 
 # ---------------------------------------------------------------------------
-# Flat KV cache: one (cache_len,) row per sequence
+# Flat cache: one (cache_len,) row of K/V per sequence, or its recurrent
+# state
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device, *,
-               per_slot: bool = False) -> Dict[str, Any]:
-    """Empty flat cache {"blocks": {"k", "v": (nb, B, cache_len, KV, hd)},
-    "k_pos"}.  per_slot: a per-ROW k_pos (B, cache_len) so every sequence
+               cross_len: int = 0, per_slot: bool = False) -> Dict[str, Any]:
+    """Empty flat cache {"blocks": the `transformer.block_cache_shapes`
+    entries stacked over blocks (dense/moe: {"k", "v": (nb, B, cache_len,
+    KV, hd)}), "k_pos"}.  cross_len: the memory length of vlm/audio (their
+    xk/xv).  per_slot: a per-ROW k_pos (B, cache_len) so every sequence
     tracks its own fill depth (continuous-batching slot pools); else one
     shared (cache_len,) vector for lockstep batches.  -1 marks an empty
-    position."""
-    if cfg.family not in tfm.FAMILIES:
-        raise NotImplementedError(
-            f"flat cache supports dense/moe; got {cfg.family!r}")
-    shape = (tfm.n_blocks(cfg), B, cache_len, cfg.kv_heads(),
-             cfg.head_dim_())
-    dt = torch_dtype(cfg)
-    kp_shape = (B, cache_len) if per_slot else (cache_len,)
-    return {"blocks": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)},
-            "k_pos": torch.full(kp_shape, -1, dtype=torch.int32,
-                                device=device)}
+    position.  The ssm family has no k_pos."""
+    bt = _block_type(cfg)
+    nb = tfm.n_blocks(cfg)
+    shapes = tfm.block_cache_shapes(cfg, B, cache_len, bt,
+                                    cross_len=cross_len)
+    cache: Dict[str, Any] = {"blocks": {
+        k: torch.zeros((nb,) + s, dtype=d, device=device)
+        for k, (s, d) in shapes.items()}}
+    if bt != "ssm":
+        kp_shape = (B, cache_len) if per_slot else (cache_len,)
+        cache["k_pos"] = torch.full(kp_shape, -1, dtype=torch.int32,
+                                    device=device)
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, cache,
@@ -300,32 +374,36 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache,
     `prefill(true_len=...)`).  Writes at pos (pos % cache_len with `ring`,
     else clamped to the last row).
 
-    Returns (logits (B, 1, V), cache); the cache's rows and k_pos are
-    updated in place."""
+    Returns (logits (B, 1, V), cache); the cache's rows, recurrent states
+    and k_pos are updated in place."""
+    bt = _block_type(cfg)
     win = cfg.sliding_window if window is None else window
-    k_pos = cache["k_pos"]
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_pos.device)
     B = token.shape[0]
-    W = k_pos.shape[-1]
-    if k_pos.dim() == 2:  # per-row cache: each row tracks its own depth
-        posv = pos if pos.dim() else pos.expand(B)
-        idx = posv % W if ring else torch.clamp(posv, max=W - 1)
-        k_pos[torch.arange(B, device=k_pos.device), idx.long()] = posv
-        k_rows = k_pos
-    else:
-        if pos.dim():
-            raise ValueError(
-                "vector pos requires a per-row k_pos: build the cache with "
-                "init_cache(per_slot=True) or prefill(true_len=...)")
-        idx = pos % W if ring else torch.clamp(pos, max=W - 1)
-        k_pos[idx.long()] = pos
-        k_rows = k_pos[None]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    k_rows = None  # the ssm state has no positions
+    if bt != "ssm":
+        k_pos = cache["k_pos"]
+        W = k_pos.shape[-1]
+        if k_pos.dim() == 2:  # per-row cache: each row tracks its own depth
+            posv = pos if pos.dim() else pos.expand(B)
+            idx = posv % W if ring else torch.clamp(posv, max=W - 1)
+            k_pos[torch.arange(B, device=k_pos.device), idx.long()] = posv
+            k_rows = k_pos
+        else:
+            if pos.dim():
+                raise ValueError(
+                    "vector pos requires a per-row k_pos: build the cache "
+                    "with init_cache(per_slot=True) or "
+                    "prefill(true_len=...)")
+            idx = pos % W if ring else torch.clamp(pos, max=W - 1)
+            k_pos[idx.long()] = pos
+            k_rows = k_pos[None]
     x = params.embed[token.long()]
     blocks = cache["blocks"]
     for i, bp in enumerate(params.layers()):
         x = tfm.block_decode(cfg, bp, x, pos, k_rows,
-                             {"k": blocks["k"][i], "v": blocks["v"][i]},
-                             window=win, ring=ring)
+                             {k: v[i] for k, v in blocks.items()},
+                             block_type=bt, window=win, ring=ring)
     return _logits(params, x), cache
 
 
@@ -343,7 +421,9 @@ def verify_step(cfg: ModelConfig, params: Transformer, cache,
     a sequential `decode_step` at that position: drafts past a mismatch
     are causally invisible to earlier positions, so rollback is "ignore
     the tail" (their k_pos entries stay, later than any query that could
-    see them).  Returns (logits (B, Q, V), cache), updated in place."""
+    see them).  Returns (logits (B, Q, V), cache), updated in place.
+    dense/moe only."""
+    tfm.require_paged_family(cfg, "verify")
     B, Q = tokens.shape
     win = cfg.sliding_window if window is None else window
     k_pos = cache["k_pos"]
@@ -375,9 +455,7 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     hd)}}.  Page 0 is the engine's reserved null page (masked writes land
     there).  Fill depth lives in the block table + lengths the caller
     passes to each step."""
-    if cfg.family not in tfm.FAMILIES:
-        raise NotImplementedError(
-            f"paged cache supports dense/moe; got {cfg.family!r}")
+    tfm.require_paged_family(cfg, "paged cache")
     shape = (tfm.n_blocks(cfg), n_pages, page_size, cfg.kv_heads(),
              cfg.head_dim_())
     dt = torch_dtype(cfg)

@@ -97,7 +97,6 @@ import torch
 from ..configs.base import ModelConfig
 from ..faults import FaultEvent, FaultInjector
 from ..models import model as M
-from ..models.transformer import FAMILIES
 from ..obs import MetricsRegistry, NULL_TRACER, SLOTracker, Tracer, meets_slo
 from .memory import KVMemoryManager
 from .overload import AdmissionController, CircuitBreaker, DegradationLadder
@@ -395,10 +394,9 @@ def _host_value(host: torch.Tensor, ev) -> np.ndarray:
     return host.numpy()
 
 
-def _unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A: {item})")
-
+# the families the engine serves, as the JAX package's engine: the other
+# families' recurrent state and memory stream have no slot/page layout
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 # the JAX package's names for the two paged attention implementations
 _PAGED_IMPLS = {"kernel": "kernel", "gather": "gather", "pallas": "kernel",
@@ -451,9 +449,12 @@ class ServeEngine:
                  tracer: Optional[Tracer] = None,
                  max_cached_meshes: int = 2, max_cached_fns: int = 16,
                  device="cuda"):
-        if cfg.family not in FAMILIES:
-            raise _unsupported(f"family {cfg.family!r}",
-                               "remaining model families")
+        if cfg.family not in SUPPORTED_FAMILIES:
+            raise NotImplementedError(
+                f"ServeEngine supports flat-KV families "
+                f"{SUPPORTED_FAMILIES}; got {cfg.family!r} (recurrent-state "
+                f"and cross-attention serving are not in the JAX package's "
+                f"engine either)")
         if kv_layout not in ("flat", "paged"):
             raise ValueError(f"kv_layout must be 'flat' or 'paged', "
                              f"got {kv_layout!r}")

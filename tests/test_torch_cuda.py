@@ -951,3 +951,42 @@ def test_cluster_contention_on_the_card(cuda):
     assert np.array_equal(solo.solver.store.state["alpha"],
                           tr.solver.store.state["alpha"])
     assert torch.equal(solo.solver.w, tr.solver.w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b", "whisper-small"])
+def test_family_on_the_card_matches_the_cpu(cuda, arch):
+    """fp32 (TF32 off), each remaining family's smoke variant: `forward`,
+    `prefill` of 64 tokens (two mamba/rwkv chunks; a memory stream for
+    vlm/audio) and 4 `decode_step`s on the card give the CPU's logits and
+    caches at 1e-5."""
+    from repro_torch.launch.steps import memory_len
+    cfg = smoke_variant(get_config(arch))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.family == "vlm":  # zeros at init would switch cross-attn off
+        with torch.no_grad():
+            params.blocks.cross_gate.fill_(0.5)
+    card = M.params_from_paths(cfg, {k: v.cuda() for k, v in
+                                     M.param_dict(params).items()})
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 68), generator=gen)
+    T = memory_len(cfg)
+    mem = torch.randn(2, T, cfg.d_model, generator=gen) * 0.02 if T else None
+
+    def run(p, dev):
+        on = (lambda t: None if t is None else t.to(dev))
+        with torch.inference_mode():
+            out = [M.forward(cfg, p, on(toks[:, :64]), memory=on(mem))]
+            logits, cache = M.prefill(cfg, p, on(toks[:, :64]),
+                                      memory=on(mem), cache_len=72)
+            out.append(logits)
+            for t in range(64, 68):
+                logits, cache = M.decode_step(cfg, p, cache,
+                                              on(toks[:, t:t + 1]), t)
+                out.append(logits)
+            out += [cache["blocks"][k] for k in sorted(cache["blocks"])]
+        return [o.cpu() for o in out]
+
+    for got, want in zip(run(card, "cuda"), run(params, "cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -411,11 +411,13 @@ def test_flat_verify_step_matches_jax(pair):
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
 def test_families_not_ported_still_raise(arch):
-    """The dense/moe guard: the ssm and hybrid families name their ROADMAP
-    item, in the model and in the engine."""
+    """The dense/moe guard of serving: the ssm and hybrid families have
+    their model (test_torch_families.py), but the engine and the paged
+    cache refuse them, as the JAX package's do."""
     from repro_torch.serve import ServeEngine as TServeEngine
     tcfg = t_smoke_variant(t_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_defs(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert "blocks" in TM.param_defs(tcfg)
+    with pytest.raises(NotImplementedError, match="ServeEngine supports"):
         TServeEngine(tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged cache"):
+        TM.init_paged_cache(tcfg, 4, 8, "cpu")
