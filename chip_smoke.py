@@ -199,6 +199,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               16; the model does not fit the card) in fp32: mamba_forward
               over 2 x 1024 tokens against 1024 stepwise mamba_decode
               calls (outputs, conv and h states).
+   dryrun   — the planner (`launch.dryrun.run_one`) against the card, no
+              kernel on its path (counts zeroed, read as 0): rwkv6-1.6b x
+              decode_32k (B 128), h2o-danube-1.8b x long_500k (B 1, its
+              4096 window as a ring), qwen3-4b x long_500k (the
+              swa-variant) and h2o-danube-1.8b x train_4k with
+              global_batch cut from 256 to 2, each traced on meta tensors
+              at published widths, then run once on the card in bf16
+              with random weights (a first, counted run, then a timed
+              one).  Gates: the bytes the allocator was asked for while
+              the step's arguments were built equal the planner's
+              argument_bytes (a prediction check), and the op counter
+              over the card's step counts exactly the meta trace's flops
+              (a dispatch-parity check: the same counter over the same
+              step code, so it fails only if CUDA dispatches other aten
+              ops than meta).  Reported: the peak the step allocated
+              against the predicted peak_bytes; its CUDA-event ms against
+              the eager-traffic bound (the op counter's unfused bytes and
+              flops at H100 rates) and against the floor (every argument
+              read once, or the model flops, at H100 rates).
 5. cocoa    — the paper's GLM at HIGGS's shape: CoCoA/SCD on the uni-task
               engine over 11,000,000 x 28 synthetic samples in 1,100
               chunks, lambda 1e-3, scaling in 16 -> 2 over 12 iterations
@@ -420,6 +439,11 @@ JAMBA_MIXER = dict(arch="jamba-1.5-large-398b", B=2, S=1024)
 FAMILY_TOL = dict(rtol=2e-2, atol=1e-1)
 FAMILY_CROSS_GATE = 0.5  # vlm's cross gate (zeros at init: no cross-attn)
 FAMILY_DECODE_WINDOW = 3  # bf16 decode steps profiled
+# the planner's pairs held against the card: (arch, input shape, batch cut)
+DRYRUN = [("rwkv6-1.6b", "decode_32k", None),
+          ("h2o-danube-1.8b", "long_500k", None),
+          ("qwen3-4b", "long_500k", None),
+          ("h2o-danube-1.8b", "train_4k", 2)]
 
 
 T0 = time.perf_counter()
@@ -3045,17 +3069,22 @@ def mamba_mixer_gate(torch, get_config):
             "stepwise_decode_s": decode_s}
 
 
+def zero_counts(counted):
+    """Every launch count of the kernel wrappers in `counted` to 0."""
+    for k in counted.values():
+        for attr in ("launches", "launches_tc", "launches_split",
+                     "launches_blocked"):
+            if hasattr(k, attr):
+                setattr(k, attr, 0)
+
+
 def families_phase(torch, M, get_config, steps_mod, counted):
     """The ssm, audio and vlm models at published widths (fp32 gates,
     bf16 prefill, decode and training) and jamba's mamba mixer.  No
     kernel of the port lies on this path (the scans, the WKV recurrence
     and cross-attention are plain PyTorch, as the JAX package leaves them
     to XLA): every kernel's count is zeroed before and read after."""
-    for k in counted.values():
-        for attr in ("launches", "launches_tc", "launches_split",
-                     "launches_blocked"):
-            if hasattr(k, attr):
-                setattr(k, attr, 0)
+    zero_counts(counted)
     t_phase = time.perf_counter()
     runs = {}
     for arch, run in FAMILY_RUNS.items():
@@ -3091,6 +3120,123 @@ def families_phase(torch, M, get_config, steps_mod, counted):
     emit({"phase": "families", "tolerance": FAMILY_TOL,
           "vlm_cross_gate": FAMILY_CROSS_GATE, "runs": runs,
           "mamba_mixer": mixer, "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def dryrun_phase(torch, counted):
+    """The planner's predictions held against the card: each DRYRUN pair
+    is traced by `launch.dryrun.run_one` on meta tensors at published
+    widths, then its step runs once on the card in bf16 with random
+    weights from a seed.  Gates: the bytes the card's allocator was asked
+    for while the arguments were built (`requested_bytes`, before the
+    allocator rounds them) equal the planner's argument_bytes; and, a
+    dispatch-parity check rather than a prediction, the op counter run
+    over the card's own step counts exactly the meta trace's flops (the
+    counter's formulas read only shapes, so this fails only if CUDA
+    dispatches other aten ops than meta).  Reported: max_memory_allocated
+    (and the allocator's requested peak), less what the card held before
+    the arguments, against the predicted peak_bytes; the step's
+    CUDA-event ms against two bounds at H100 rates: the eager-traffic
+    bound (the roofline of the op counter's unfused bytes and flops,
+    which include every cast and copy eager PyTorch makes) and the floor
+    (the larger of the argument bytes read once and the model flops).
+    The steps are the flat-cache serve step and the train step: no
+    kernel of the port lies on this path (counts zeroed, read as 0)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun as planner
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.sharding import AxisRules
+
+    zero_counts(counted)
+    t_phase = time.perf_counter()
+    rows = []
+    for arch, shape_name, batch in DRYRUN:
+        t0 = time.perf_counter()
+        cfg, shape, tags = get_config(arch), INPUT_SHAPES[shape_name], ""
+        if batch:
+            tags = f"global_batch {shape.global_batch}->{batch}"
+            shape = dataclasses.replace(shape, global_batch=batch)
+        rec = planner.run_one(arch, shape_name, shape=shape,
+                              extra_tags=tags, verbose=False)
+        spec = steps_mod.input_specs(cfg, shape,
+                                     AxisRules(make_host_mesh(data=1)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        alloc0 = torch.cuda.memory_allocated()
+        args = planner.real_args(
+            cfg, spec, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        torch.cuda.synchronize()
+        arg_req = torch.cuda.memory_stats()["requested_bytes.all.current"] \
+            - req0
+        arg_alloc = torch.cuda.memory_allocated() - alloc0
+        mem = rec["memory"]
+        if arg_req != mem["argument_bytes"]:
+            fail(f"dryrun {arch} x {shape_name}: the arguments took "
+                 f"{arg_req} bytes on the card, the planner said "
+                 f"{mem['argument_bytes']}")
+        step = steps_mod.build_step(cfg, spec)
+        counter = OpCost()
+        counter.hold(args)
+        with counter:
+            out = step(*args)
+        torch.cuda.synchronize()
+        if counter.flops != rec["cost"]["flops"]:
+            fail(f"dryrun {arch} x {shape_name}: the card's step counted "
+                 f"{counter.flops} flops, the meta trace "
+                 f"{rec['cost']['flops']}")
+        card = {"flops": counter.flops, "bytes": counter.bytes}
+        if spec["kind"] == "train":  # the next step takes the new state
+            args = (out[0], out[1], args[2])
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        # both peaks less what the card held before the arguments
+        peak = torch.cuda.max_memory_allocated() - alloc0
+        peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] \
+            - req0
+        del out, args, step, counter
+        torch.cuda.empty_cache()
+        rf = rec["roofline"]
+        floor = {"bytes": mem["argument_bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "operations": rec["cost"]["model_flops"]
+                 / PEAK_FLOPS[cfg.dtype] * 1e3}
+        floor_by = max(floor, key=floor.get)
+        rows.append({
+            "arch": arch, "shape": shape_name, "tags": tags,
+            "kind": rec["kind"], "variant": rec["variant"],
+            "B": shape.global_batch, "n_params": rec["n_params"],
+            "argument_bytes": mem["argument_bytes"],
+            "argument_bytes_card_requested": arg_req,
+            "argument_bytes_card_allocated": arg_alloc,
+            "flops": rec["cost"]["flops"], "flops_card": card["flops"],
+            "bytes_accessed": rec["cost"]["bytes_accessed"],
+            "bytes_accessed_card": card["bytes"],
+            "peak_bytes": mem["peak_bytes"], "peak_bytes_card": peak,
+            "peak_ratio": peak / mem["peak_bytes"],
+            "peak_requested_ratio": peak_req / mem["peak_bytes"],
+            "ms": ms, "eager_bound_ms": rf["bound_s"] * 1e3,
+            "eager_bound_by": rf["bottleneck"],
+            "ms_over_eager_bound": ms / (rf["bound_s"] * 1e3),
+            "floor_ms": floor[floor_by], "floor_by": floor_by,
+            "ms_over_floor": ms / floor[floor_by],
+            "trace_s": rec["trace_s"],
+            "seconds": time.perf_counter() - t0})
+    launches = {name: k.launches for name, k in counted.items()}
+    if any(launches.values()):
+        fail(f"dryrun: kernels launched on a path that has none: "
+             f"{launches}")
+    emit({"phase": "dryrun", "card": card_line(), "pairs": rows,
+          "kernel_launches": launches,
           "seconds": time.perf_counter() - t_phase})
     return launches
 
@@ -3745,9 +3891,14 @@ def main() -> None:
 
     # ---- families: ssm, audio and vlm at published widths; jamba's mixer --
     from repro_torch.launch import steps as steps_mod
-    fam = families_phase(torch, M, get_config, steps_mod, {
-        "paged_attention": paged_attention, "scd_pass": scd_pass,
-        "weighted_merge": weighted_merge, "flash_attention": flash_attention})
+    counted = {"paged_attention": paged_attention, "scd_pass": scd_pass,
+               "weighted_merge": weighted_merge,
+               "flash_attention": flash_attention}
+    fam = families_phase(torch, M, get_config, steps_mod, counted)
+    torch.cuda.empty_cache()
+
+    # ---- dryrun: the planner's predictions against the card --------------
+    plan = dryrun_phase(torch, counted)
     torch.cuda.empty_cache()
 
     # ---- 5. cocoa, 6. lsgd: the training path at full width --------------
@@ -3775,7 +3926,7 @@ def main() -> None:
     scd_t, merge_t = train["scd"], train["weighted_merge"]
     all_launches = launches + spec["launches"] + fault["launches"] \
         + ovl["launches"] + dis["launches"] + moe["launches"] \
-        + clu["launches"] + fam["paged_attention"]
+        + clu["launches"] + fam["paged_attention"] + plan["paged_attention"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
         + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"] \
         + clu["launches_tc"]
@@ -3795,7 +3946,8 @@ def main() -> None:
                              "disagg": dis["by_run"],
                              "moe": moe["by_run"],
                              "cluster": clu["by_run"],
-                             "families": fam["paged_attention"]},
+                             "families": fam["paged_attention"],
+                             "dryrun": plan["paged_attention"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
         "routes": {"split (decode)": launches_split,
@@ -3848,12 +4000,12 @@ def main() -> None:
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"]
                     + cocoa["rebalance"]["launches"] + clu["scd_launches"]
-                    + fam["scd_pass"],
+                    + fam["scd_pass"] + plan["scd_pass"],
         "launches_by_path": {
             "cocoa": {"scale_in": cocoa["scale_in"]["launches"],
                       "rebalance": cocoa["rebalance"]["launches"]},
             "cluster": clu["scd_by_run"],
-            "families": fam["scd_pass"]},
+            "families": fam["scd_pass"], "dryrun": plan["scd_pass"]},
         "launches_blocked": cocoa["scale_in"]["launches_blocked"]
                             + cocoa["rebalance"]["launches_blocked"]
                             + clu["scd_launches_blocked"],
@@ -3867,9 +4019,11 @@ def main() -> None:
         "replaces": "src/repro/kernels/chunk_reduce.py:25",
         "replaces_function": "src/repro/kernels/chunk_reduce.py::"
                              "weighted_merge (body _merge_kernel :17)",
-        "launches": lsgd["launches"] + fam["weighted_merge"],
+        "launches": lsgd["launches"] + fam["weighted_merge"]
+                    + plan["weighted_merge"],
         "launches_by_path": {"lsgd": lsgd["launches"],
-                             "families": fam["weighted_merge"]},
+                             "families": fam["weighted_merge"],
+                             "dryrun": plan["weighted_merge"]},
         "launches_tc": None,
         "sass": sass["chunk_reduce"],
         "max_abs_err": merge_err["float32"],
@@ -3884,9 +4038,11 @@ def main() -> None:
         "replaces_function": "src/repro/kernels/flash_attention.py::"
                              "flash_attention (body _flash_kernel :25; "
                              "model-layout wrapper kernels/ops.py:24)",
-        "launches": flash["launches"] + fam["flash_attention"],
+        "launches": flash["launches"] + fam["flash_attention"]
+                    + plan["flash_attention"],
         "launches_by_path": {"flash": flash["launches"],
-                             "families": fam["flash_attention"]},
+                             "families": fam["flash_attention"],
+                             "dryrun": plan["flash_attention"]},
         "launches_tc": flash["launches_tc"],
         "sass": sass["flash_attention"],
         "max_abs_err": flash_err["float32"],

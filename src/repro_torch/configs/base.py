@@ -30,6 +30,12 @@ INPUT_SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+# The longest sequence a step attends over in full.  A shape past it
+# (long_500k) needs sub-quadratic attention: the arch's sliding window as a
+# ring cache, the long_context_window for full-attention archs, or no KV
+# cache at all (`launch/steps.py`'s `decode_geometry`).
+MAX_FULL_ATTENTION_SEQ = 32768
+
 
 # ---------------------------------------------------------------------------
 # Model config
@@ -82,8 +88,8 @@ class ModelConfig:
 
     # numerics
     dtype: str = "bfloat16"
-    # decode-time sliding window applied ONLY for long_500k on full-attention
-    # archs ("swa-variant" in the roofline table); 0 disables the variant.
+    # decode-time sliding window applied ONLY past MAX_FULL_ATTENTION_SEQ
+    # (long_500k) on full-attention archs ("swa-variant" in the roofline table); 0 disables the variant.
     long_context_window: int = 4096
 
     def kv_heads(self) -> int:

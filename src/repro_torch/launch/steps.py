@@ -1,6 +1,8 @@
 """Steps of the LM trainer and of generation on one device: the Chicle-
 weighted SGD/AdamW step (with gradient accumulation), true local SGD, and
-the prefill and flat-cache decode (serve) steps.
+the prefill and flat-cache decode (serve) steps; the decode geometry of
+each input shape, and the meta-tensor stand-ins and specs of every step's
+arguments that the planner (`launch/dryrun.py`) traces.
 
 Train batches carry a per-example `weights` vector assembled by
 `data.ChunkBatchPipeline` from the chunk->worker table; the weighted-mean
@@ -14,16 +16,44 @@ path (`models.model.param_dict`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig, TrainConfig
+from ..configs.base import (MAX_FULL_ATTENTION_SEQ, ModelConfig,
+                            ShapeConfig, TrainConfig)
 from ..models import model as M
+from ..models.layers import torch_dtype
 from ..optim import optimizers as opt
+from ..sharding import AxisRules, Spec, canonical
 
 Tree = Dict[str, torch.Tensor]
+
+
+def decode_geometry(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Cache length / window / ring flag for a decode shape.
+
+    A shape longer than MAX_FULL_ATTENTION_SEQ (long_500k) requires
+    sub-quadratic attention: SSM/hybrid state is O(1); attention layers
+    fall back to the arch's sliding window, or the `swa-variant` window for
+    full-attention archs."""
+    window = cfg.sliding_window
+    cache_len = shape.seq_len
+    ring = False
+    variant = "native"
+    if shape.seq_len > MAX_FULL_ATTENTION_SEQ:
+        if not window and not cfg.is_attention_free():
+            window = cfg.long_context_window
+            if cfg.family != "hybrid":
+                variant = "swa-variant"
+        if window:
+            cache_len = min(cache_len, window)
+            ring = True
+        if cfg.is_attention_free():
+            cache_len = 1  # no kv cache at all; k_pos degenerates
+    return {"window": window, "cache_len": cache_len, "ring": ring,
+            "variant": variant}
 
 
 def memory_len(cfg: ModelConfig) -> int:
@@ -176,3 +206,110 @@ def make_serve_step(cfg: ModelConfig, *, window: Optional[int] = None,
         return M.decode_step(cfg, params, cache, token, pos, window=window,
                              ring=ring)
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Meta-tensor stand-ins + specs of every step's arguments
+# ---------------------------------------------------------------------------
+
+
+def _batch_spec(rules: AxisRules, B: int) -> Spec:
+    ax = rules.batch
+    if ax is None:
+        return ()
+    if B % rules.axis_size(ax):
+        return ()  # undivisible tiny batches (long_500k B=1): replicate
+    return (canonical(ax),)
+
+
+def by_path(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict flattened to {"blocks/attn/wq": leaf}, the keys of
+    `models.model.param_dict` and of the optimizer state."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(by_path(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, rules: AxisRules,
+                tc: Optional[TrainConfig] = None) -> Dict[str, Any]:
+    """Meta-tensor stand-ins and specs for every argument of a step.
+
+    Returns a dict with keys:
+      kind: train|prefill|decode
+      args: the step's arguments in order, every tensor on the meta device
+        (train: the parameter module, its optimizer state keyed by path,
+        the batch; prefill: module, batch; decode: module, cache, token,
+        pos)
+      in_specs: a spec tree per argument (the parameters' by param_defs'
+        keys, the optimizer's by path, the cache's guarded against its
+        shapes)
+      train_cfg (train); window, variant (prefill, decode); ring (decode).
+    The reference's donate_argnums has no counterpart: the port's steps
+    update the parameters and caches in place."""
+    dt = torch_dtype(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    bspec = _batch_spec(rules, B)
+    params = M.Transformer(cfg, M.param_sds(cfg))
+    p_specs = M.param_specs(cfg, rules)
+    mem_len = memory_len(cfg)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _meta((B, S), torch.int32)}
+        batch_specs: Dict[str, Spec] = {"tokens": (*bspec, None)}
+        if shape.kind == "train":
+            batch["labels"] = _meta((B, S), torch.int32)
+            batch["weights"] = _meta((B,), torch.float32)
+            batch_specs["labels"] = (*bspec, None)
+            batch_specs["weights"] = (*bspec,)
+        if mem_len:
+            batch["memory"] = _meta((B, mem_len, cfg.d_model), dt)
+            batch_specs["memory"] = (*bspec, None, None)
+        if shape.kind == "train":
+            tc = tc or TrainConfig()
+            o_sds = opt.opt_state_sds(M.param_dict(params),
+                                      optimizer=tc.optimizer)
+            o_specs = opt.opt_specs(by_path(p_specs), optimizer=tc.optimizer)
+            return {"kind": "train", "args": (params, o_sds, batch),
+                    "in_specs": (p_specs, o_specs, batch_specs),
+                    "train_cfg": tc}
+        geo = decode_geometry(cfg, shape)
+        return {"kind": "prefill", "args": (params, batch),
+                "in_specs": (p_specs, batch_specs),
+                "window": geo["window"] or None, "variant": "native"}
+
+    geo = decode_geometry(cfg, shape)
+    cache = M.cache_sds(cfg, B, geo["cache_len"], cross_len=mem_len)
+    c_specs = M.cache_specs(cfg, rules)
+    # drop any cache-dim sharding whose size is not divisible by the mesh
+    # axis (tiny batches, 1500-frame cross caches, ring windows, ...)
+    c_specs["blocks"] = {k: rules.guard(v, tuple(cache["blocks"][k].shape))
+                         for k, v in c_specs["blocks"].items()}
+    if "k_pos" in c_specs:
+        c_specs["k_pos"] = rules.guard(c_specs["k_pos"],
+                                       tuple(cache["k_pos"].shape))
+    return {"kind": "decode",
+            "args": (params, cache, _meta((B, 1), torch.int32),
+                     _meta((), torch.int32)),
+            "in_specs": (p_specs, c_specs, (*bspec, None), ()),
+            "window": geo["window"] or None, "ring": geo["ring"],
+            "variant": geo["variant"]}
+
+
+def build_step(cfg: ModelConfig, spec: Dict[str, Any]):
+    """The step `input_specs`' args feed: the train step, the prefill step
+    or the flat-cache serve step (`decode_step`; no paged kernel lies on
+    this path)."""
+    if spec["kind"] == "train":
+        return make_train_step(cfg, spec["train_cfg"])
+    if spec["kind"] == "prefill":
+        return make_prefill_step(cfg, window=spec.get("window"))
+    return make_serve_step(cfg, window=spec.get("window"),
+                           ring=spec.get("ring", False))

@@ -87,25 +87,41 @@ def expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
     return k.index_select(-2, idx)
 
 
+def q_project(cfg: ModelConfig, p, x: torch.Tensor,
+              positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """x: (B, S, D) -> q (B, S, H_pad, hd); positions None: no rope."""
+    q = head_proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    return q if positions is None else rope(q, positions, cfg.rope_theta)
+
+
+def kv_project(cfg: ModelConfig, p, x: torch.Tensor,
+               positions: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> k, v (B, S, KV, hd) (compact); positions None: no
+    rope."""
+    k = head_proj(x, p["wk"])
+    v = head_proj(x, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    if positions is not None:
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
                 positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,H_pad,hd), k/v (B,S,KV,hd) (compact).
     positions None: no rotary embedding (cross-attention, the encoder)."""
-    q = head_proj(x, p["wq"])
-    k = head_proj(x, p["wk"])
-    v = head_proj(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    if positions is None:
-        return q, k, v
-    return rope(q, positions, cfg.rope_theta), \
-        rope(k, positions, cfg.rope_theta), v
+    return (q_project(cfg, p, x, positions),
+            *kv_project(cfg, p, x, positions))
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

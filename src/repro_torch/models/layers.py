@@ -2,7 +2,9 @@
 
 Parameters are declared as ``ParamDef(shape, logical_axes)`` trees, the same
 declarations as the JAX package, so a parameter tree made by either package
-has the same keys and the same stacked ``(n_blocks, ...)`` layout.  Random
+has the same keys and the same stacked ``(n_blocks, ...)`` layout.  The same
+declaration yields random tensors, spec trees and meta-tensor trees (the
+dry run's shape stand-ins).  Random
 initialisation draws from an explicit ``torch.Generator``; the numbers differ
 from ``jax.random``'s, so parity tests carry one tree across through numpy.
 """
@@ -45,6 +47,20 @@ def map_defs(fn, defs: Any) -> Any:
     if isinstance(defs, ParamDef):
         return fn(defs)
     return {k: map_defs(fn, v) for k, v in defs.items()}
+
+
+def spec_tree(defs: Any, rules) -> Any:
+    """ParamDef tree -> spec tree (`sharding.AxisRules`; fsdp backs off on
+    non-divisible dims)."""
+    return map_defs(lambda d: rules.fsdp_spec(*d.axes, dim_sizes=d.shape),
+                    defs)
+
+
+def sds_tree(defs: Any, dtype: torch.dtype) -> Any:
+    """ParamDef tree -> meta-tensor tree (the dry run's ShapeDtypeStructs:
+    shapes and dtypes, no storage)."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
 
 
 DRAW_SLICE = 1 << 30  # elements: larger leaves are drawn slice by slice

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import transformer as tfm
 from .layers import (ParamDef, cross_entropy, init_tree, map_defs, rms_norm,
-                     torch_dtype)
+                     sds_tree, spec_tree, torch_dtype)
 
 AUX_LOSS_COEF = 0.01
 
@@ -54,6 +54,23 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["blocks"] = map_defs(lambda d: d.stacked(nb),
                                   tfm.block_defs(cfg))
     return defs
+
+
+def param_specs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """The parameters' spec tree under `rules` (`sharding.AxisRules`)."""
+    return spec_tree(param_defs(cfg), rules)
+
+
+def param_sds(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree as meta tensors (shapes and dtypes, no
+    storage); `Transformer(cfg, param_sds(cfg))` is a module over them."""
+    return sds_tree(param_defs(cfg), torch_dtype(cfg))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    sizes = []
+    map_defs(lambda d: sizes.append(int(np.prod(d.shape))), param_defs(cfg))
+    return sum(sizes)
 
 
 def _block_type(cfg: ModelConfig) -> str:
@@ -365,6 +382,23 @@ def init_cache(cfg: ModelConfig, B: int, cache_len: int, device, *,
     return cache
 
 
+def cache_sds(cfg: ModelConfig, B: int, cache_len: int, *,
+              cross_len: int = 0) -> Dict[str, Any]:
+    """`init_cache`'s lockstep cache as meta tensors (one shared
+    (cache_len,) int32 k_pos)."""
+    return init_cache(cfg, B, cache_len, "meta", cross_len=cross_len)
+
+
+def cache_specs(cfg: ModelConfig, rules) -> Dict[str, Any]:
+    """Specs of `cache_sds`'s tree under `rules` (unguarded: the caller
+    guards them against the cache's shapes)."""
+    bt = _block_type(cfg)
+    specs: Dict[str, Any] = {"blocks": tfm.cache_specs_for(cfg, rules, bt)}
+    if bt != "ssm":
+        specs["k_pos"] = (None,)
+    return specs
+
+
 def decode_step(cfg: ModelConfig, params: Transformer, cache,
                 token: torch.Tensor, pos, *, window: Optional[int] = None,
                 ring: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -396,7 +430,8 @@ def decode_step(cfg: ModelConfig, params: Transformer, cache,
                     "with init_cache(per_slot=True) or "
                     "prefill(true_len=...)")
             idx = pos % W if ring else torch.clamp(pos, max=W - 1)
-            k_pos[idx.long()] = pos
+            # a 1-element index: a 0-d one would be read on the host
+            k_pos.index_copy_(0, idx.long().reshape(1), pos.reshape(1))
             k_rows = k_pos[None]
     x = params.embed[token.long()]
     blocks = cache["blocks"]

@@ -23,13 +23,24 @@ from ..configs.base import ModelConfig
 from .layers import ParamDef
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) bool.  `F.one_hot` checks the indices' range on the host
+    on the CPU and takes other ops on each device; this is the same ops
+    everywhere, the meta device's included."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    if e % 16 == 0:  # big-E archs shard the expert dim over the model axis
+        axes3, axes3b = ("tensor", "fsdp", None), ("tensor", None, "fsdp")
+    else:  # (E, D, F): F over the model axis
+        axes3, axes3b = (None, "fsdp", "tensor"), (None, "tensor", "fsdp")
     defs = {
         "router": ParamDef((d, e), ("fsdp", None), init="small"),
-        "gate": ParamDef((e, d, f), (None, "fsdp", "tensor")),
-        "up": ParamDef((e, d, f), (None, "fsdp", "tensor")),
-        "down": ParamDef((e, f, d), (None, "tensor", "fsdp")),
+        "gate": ParamDef((e, d, f), axes3),
+        "up": ParamDef((e, d, f), axes3),
+        "down": ParamDef((e, f, d), axes3b),
     }
     if cfg.moe_dense_residual:
         fr = cfg.dense_residual_ff or f
@@ -59,11 +70,11 @@ def route(cfg: ModelConfig, p, xt: torch.Tensor, cap: int
     top_w, top_e = top_w[:, :K], top_e[:, :K]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    density = F.one_hot(top_e[:, 0], E).float().mean(0)
+    density = _one_hot(top_e[:, 0], E).float().mean(0)
     aux = E * torch.sum(density * probs.mean(0))
 
     flat_e = top_e.reshape(-1)  # (T*K,), token-major
-    onehot = F.one_hot(flat_e, E).to(torch.int32)
+    onehot = _one_hot(flat_e, E).to(torch.int32)
     slot = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
     keep = slot < cap
     tok_idx = torch.arange(T, device=xt.device).repeat_interleave(K)

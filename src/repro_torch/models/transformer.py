@@ -156,6 +156,35 @@ def block_cache_shapes(cfg: ModelConfig, B: int, cache_len: int,
     return out
 
 
+def cache_specs_for(cfg: ModelConfig, rules,
+                    block_type: Optional[str] = None) -> Dict[str, Any]:
+    """Specs (`sharding.AxisRules`) matching block_cache_shapes, WITH the
+    leading block dim.  KV caches: compact KV heads, the SEQUENCE dim
+    sharded over the model axis (flash-decode style)."""
+    bt = block_type or cfg.family
+    P = rules.spec
+    out: Dict[str, Any] = {}
+    if bt in ("dense", "moe", "xdec", "hybrid"):
+        out["k"] = P(None, "cache_batch", "tensor", None, None)
+        out["v"] = P(None, "cache_batch", "tensor", None, None)
+    if bt == "hybrid":
+        out["conv"] = P(None, None, "cache_batch", None, "tensor")
+        out["h"] = P(None, None, "cache_batch", "tensor", None)
+    if bt == "vlm":
+        out["k"] = P(None, None, "cache_batch", "tensor", None, None)
+        out["v"] = P(None, None, "cache_batch", "tensor", None, None)
+        out["xk"] = P(None, "cache_batch", "tensor", None, None)
+        out["xv"] = P(None, "cache_batch", "tensor", None, None)
+    if bt == "xdec":
+        out["xk"] = P(None, "cache_batch", "tensor", None, None)
+        out["xv"] = P(None, "cache_batch", "tensor", None, None)
+    if bt == "ssm":
+        out["shift_a"] = P(None, "cache_batch", None, None)
+        out["shift_f"] = P(None, "cache_batch", None, None)
+        out["wkv"] = P(None, "cache_batch", "tensor", None, None)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Sub-layer helpers
 # ---------------------------------------------------------------------------
@@ -193,8 +222,9 @@ def _self_attn_full(cfg, p, x, positions, *, window, causal, q_block):
 def _cross_attn(cfg, p, x, xk, xv):
     """Attention of x over the whole memory xk/xv: no rope, no mask (every
     query at position 2**30 sees every key at position 0, the JAX
-    package's scalar q_pos and (Sc,) k_pos, broadcast here)."""
-    q, _, _ = attn.qkv_project(cfg, p, x, None)
+    package's scalar q_pos and (Sc,) k_pos, broadcast here).  Only x's Q
+    is projected: the reference's K/V of x are dead code that XLA drops."""
+    q = attn.q_project(cfg, p, x, None)
     q_pos = torch.full((1, 1), 2 ** 30, dtype=torch.int32, device=x.device)
     k_pos = torch.zeros((1, xk.shape[1]), dtype=torch.int32,
                         device=x.device)
@@ -204,9 +234,8 @@ def _cross_attn(cfg, p, x, xk, xv):
 
 def cross_kv(cfg, p, memory):
     """K/V projections of the cross-attended memory (encoder output or
-    patches)."""
-    _, k, v = attn.qkv_project(cfg, p, memory, None)
-    return k, v
+    patches); the memory's Q is never projected (dead in the reference)."""
+    return attn.kv_project(cfg, p, memory, None)
 
 
 def _memory_kv(cfg, p, cache, memory):
@@ -446,9 +475,9 @@ def _write_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
         rows = torch.arange(k.shape[0], device=k.device)
         cache_k[rows, idx.long()] = k[:, 0]
         cache_v[rows, idx.long()] = v[:, 0]
-    else:
-        cache_k[:, idx.long()] = k[:, 0]
-        cache_v[:, idx.long()] = v[:, 0]
+    else:  # a 1-element index: a 0-d one would be read on the host
+        cache_k.index_copy_(1, idx.long().reshape(1), k)
+        cache_v.index_copy_(1, idx.long().reshape(1), v)
 
 
 def span_scatter(dst: torch.Tensor, new: torch.Tensor, q_pos: torch.Tensor,

@@ -3,6 +3,8 @@ from .optimizers import (
     adamw,
     apply_updates,
     init_opt_state,
+    opt_specs,
+    opt_state_sds,
     sgdm,
     tree_leaves,
     tree_map,
@@ -14,6 +16,8 @@ __all__ = [
     "adamw",
     "apply_updates",
     "init_opt_state",
+    "opt_specs",
+    "opt_state_sds",
     "sgdm",
     "tree_leaves",
     "tree_map",

@@ -46,6 +46,24 @@ def init_opt_state(params, *, optimizer: str = "sgdm") -> OptState:
                     nu)
 
 
+def opt_state_sds(param_sds, *, optimizer: str = "sgdm") -> OptState:
+    """`init_opt_state` as meta tensors (the dry run's stand-ins)."""
+    def zeros(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    mu = tree_map(zeros, param_sds)
+    nu = tree_map(zeros, param_sds) if optimizer == "adamw" else None
+    return OptState(torch.empty((), dtype=torch.int32, device="meta"), mu,
+                    nu)
+
+
+def opt_specs(param_specs, *, optimizer: str = "sgdm") -> OptState:
+    """The optimizer state's specs: the moments inherit the parameters'
+    (ZeRO-style under FSDP rules), the step is replicated."""
+    nu = param_specs if optimizer == "adamw" else None
+    return OptState((), param_specs, nu)
+
+
 def sgdm(grads, state: OptState, *, lr, momentum: float = 0.9,
          weight_decay: float = 0.0, params=None) -> Tuple[Any, OptState]:
     """Returns (updates, new_state); updates are ADDED to params."""
