@@ -27,15 +27,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               route the launcher's rule names; the split route gives
               bitwise-equal outputs on two calls.
               scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
-              F in {8, 32}, masked tails), the CoCoA path's shapes at
-              K=16, F in {28, 256} with M cut to 4,096, a long chain
-              (K=2, M=32,768, F=28), and the one-warp kernel at narrow
-              rows (F=30; F=28 with x 4 bytes off alignment), fp32 at
-              rtol/atol 1e-5; every launch the launcher's rule sends to
-              the blocked kernel (F <= 64, F % 4 == 0, x 16-byte aligned)
-              must take it, no other.  weighted_merge: K in 1..16, N in {7, 5001, 5002,
-              5003, 4,100, 276,266, 276,267} (every row-alignment class),
-              f32 at 1e-5 and bf16 at 3e-2.  flash_attention: the JAX
+              F in {8, 32}, masked tails), the CoCoA paths' shapes at
+              K=16, F in {28, 128, 256} with M cut to 4,096, the wide
+              kernel's other block sizes (F = 65, 1100, 2048, 4096), a
+              long chain (K=2, M=32,768, F=28), and rows the wrapper
+              pads into an aligned copy (F=30; F=28 and F=256 with x 4
+              bytes off alignment), fp32 at rtol/atol 1e-5; every launch
+              takes the kernel the launcher's rule names (blocked for
+              F <= 64, wide above).  weighted_merge: K in 1..16, N in
+              {7, 5001, 5002, 5003, 4,100, 276,266, 276,267} (every
+              row-alignment class), f32 at 1e-5 and bf16 at 3e-2.
+              flash_attention: the JAX
               kernel test's cases, its model-layout wrapper case and
               h2o-danube-1.8b's head geometry (KV=8, G=4, hd=80) at
               windows 0, 1024 and 4096 up to S=4096, plus a bidirectional
@@ -225,6 +227,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               then 6 iterations with RebalancePolicy, 4 of 16 workers at
               twice the per-sample time.  Gap, K, wall and kernel time per
               iteration.
+   cocoa_wide — the same two schedules at the paper GLM's width (F =
+              256, GLMConfig.num_features) over 1,000,000 samples from
+              make_svm_data (seed 0), every SCD launch on the wide kernel,
+              the cocoa gates (gap falls, chunks conserved, alpha never
+              reset, K ends at 2, the rebalance's max task time falls),
+              kernel ms per iteration against the pass's chain (59.5
+              cycles a step) and byte bounds; then
+              examples/cocoa_svm_torch.py and
+              examples/load_balancing_torch.py once each (F = 128), every
+              SCD launch on the wide kernel and each example's checks
+              passing.
 6. lsgd     — the paper's CNN at CIFAR-10's shape: local SGD (L=8, H=16,
               momentum 0.9, lr 1e-4 sqrt(K)) over 50,000 synthetic 32x32x3
               images in chunks of 50, K 16 -> 8 -> 16, 24 iterations
@@ -252,7 +265,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               deterministic algorithms, a suspended run against an
               uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
-              yardstick at the main path's shapes (the paged shapes also
+              yardstick at the main path's shapes, the wide SCD kernel at
+              K=16, M=4,096 and F in {128, 256, 2000} beside its cost
+              model and cycles a step (the paged shapes also
               held within one bf16 ulp of the fp32 plain result; their
               times are profiler device time, since CUDA events over
               back-to-back calls of the split route measure the host),
@@ -357,20 +372,24 @@ COCOA = dict(n=11_000_000, features=28, chunk_size=10_000, lam=1e-3, k0=16,
              iters=12, rebalance_iters=6)
 LSGD = dict(n_train=50_000, n_test=10_000, image_size=32, chunk_size=50,
             k0=16, iters=24, eval_every=8)
+# the paper GLM's width (configs/chicle_paper.py GLMConfig.num_features)
+# on the same two schedules, through the wide SCD kernel (phase cocoa_wide)
+COCOA_WIDE = dict(n=1_000_000, features=256, chunk_size=10_000, lam=1e-3,
+                  k0=16, iters=12, rebalance_iters=6)
 SLOW = [2.0] * 4 + [1.0] * 12  # per-sample times: 4 of 16 workers at 2x
 SCD_PATH_M = 4096  # the plain version steps M times from Python
 TOL_SCD = 1e-5
 TOL_MERGE = {"float32": 1e-5, "bfloat16": 3e-2}
-# the chain model of the blocked SCD kernel (F <= 64, the path's F=28): per
-# step the q update (FFMA), grad (FFMA), the quotient (FMUL and two FFMA),
-# the clip (FADD.SAT), a_new - alpha (FADD), s (FMUL), then the broadcast
-# (SHFL.IDX).  Latencies measured with clock64 on one warp by
+# the chain model of the blocked and wide SCD kernels (one chain, whatever
+# F is): per step the q update (FFMA), grad (FFMA), the quotient (FMUL and
+# two FFMA), the clip (FADD.SAT), a_new - alpha (FADD), s (FMUL), then the
+# broadcast (SHFL.IDX).  Latencies measured with clock64 on one warp by
 # scripts/scd_chain_probe.py on an H100 80GB HBM3 (PERF.md): FMA-class
 # 4.25 cycles, SHFL.IDX 25.5 (assumed before they were measured: 4 and
-# 23); the step alone measured 57.6.  The one-warp kernel's model was
-# 5 * (23 + 4) + 20 * 4 = 215 cycles a step (its measured rate: ~445)
+# 23); the step alone measured 57.6
 SCD_CHAIN_CYCLES = 8 * 4.25 + 25.5
 SCD_LONG = (2, 32_768, 28)  # a long chain at the path's width
+SCD_WIDE_F = (128, 256, 2000)  # the timing phase's widths of the wide kernel
 SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
                   (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
                   (2, 2, 2, 32, 8, 6, 16, 4)]
@@ -854,21 +873,40 @@ def sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
-def check_scd(torch, np, scd_pass, scd_pass_plain, takes_blocked):
-    """The SCD kernel against its plain version: the JAX test's shapes, the
-    CoCoA path's (K=16, F in {28, 256}, M cut to SCD_PATH_M), a long chain
-    (SCD_LONG), then two cases of the one-warp kernel at narrow rows: F=30
-    (not a multiple of 4) and F=28 with x a view 4 bytes past 16-byte
-    alignment.  Each launch `takes_blocked` sends to the blocked kernel
-    must take it, and no other."""
+def scd_wide_model(F, wide_rows):
+    """SM cycles a step of the wide SCD kernel's cost model (PERF.md §6,
+    PR 25): max(chain, producers) + boundary, the producers' lower Gram
+    in 4 x 4 tiles on shared-load bandwidth (T F / 4 cycles a block of B
+    rows, T tiles), the boundary 2 B F floats of shared loads plus ~300
+    cycles of hand-offs a block."""
+    B = wide_rows(F)
+    T = (B // 4) * (B // 4 + 1) // 2
+    return max(SCD_CHAIN_CYCLES, T * F / (4 * B)) + F / 16 + 300 / B
+
+
+def check_scd(torch, np, scd_pass, scd_pass_plain, scd_mod):
+    """The SCD kernels against their plain version: the JAX test's shapes,
+    the CoCoA paths' (K=16, F in {28, 128, 256}, M cut to SCD_PATH_M), the
+    wide kernel's other block sizes (F = 65 and 256: 32 rows, 1100 and
+    2048: 8, 4096: 4), a long chain (SCD_LONG), and rows TMA cannot stage
+    as they are, which the wrapper copies into an aligned buffer: F=30 (not
+    a multiple of 4), F=28 and F=256 with x a view 4 bytes past 16-byte
+    alignment.  Each launch takes the kernel `takes_blocked` or
+    `takes_wide` names."""
     rng = np.random.default_rng(1)
     cases = [(k, m, f, int(rng.integers(0, 6)), False, 10.0, False)
              for k in (1, 2, 3, 4) for m in (16, 64) for f in (8, 32)]
     lam_n = float(np.float32(COCOA["lam"]) * np.float32(COCOA["n"]))
-    cases += [(16, SCD_PATH_M, f, 7, True, lam_n, False) for f in (28, 256)]
+    cases += [(16, SCD_PATH_M, f, 7, True, lam_n, False)
+              for f in (28, 128, 256)]
+    cases += [(2, 777, 65, 5, False, 10.0, False),
+              (2, 333, 1100, 3, False, 10.0, False),
+              (2, 250, 2048, 3, False, 10.0, False),
+              (1, 99, 4096, 2, False, 10.0, False)]
     cases += [(*SCD_LONG, 0, True, lam_n, False),
               (16, SCD_PATH_M, 30, 7, True, lam_n, False),
-              (16, SCD_PATH_M, 28, 7, True, lam_n, True)]
+              (16, SCD_PATH_M, 28, 7, True, lam_n, True),
+              (16, SCD_PATH_M, 256, 7, True, lam_n, True)]
     worst, out = 0.0, []
     for K, M, F, masked, unit_rows, ln, offset in cases:
         x, y, alpha, w, mask = scd_inputs(torch, np, rng, K, M, F, masked,
@@ -878,13 +916,15 @@ def check_scd(torch, np, scd_pass, scd_pass_plain, takes_blocked):
             flat[1:] = x.flatten()
             x = flat[1:].view(K, M, F)
         sigma = torch.full((K,), float(K), device=DEVICE)
-        n_blocked = scd_pass.launches_blocked
+        n_blocked, n_wide = scd_pass.launches_blocked, scd_pass.launches_wide
         got = scd_pass(x, y, alpha, w, mask, ln, sigma)
         torch.cuda.synchronize()
         blocked = scd_pass.launches_blocked - n_blocked
-        if blocked != takes_blocked(F, aligned=x.data_ptr() % 16 == 0):
+        wide = scd_pass.launches_wide - n_wide
+        if (blocked, wide) != (scd_mod.takes_blocked(F),
+                               scd_mod.takes_wide(F)):
             fail(f"scd case K={K} M={M} F={F} offset={offset}: {blocked} "
-                 f"blocked launches")
+                 f"blocked and {wide} wide launches")
         want = scd_pass_plain(x, y, alpha, w, mask, ln, sigma)
         err = 0.0
         for g, t in zip(got, want):
@@ -896,7 +936,7 @@ def check_scd(torch, np, scd_pass, scd_pass_plain, takes_blocked):
             fail(f"scd case K={K} M={M} F={F}: masked rows moved")
         out.append({"K": K, "M": M, "F": F, "masked": masked,
                     "x_offset_bytes": 4 * offset, "blocked": blocked,
-                    "max_abs_err": err})
+                    "wide": wide, "max_abs_err": err})
         worst = max(worst, err)
     return worst, out
 
@@ -926,19 +966,23 @@ def check_merge(torch, weighted_merge, weighted_merge_plain):
     return worst
 
 
-def cocoa_phase(torch, np):
-    """CoCoA/SCD at HIGGS's shape through the kernel: a 16 -> 2 scale-in,
-    then a rebalancing run with 4 slow workers."""
+def cocoa_phase(torch, np, c=None, route="blocked", phase="cocoa",
+                profile=True):
+    """CoCoA/SCD through the kernel at config `c` (default COCOA, HIGGS's
+    shape; COCOA_WIDE, the paper GLM's width, for `cocoa_wide`): a 16 -> 2
+    scale-in, then a rebalancing run with 4 slow workers; every SCD launch
+    must take the `route` kernel ("blocked" or "wide")."""
+    c = c or COCOA
     from repro_torch.core import (Assignment, ChunkStore, CoCoASolver,
                                   ElasticScalingPolicy, RebalancePolicy,
                                   ScaleEvent, UniTaskEngine)
     from repro_torch.data import make_svm_data
     from repro_torch.kernels import ops
     from repro_torch.kernels.scd import scd_pass
-    c = COCOA
     t0 = time.perf_counter()
     x, y = make_svm_data(c["n"], c["features"], seed=0)
     data_s = time.perf_counter() - t0
+    clock = sm_clock_hz()
     k0 = c["k0"]
     unit = c["n"] // k0  # one K=16 full pass in sample-units of sim time
     runs = {
@@ -968,26 +1012,30 @@ def cocoa_phase(torch, np):
             wall = time.perf_counter() - t
             ids = sorted(cid for w in asg.workers for cid in w)
             if ids != list(range(store.n_chunks)):
-                fail(f"cocoa {name}: chunks not conserved")
+                fail(f"{phase} {name}: chunks not conserved")
             nnz = int(np.count_nonzero(store.state["alpha"]))
             if rows and nnz < rows[-1]["alpha_nonzero"] // 2:
-                fail(f"cocoa {name}: alpha was reset ({nnz} nonzero after "
-                     f"{rows[-1]['alpha_nonzero']})")
-            rows.append({"K": asg.n_workers,
-                         "M": int(out["per_worker_samples"].max()),
-                         "wall_s": wall,
+                fail(f"{phase} {name}: alpha was reset ({nnz} nonzero "
+                     f"after {rows[-1]['alpha_nonzero']})")
+            K, M = asg.n_workers, int(out["per_worker_samples"].max())
+            rows.append({"K": K, "M": M, "wall_s": wall,
                          "kernel_ms": log[-1][0].elapsed_time(log[-1][1]),
+                         "chain_bound_ms": SCD_CHAIN_CYCLES * M / clock
+                         * 1e3,
+                         "bound_ms": bound(*scd_work(K, M,
+                                                     c["features"]))[0],
                          "alpha_nonzero": nnz})
             return out
 
         real = kernel_timer(torch, ops, "scd_local_pass", log)
         try:
             scd_pass.launches = scd_pass.launches_blocked = 0
+            scd_pass.launches_wide = 0
             t0 = time.perf_counter()
             hist = eng.run(iters, step, solver.metric)
             run_s = time.perf_counter() - t0
             launches = scd_pass.launches
-            blocked = scd_pass.launches_blocked
+            routed = getattr(scd_pass, f"launches_{route}")
         finally:
             ops.scd_local_pass = real
         for r, h in zip(rows, hist):
@@ -995,33 +1043,73 @@ def cocoa_phase(torch, np):
             r["max_task_time"] = max(h.task_times.values())
         gaps = [h.metric for h in hist]
         if not all(math.isfinite(g) for g in gaps) or gaps[-1] >= gaps[0]:
-            fail(f"cocoa {name}: the duality gap did not fall: {gaps}")
-        if launches != iters or blocked != launches:
-            fail(f"cocoa {name}: {launches} scd launches in {iters} "
-                 f"iterations, {blocked} of them on the blocked kernel")
+            fail(f"{phase} {name}: the duality gap did not fall: {gaps}")
+        if launches != iters or routed != launches:
+            fail(f"{phase} {name}: {launches} scd launches in {iters} "
+                 f"iterations, {routed} of them on the {route} kernel")
         if name == "scale_in" and hist[-1].n_workers != 2:
-            fail(f"cocoa scale_in ended at K={hist[-1].n_workers}")
+            fail(f"{phase} scale_in ended at K={hist[-1].n_workers}")
         if name == "rebalance" and \
                 rows[-1]["max_task_time"] >= rows[0]["max_task_time"]:
-            fail("cocoa rebalance: the max task time did not fall")
-        results[name] = {"launches": launches, "launches_blocked": blocked,
+            fail(f"{phase} rebalance: the max task time did not fall")
+        results[name] = {"launches": launches, f"launches_{route}": routed,
                          "run_s": run_s, "iterations": rows}
-        if name == "rebalance":  # one more K=16 iteration, profiled
-            emit({"phase": "profile", "cell": "cocoa", "K": a.n_workers,
+        if profile and name == "rebalance":  # one more K=16 iteration
+            emit({"phase": "profile", "cell": phase, "K": a.n_workers,
                   **profile_run(torch, lambda: solver.step(store, a),
-                                kernel="scd_blocked_kernel", attempts=3),
+                                kernel=f"scd_{route}_kernel", attempts=3),
                   "host_top": host_profile(
                       torch, lambda: solver.step(store, a))})
-        emit({"phase": "cocoa", "run": name, "n": c["n"],
+        emit({"phase": phase, "run": name, "n": c["n"],
               "features": c["features"], "chunks": store.n_chunks,
               "lam": c["lam"], "data_s": data_s, "run_s": run_s,
-              "scd_launches": launches, "scd_launches_blocked": blocked,
+              "scd_launches": launches, f"scd_launches_{route}": routed,
               "kernel_ms_total": sum(r["kernel_ms"] for r in rows),
-              "iterations": rows,
+              "sm_clock_mhz": clock / 1e6, "iterations": rows,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
         del solver, eng, store
         torch.cuda.empty_cache()
     return results
+
+
+def cocoa_wide_phase(torch, np):
+    """The `cocoa` phase's two schedules at the paper GLM's width through
+    the wide SCD kernel, then examples/cocoa_svm_torch.py and
+    examples/load_balancing_torch.py once each at their own sizes (F =
+    128), every SCD launch on the wide kernel and each example's own
+    checks passing (its printed lines kept, not shown)."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels.scd import scd_pass
+    t0 = time.perf_counter()
+    res = cocoa_phase(torch, np, COCOA_WIDE, route="wide",
+                      phase="cocoa_wide", profile=False)
+    examples = {}
+    for name in ("cocoa_svm_torch", "load_balancing_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        scd_pass.launches = scd_pass.launches_blocked = 0
+        scd_pass.launches_wide = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.run(DEVICE)
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        n, wide = scd_pass.launches, scd_pass.launches_wide
+        if not n or wide != n or "OK" not in lines[-1]:
+            fail(f"cocoa_wide {name}: {n} SCD launches, {wide} wide; last "
+                 f"line {lines[-1:]}")
+        examples[name] = {"wall_s": time.perf_counter() - t,
+                          "scd_launches": n, "scd_launches_wide": wide,
+                          "first_line": lines[0], "last_line": lines[-1]}
+    emit({"phase": "cocoa_wide", "run": "examples", "examples": examples,
+          "phase_s": time.perf_counter() - t0})
+    res["examples"] = examples
+    return res
 
 
 def lsgd_phase(torch, np):
@@ -1103,9 +1191,10 @@ def lsgd_phase(torch, np):
 
 
 def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
-                    weighted_merge_plain):
+                    weighted_merge_plain, scd_mod):
     """Kernel, plain version, bound and yardstick for the SCD and merge
-    kernels at the training path's shapes."""
+    kernels at the training paths' shapes (the wide SCD kernel at K=16,
+    M=4,096 and F in SCD_WIDE_F, against its cost model too)."""
     out = {}
     rng = np.random.default_rng(3)
     lam_n = float(np.float32(COCOA["lam"]) * np.float32(COCOA["n"]))
@@ -1150,6 +1239,41 @@ def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
                             "chain_bound_ms": SCD_CHAIN_CYCLES * M / clock
                             * 1e3})
         del x, y, alpha, mask
+        torch.cuda.empty_cache()
+    # the wide kernel at K=16, M cut to SCD_PATH_M: the paper's F = 128
+    # and 256, and F = 2000 (8-row blocks), each on the route it must take
+    scd["wide"] = []
+    for F in SCD_WIDE_F:
+        K, M = COCOA_WIDE["k0"], SCD_PATH_M
+        x = torch.randn(K, M, F, device=DEVICE, generator=gen)
+        x /= x.norm(dim=-1, keepdim=True)
+        y = torch.where(torch.rand(K, M, device=DEVICE, generator=gen)
+                        > 0.5, 1.0, -1.0)
+        args = (x, y, torch.zeros(K, M, device=DEVICE),
+                0.1 * torch.randn(F, device=DEVICE, generator=gen),
+                torch.ones(K, M, device=DEVICE), lam_n,
+                torch.full((K,), float(K), device=DEVICE))
+        n_wide = scd_pass.launches_wide
+        runs = [cuda_ms(torch, lambda: scd_pass(*args), iters=20)
+                for _ in range(2)]
+        if scd_pass.launches_wide - n_wide != 42:
+            fail(f"scd timing F={F}: {scd_pass.launches_wide - n_wide} of "
+                 f"42 launches on the wide kernel")
+        plain = cuda_ms(torch, lambda: scd_pass_plain(*args))
+        b_ms, b_by = bound(*scd_work(K, M, F))
+        model = scd_wide_model(F, scd_mod.wide_rows)
+        ms = min(runs)
+        scd["wide"].append({
+            "shape": {"K": K, "M": M, "F": F}, "rows_a_block":
+            scd_mod.wide_rows(F), "ms": ms, "ms_runs": runs,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "chain_bound_ms": SCD_CHAIN_CYCLES * M / clock * 1e3,
+            "model_cycles_per_step": model,
+            "model_ms": model * M / clock * 1e3,
+            "ns_per_step": ms * 1e6 / M,
+            "cycles_per_step": ms * 1e-3 * clock / M})
+        del x, y, args
         torch.cuda.empty_cache()
     scd["sm_clock_mhz"] = clock / 1e6
     scd["chain_cycles_per_step_model"] = SCD_CHAIN_CYCLES
@@ -3073,7 +3197,7 @@ def zero_counts(counted):
     """Every launch count of the kernel wrappers in `counted` to 0."""
     for k in counted.values():
         for attr in ("launches", "launches_tc", "launches_split",
-                     "launches_blocked"):
+                     "launches_blocked", "launches_wide"):
             if hasattr(k, attr):
                 setattr(k, attr, 0)
 
@@ -3667,7 +3791,7 @@ def main() -> None:
             err = max(err, e)
         worst[dtype_name] = err
     scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain,
-                                   scd_mod.takes_blocked)
+                                   scd_mod)
     merge_err = check_merge(torch, weighted_merge, weighted_merge_plain)
     flash_err, flash_cases = check_flash(torch, flash_attention,
                                          flash_attention_plain, ops)
@@ -3906,6 +4030,9 @@ def main() -> None:
     cocoa = cocoa_phase(torch, np)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    wide = cocoa_wide_phase(torch, np)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     lsgd = lsgd_phase(torch, np)
     torch.cuda.empty_cache()
 
@@ -3922,8 +4049,11 @@ def main() -> None:
                           n_pages, cfg.sliding_window, shapes, "")
     dec = timing["decode"]
     train = training_timing(torch, np, scd_pass, scd_pass_plain,
-                            weighted_merge, weighted_merge_plain)
+                            weighted_merge, weighted_merge_plain, scd_mod)
     scd_t, merge_t = train["scd"], train["weighted_merge"]
+    wide_launches = wide["scale_in"]["launches"] \
+        + wide["rebalance"]["launches"] \
+        + sum(v["scd_launches"] for v in wide["examples"].values())
     all_launches = launches + spec["launches"] + fault["launches"] \
         + ovl["launches"] + dis["launches"] + moe["launches"] \
         + clu["launches"] + fam["paged_attention"] + plan["paged_attention"]
@@ -4000,20 +4130,32 @@ def main() -> None:
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"]
                     + cocoa["rebalance"]["launches"] + clu["scd_launches"]
-                    + fam["scd_pass"] + plan["scd_pass"],
+                    + wide_launches + fam["scd_pass"] + plan["scd_pass"],
         "launches_by_path": {
             "cocoa": {"scale_in": cocoa["scale_in"]["launches"],
                       "rebalance": cocoa["rebalance"]["launches"]},
+            "cocoa_wide": {"scale_in": wide["scale_in"]["launches"],
+                           "rebalance": wide["rebalance"]["launches"],
+                           **{k: v["scd_launches"] for k, v in
+                              wide["examples"].items()}},
             "cluster": clu["scd_by_run"],
             "families": fam["scd_pass"], "dryrun": plan["scd_pass"]},
         "launches_blocked": cocoa["scale_in"]["launches_blocked"]
                             + cocoa["rebalance"]["launches_blocked"]
                             + clu["scd_launches_blocked"],
+        "launches_wide": wide_launches,
+        "routes": {"blocked (F <= 64: cocoa, cluster)":
+                       cocoa["scale_in"]["launches_blocked"]
+                       + cocoa["rebalance"]["launches_blocked"]
+                       + clu["scd_launches_blocked"],
+                   "wide (F > 64: cocoa_wide and the two examples)":
+                       wide_launches},
         "launches_tc": None, "sass": sass["scd"],
         "max_abs_err": scd_err, "ms": scd_t["ms"],
         "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],
         "bound_by": scd_t["bound_by"], "library_ms": None,
-        "chain_bound_ms": scd_t["chain_bound_ms"], "timing": scd_t}, {
+        "chain_bound_ms": scd_t["chain_bound_ms"], "timing": scd_t,
+        "timing_wide": scd_t["wide"]}, {
         "name": "weighted_merge", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_reduce.cu",
         "replaces": "src/repro/kernels/chunk_reduce.py:25",

@@ -12,6 +12,9 @@ parent commit unpacked under `build/`:
     python3 scripts/train_kernels_bench.py --src build/parent/src
     python3 scripts/train_kernels_bench.py
 
+To time a kernel change against its parent, run the parent's tree and
+this one in turns in one call (parent, change, change, parent).
+
 Shapes and what is printed (one JSON line each):
 - merge, fp32: K=16 at N=276,266 (the paper CNN's deltas) and at
   N=16,777,216; device time per call from torch.profiler over inputs that
@@ -19,13 +22,11 @@ Shapes and what is printed (one JSON line each):
   byte bound at 3.35 TB/s;
 - scd, F=28 at HIGGS's lambda*n (11,000): K=16 with M=4,096 and M=687,500
   (a K=16 pass of the `cocoa` path) and K=2 with M=5,500,000 (its K=2
-  pass), plus F=256 at K=16, M=4,096; CUDA-event time per pass, ns and SM
-  cycles per step (at the card's maximum SM clock), and which kernel the
-  launcher took (`launches_blocked`, where the tree counts it);
-- scd crossover (trees that have the blocked kernel): the blocked and the
-  one-warp kernel at K=16, M=4,096 and F in {16, 28, 32, 48, 64}, the
-  one-warp kernel reached by the same rows in an x view 4 bytes past
-  16-byte alignment (the launcher sends such an x there).
+  pass), plus the paper's F=128 and F=256 at K=16, M=4,096; CUDA-event
+  time per pass, ns and SM cycles per step (at the card's maximum SM
+  clock), and which kernel the launcher took (`launches_blocked`,
+  `launches_wide`, where the tree counts them: a tree before the wide
+  kernel runs F > 64 on its one-warp kernel).
 The K=16, M=4,096 cases are held to the plain version at rtol/atol 1e-5
 first; a failed check exits non-zero.
 """
@@ -39,6 +40,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 LAM_N = 11_000.0  # lambda 1e-3 x n 11,000,000, as the cocoa path
+ROUTES = ("launches_blocked", "launches_wide")  # the trees' route counters
 
 
 def scd_case(torch, gen, K, M, F):
@@ -118,13 +120,14 @@ def main() -> None:
 
     # scd at the cocoa path's shapes
     def time_scd(a, iters):
-        n0 = getattr(scd_pass, "launches_blocked", 0)
+        n0 = {r: getattr(scd_pass, r, 0) for r in ROUTES}
         ms = cs.cuda_ms(torch, lambda: scd_pass(*a), iters)
-        blocked = getattr(scd_pass, "launches_blocked", None)
-        return ms, None if blocked is None else blocked - n0
+        return ms, {r: getattr(scd_pass, r) - n0[r] for r in ROUTES
+                    if hasattr(scd_pass, r)}
 
-    for K, M, F, iters in ((16, 4096, 28, 20), (16, 4096, 256, 20),
-                           (16, 687_500, 28, 3), (2, 5_500_000, 28, 2)):
+    for K, M, F, iters in ((16, 4096, 28, 20), (16, 4096, 128, 20),
+                           (16, 4096, 256, 20), (16, 687_500, 28, 3),
+                           (2, 5_500_000, 28, 2)):
         a = scd_case(torch, gen, K, M, F)
         row = {**head, "kernel": "scd_pass", "shape": {"K": K, "M": M,
                                                        "F": F}}
@@ -137,40 +140,19 @@ def main() -> None:
                                      for g, t in zip(got, want))
             if not math.isfinite(excess) or excess > 1e-5:
                 failed.append(f"scd K={K} M={M} F={F}")
-        ms1, blocked = time_scd(a, iters)
+        ms1, routes = time_scd(a, iters)
         ms2, _ = time_scd(a, iters)
         b_ms, b_by = cs.bound(*cs.scd_work(K, M, F))
         ms = min(ms1, ms2)
         row.update({"ms_runs": [ms1, ms2], "ns_per_step": ms * 1e6 / M,
                     "cycles_per_step": ms * 1e-3 * clock / M,
                     "sm_clock_mhz": clock / 1e6,
-                    "launches_blocked": blocked, "calls": 2 * iters + 2,
+                    "launches_by_route": routes, "calls": 2 * iters + 2,
                     "bound_ms": b_ms, "bound_by": b_by})
         print(json.dumps(row), flush=True)
         del a
         torch.cuda.empty_cache()
 
-    # crossover of the two kernels over F (trees with the blocked kernel):
-    # the same rows at a base 4 bytes past 16-byte alignment take the
-    # one-warp kernel (the launcher's rule)
-    if hasattr(scd_pass, "launches_blocked"):
-        for F in (16, 28, 32, 48, 64):
-            a = scd_case(torch, gen, 16, 4096, F)
-            flat = torch.empty(a[0].numel() + 1, device="cuda")
-            flat[1:] = a[0].flatten()
-            a_off = (flat[1:].view(a[0].shape), *a[1:])
-            row = {**head, "kernel": "scd_pass crossover",
-                   "shape": {"K": 16, "M": 4096, "F": F}}
-            for name, args in (("blocked", a), ("one_warp", a_off),
-                               ("one_warp", a_off), ("blocked", a)):
-                n0 = scd_pass.launches_blocked
-                row.setdefault(f"{name}_ms_runs", []).append(
-                    cs.cuda_ms(torch, lambda: scd_pass(*args), 20))
-                if (scd_pass.launches_blocked > n0) != (name == "blocked"):
-                    failed.append(f"scd crossover F={F}: {name} took the "
-                                  f"other kernel")
-            print(json.dumps(row), flush=True)
-            del a, a_off, flat
     if failed:
         sys.exit(f"train_kernels_bench: FAILED: {', '.join(failed)}")
 

@@ -100,6 +100,18 @@ def loss_per_sample(logits: torch.Tensor, labels: torch.Tensor,
     return per.mean() if reduce else per
 
 
+def softmax_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy: logsumexp less the labelled logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    return (lse - picked).mean()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The fraction of rows whose argmax is the label, as float32."""
+    return (logits.argmax(-1) == labels).to(torch.float32).mean()
+
+
 def params_from_numpy(tree: Mapping[str, np.ndarray], device="cuda"
                       ) -> Params:
     """The JAX package's CNN or MLP parameter dict (numpy leaves) as the

@@ -18,10 +18,10 @@
 // across workers (one block each) and across F or rows within a step; the
 // steps stay sequential and in order.
 //
-// Two kernels; the launcher takes the blocked one for F <= 64, F a
-// multiple of 4 and x 16-byte aligned (its TMA bulk copies need 16-byte
-// rows and addresses), the one-warp kernel otherwise, and reports which
-// one ran.
+// Two kernels, both on rows staged by TMA bulk copies, so both need F a
+// multiple of 4 and a 16-byte aligned x (the wrapper pads other rows with
+// zero columns into an aligned copy): the blocked kernel for F <= 64, the
+// wide kernel above; the launcher reports which one ran.
 //
 // scd_blocked_kernel (F <= 64, F a multiple of 4): the dot leaves the
 // chain.  Rows go in blocks of 32, lane r owning row r of the block.  With
@@ -54,13 +54,36 @@
 // 32 floats put the tiles' 8 rows in one bank group (slower, still
 // correct).
 //
-// scd_kernel (wider rows): one block of ONE warp per worker, so the loop
-// needs no barrier.  v lives in registers, lane l holding v[l + 32 j] for
-// j < NJ (F <= 32 NJ).  The dot and |x_i|^2 are reduced together with
-// __shfl_xor_sync, so every lane ends with q and sq.  Rows do not depend on
-// v, so the next D rows of x, y, alpha and mask sit in a register ring
-// loaded D steps ahead; the loop is unrolled by D so the ring is indexed
-// statically.  Lane 0 writes da[i].
+// scd_wide_kernel (64 < F <= 4096): the same chain, with everything that
+// scales with F off the chain warp.  At F = 256 the blocked kernel's
+// design would leave warp 0 the v update (F FMAs a step) and the base
+// dots (B F a block), and its two producers 9x the Gram work; here v
+// lives in shared memory and eleven producer warps do all of it.  Rows go
+// in blocks of B = 32 (B halves down to 4 as F grows, keeping B F <= 16384
+// so three slots of B rows fit in shared memory).  A block's life:
+//   - TMA stages its B rows into a ring of 3-4 slots (one bulk copy, an
+//     mbarrier per slot), up to NS blocks ahead;
+//   - nine Gram warps (none on warp 0's SM sub-partition) build block
+//     c+1's lower Gram matrix (with |x_r|^2 on its diagonal) in 4 x 4
+//     register tiles, each tile's F split over 8-32 lanes in interleaved
+//     float4 columns (conflict-free shared loads at any row width) and
+//     summed by a butterfly of shuffles, and the rows' parameters, while
+//     warp 0 runs block c and the boundary warps hand it over;
+//   - at block c's end warp 0 publishes its s_j and arrives on S; the two
+//     boundary warps (4 and 8, on warp 0's sub-partition, idle while it
+//     steps) add sum_j s_j x_j to v on their float4 columns (four partial
+//     sums over j mod 4), refill the slot block c leaves with a TMA copy,
+//     form block c+1's base dots x_r . v_{c+1} (rows over the two warps,
+//     lanes over float4 columns, a butterfly) and arrive on Q, as the
+//     Gram warps do once block c+1's Gram is in; warp 0 waits on Q and
+//     loads its Gram row, parameters and base dot.
+// So the chain per step is the blocked kernel's (candidate, shuffle, one
+// FMA), whatever F is.  What F adds is the Gram warps' work (on
+// shared-memory bandwidth: 32 bytes of loads per 16 FMAs), which runs
+// beside the chain and the boundary, and the boundary (2 B F floats of
+// shared loads on two warps that share one issue port, and the hand-offs),
+// which warp 0 waits for.  Rows past M are a slot's old (finite; zero at
+// start) rows with mask 0: s = 0.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -380,124 +403,402 @@ int launch_blocked(const float* x, const float* y, const float* alpha,
   return 0;
 }
 
-template <int NJ, int D>
-__global__ void __launch_bounds__(32)
-scd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-           const float* __restrict__ alpha, const float* __restrict__ w,
-           const float* __restrict__ mask, const float* __restrict__ sigma,
-           float lam_n, float* __restrict__ v_out, float* __restrict__ da,
-           int M, int F) {
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x;
-  const size_t row0 = (size_t)k * M;
-  const float* xk = x + row0 * F;
-  const float* yk = y + row0;
-  const float* ak = alpha + row0;
-  const float* mk = mask + row0;
-  float* dak = da + row0;
-  const float sg = sigma[k];
-  const float step = sg / lam_n;
+// ---- the wide kernel (64 < F <= 4096) ------------------------------------
 
-  float v[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int f = lane + 32 * j;
-    v[j] = f < F ? w[f] : 0.f;
-  }
+// Twelve warps.  Warp 0 runs the chain.  Warps 4 and 8, which share warp
+// 0's SM sub-partition (warp w runs on w % 4) and so never issue while the
+// chain steps, are the boundary warps: v, the block-end v update, the TMA
+// copies and the next block's base dots.  The other nine build the Gram
+// matrices and the rows' parameters, one block ahead, beside both the
+// chain and the boundary.  (Gram work on warp 0's sub-partition slowed
+// the chain's steps; the boundary on all eleven, after the Gram, added
+// to the block's time instead of overlapping it.)
+constexpr int kWideThreads = 32 * 12;
+constexpr int kWideGramP = 32 * 9;  // Gram threads
+constexpr int kWideBoundP = 32 * 2;  // boundary threads
+constexpr int kWideMaxBF = 16384;  // B F: three slots of B rows fit
+constexpr int kWideSmem = 232448;  // the most shared memory a block can use
+constexpr int kWideSlotsMax = 4;
+constexpr int kWidePar = 8;  // per row, as kPar
+// named barriers: S (warp 0 -> the boundary warps: the block's s are
+// published), Q (the Gram and boundary warps -> warp 0: the next block's
+// Gram, parameters and base dots are in; the Gram warps wait on it too,
+// so they run one block ahead and no further), G (the Gram warps among
+// themselves), V (the boundary warps among themselves)
+constexpr int kBarS = 1, kBarQ = 2, kBarG = 3, kBarV = 4;
 
-  // register ring: rows i .. i + D - 1
-  float xr[D][NJ], yr[D], ar[D], mr[D];
-  auto load = [&](int b, int r) {
-    if (r < M) {
-      const float* row = xk + (size_t)r * F;
+template <int N>
+__device__ __forceinline__ void nbar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void nbar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// Butterfly reduce-scatter over each aligned group of lanes that differ in
+// the bits below 2 O (the first stage's offset O): every lane holds N
+// partial sums; each halving stage keeps the half selected by the lane's
+// bit O (the upper half if set) and adds the partner's copy of it; once
+// one value is left, the remaining stages add it across the lanes.  Lane
+// l ends with entry sum_{halving stages} ((l & O) ? n / 2 : 0) (n the
+// count entering the stage) and the N >> (halving stages) entries after
+// it, each summed over the group.
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter(float* a, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = lane & O;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int f = lane + 32 * j;
-        xr[b][j] = f < F ? row[f] : 0.f;
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? a[i] : a[i + H];
+        const float keep = up ? a[i + H] : a[i];
+        a[i] = keep + __shfl_xor_sync(kFull, send, O);
       }
-      yr[b] = yk[r];
-      ar[b] = ak[r];
-      mr[b] = mk[r];
+      reduce_scatter<H, O / 2>(a, lane);
+    } else {
+      a[0] += __shfl_xor_sync(kFull, a[0], O);
+      reduce_scatter<1, O / 2>(a, lane);
     }
-  };
-#pragma unroll
-  for (int b = 0; b < D; ++b) load(b, b);
-
-  for (int i0 = 0; i0 < M; i0 += D) {
-#pragma unroll
-    for (int b = 0; b < D; ++b) {
-      const int i = i0 + b;
-      if (i >= M) break;
-      float q = 0.f, sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        q = fmaf(xr[b][j], v[j], q);
-        sq = fmaf(xr[b][j], xr[b][j], sq);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        q += __shfl_xor_sync(kFull, q, off);
-        sq += __shfl_xor_sync(kFull, sq, off);
-      }
-      const float grad = 1.f - yr[b] * q;
-      const float denom = fmaxf(sq * sg / lam_n, 1e-12f);
-      const float a_new = fminf(fmaxf(ar[b] + grad / denom, 0.f), 1.f);
-      const float d = (a_new - ar[b]) * mr[b];
-      const float c = step * d * yr[b];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) v[j] = fmaf(c, xr[b][j], v[j]);
-      if (lane == 0) dak[i] = d;
-      load(b, i + D);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int f = lane + 32 * j;
-    if (f < F) v_out[(size_t)k * F + f] = v[j];
   }
 }
 
-template <int NJ>
-void launch(const float* x, const float* y, const float* alpha,
-            const float* w, const float* mask, const float* sigma,
-            float lam_n, float* v_out, float* da, int K, int M, int F,
-            cudaStream_t stream) {
-  // prefetch depth: deeper rings for narrow rows, within ~100 registers
-  constexpr int D = NJ <= 2 ? 8 : (NJ <= 8 ? 4 : 2);
-  scd_kernel<NJ, D><<<K, 32, 0, stream>>>(x, y, alpha, w, mask, sigma,
-                                          lam_n, v_out, da, M, F);
+__host__ __device__ constexpr int log2i(int n) {
+  return n <= 1 ? 0 : 1 + log2i(n / 2);
+}
+
+// out = v + sum_j s_j x_j over a block's B rows (row stride F), on
+// boundary thread p's float4 columns 4 (p + 64 i) (only threads that own
+// one load s): four partial sums over j = 0, 1, 2, 3 (mod 4), added as
+// ((0 + 1) + (2 + 3)), a chain of B/4 FMAs instead of B
+template <int B>
+__device__ __forceinline__ void v_update(const float* sb, const float* x,
+                                         const float* v, float* out, int p,
+                                         int F) {
+  if (4 * p >= F) return;
+  float s[B];
+#pragma unroll
+  for (int j = 0; j < B; j += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(sb + j);
+    s[j] = t.x; s[j + 1] = t.y; s[j + 2] = t.z; s[j + 3] = t.w;
+  }
+  for (int ch = p; 4 * ch < F; ch += kWideBoundP) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(x + j * F + 4 * ch);
+      float4& u = a[j % 4];
+      u.x = fmaf(s[j], t.x, u.x);
+      u.y = fmaf(s[j], t.y, u.y);
+      u.z = fmaf(s[j], t.z, u.z);
+      u.w = fmaf(s[j], t.w, u.w);
+    }
+    float4 r = *reinterpret_cast<const float4*>(v + 4 * ch);
+    r.x += (a[0].x + a[1].x) + (a[2].x + a[3].x);
+    r.y += (a[0].y + a[1].y) + (a[2].y + a[3].y);
+    r.z += (a[0].z + a[1].z) + (a[2].z + a[3].z);
+    r.w += (a[0].w + a[1].w) + (a[2].w + a[3].w);
+    *reinterpret_cast<float4*>(out + 4 * ch) = r;
+  }
+}
+
+// Rows a block of the wide kernel: 32, halved while B F > kWideMaxBF, at
+// least 4; 0 if F is too wide even then.
+inline int wide_rows(int F) {
+  int b = 32;
+  while (b > 4 && b * F > kWideMaxBF) b >>= 1;
+  return b * F <= kWideMaxBF ? b : 0;
+}
+
+// F % 4 == 0, B F <= kWideMaxBF, x 16-byte aligned; NS ring slots (3 or
+// 4).  One block per worker, twelve warps (kWideThreads).
+template <int B>
+__global__ void __launch_bounds__(kWideThreads, 1)
+scd_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ alpha,
+                const float* __restrict__ w,
+                const float* __restrict__ mask,
+                const float* __restrict__ sigma, float lam_n,
+                float* __restrict__ v_out, float* __restrict__ da, int M,
+                int F, int NS) {
+  constexpr int GS = B + 4;  // Gram row stride: lanes' rows, distinct banks
+  // Gram tiles of TS x TS entries (8 float4 loads feed 64 FMAs; 8 x 8
+  // tiles halve the loads, but their 64-entry butterflies cost more than
+  // that saves), NT of them on and below the diagonal, each tile's F split
+  // over S lanes (8..32, NT S <= 288)
+  constexpr int TS = 4;
+  constexpr int NT = (B / TS) * (B / TS + 1) / 2;
+  constexpr int S = NT * 32 <= kWideGramP ? 32
+                    : NT * 16 <= kWideGramP ? 16 : 8;
+  constexpr int LS = log2i(S);
+  constexpr int LE = log2i(TS * TS);
+  constexpr int HG = LS < LE ? LS : LE;  // halving stages, Gram
+  constexpr int EG = (TS * TS) >> HG;  // Gram entries a lane ends with
+  constexpr int RW = B / 2;  // base-dot rows a boundary warp
+  static_assert(NT * S <= kWideGramP && (NT * S) % 32 == 0, "Gram items");
+  extern __shared__ __align__(16) float smem[];
+  const int slot = B * F;
+  float* xs = smem;                      // [slot][row][F]
+  float* vs = xs + NS * slot;            // v [F]
+  float* gs = vs + F;                    // [c & 1][r][GS]: G, diag |x_r|^2
+  float* pr = gs + 2 * B * GS;           // [c & 1][row][param]
+  float* qb = pr + 2 * B * kWidePar;     // base dots of the next block [B]
+  float* sb = qb + B;                    // the block's s_j [B]
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(sb + B);
+  const int k = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const size_t row0 = (size_t)k * M;
+  const float sg = sigma[k];
+  const float step = sg / lam_n;
+  const int nb = (M + B - 1) / B;
+
+  for (int i = threadIdx.x; i < NS * slot; i += kWideThreads) xs[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * B * GS; i += kWideThreads) gs[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) mbar_init(smem_u32(&xbar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const float* xk = x + row0 * F;
+  if (warp == 4 || warp == 8) {
+    // ---- boundary warps ------------------------------------------------
+    const int bw = warp / 4 - 1, bp = 32 * bw + lane;
+    auto fetch = [&](int c) {  // block c's rows into slot c % NS
+      if (bp == 32) {
+        const int s = c % NS;
+        const int bytes = min(B, M - c * B) * F * 4;
+        const uint32_t bar = smem_u32(&xbar[s]);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(bar, bytes);
+        bulk_load(xs + s * slot, xk + (size_t)c * B * F, bytes, bar);
+      }
+    };
+    // block c's base dots x_r . v, rows r = bw + 2 i (lanes over float4
+    // columns, an xor butterfly), into qb; then Q
+    auto dots = [&](int c) {
+      mbar_wait(smem_u32(&xbar[c % NS]), (c / NS) & 1);
+      const float4* xn = reinterpret_cast<const float4*>(xs + (c % NS) *
+                                                          slot);
+      const float4* v4 = reinterpret_cast<const float4*>(vs);
+      float acc[RW];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) acc[i] = 0.f;
+      for (int ch = lane; 4 * ch < F; ch += 32) {
+        const float4 vv = v4[ch];
+#pragma unroll
+        for (int i = 0; i < RW; ++i) {
+          const float4 t = xn[(bw + 2 * i) * (F / 4) + ch];
+          acc[i] = fmaf(t.x, vv.x, acc[i]);
+          acc[i] = fmaf(t.y, vv.y, acc[i]);
+          acc[i] = fmaf(t.z, vv.z, acc[i]);
+          acc[i] = fmaf(t.w, vv.w, acc[i]);
+        }
+      }
+      reduce_scatter<RW, 16>(acc, lane);  // lane l: row bw + 2 l / (32/RW)
+      if ((lane & ((32 / RW) - 1)) == 0) qb[bw + 2 * (lane / (32 / RW))] =
+          acc[0];
+      nbar_arrive<kWideThreads>(kBarQ);
+    };
+
+    for (int f = bp; f < F; f += kWideBoundP) vs[f] = w[f];
+    for (int c = 0; c < NS && c < nb; ++c) fetch(c);
+    nbar_sync<kWideBoundP>(kBarV);  // v = w, whole
+    dots(0);
+    for (int c = 0; c < nb; ++c) {
+      nbar_sync<kWideBoundP + 32>(kBarS);  // warp 0 is done with block c
+      if (c + 1 == nb) {  // the last block: v_end
+        v_update<B>(sb, xs + (c % NS) * slot, vs, v_out + (size_t)k * F,
+                    bp, F);
+        break;
+      }
+      v_update<B>(sb, xs + (c % NS) * slot, vs, vs, bp, F);
+      nbar_sync<kWideBoundP>(kBarV);  // v is whole; block c's slot is read
+      if (c + NS < nb) fetch(c + NS);
+      dots(c + 1);
+    }
+    return;
+  }
+  if (warp > 0) {
+    // ---- Gram warps ------------------------------------------------------
+    const int gw = warp - 1 - warp / 4;  // 0..8
+    const float* yk = y + row0;
+    const float* ak = alpha + row0;
+    const float* mk = mask + row0;
+    // block c's lower Gram matrix and |x_r|^2 into gs[c & 1], then (Gram
+    // warp 0) its rows' parameters into pr[c & 1]; then Q
+    for (int c = 0; c < nb; ++c) {
+      float yv = 0.f, av = 0.f, mv = 0.f;
+      if (gw == 0 && lane < B && c * B + lane < M) {
+        yv = yk[c * B + lane];
+        av = ak[c * B + lane];
+        mv = mk[c * B + lane];
+      }
+      mbar_wait(smem_u32(&xbar[c % NS]), (c / NS) & 1);
+      if (gw * 32 < NT * S) {  // whole warps: the shuffles need every lane
+        const float* xb = xs + (c % NS) * slot;
+        float* g = gs + (c & 1) * B * GS;
+        const int item = (gw * 32 + lane) / S, sp = lane % S;
+        int R = 0, C = item;  // tile (R, C), C <= R, row by row
+        while (C > R) C -= ++R;
+        float acc[TS * TS];
+#pragma unroll
+        for (int e = 0; e < TS * TS; ++e) acc[e] = 0.f;
+        for (int ch = sp; 4 * ch < F; ch += S) {
+          float4 a[TS], b[TS];
+#pragma unroll
+          for (int i = 0; i < TS; ++i) {
+            a[i] = *reinterpret_cast<const float4*>(xb + (TS * R + i) * F +
+                                                    4 * ch);
+            b[i] = *reinterpret_cast<const float4*>(xb + (TS * C + i) * F +
+                                                    4 * ch);
+          }
+#pragma unroll
+          for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int j = 0; j < TS; ++j) {
+              float& t = acc[TS * i + j];
+              t = fmaf(a[i].x, b[j].x, t);
+              t = fmaf(a[i].y, b[j].y, t);
+              t = fmaf(a[i].z, b[j].z, t);
+              t = fmaf(a[i].w, b[j].w, t);
+            }
+        }
+        reduce_scatter<TS * TS, S / 2>(acc, lane);
+        const int e0 = ((lane & (S - 1)) >> (LS - HG)) * EG;
+        if ((lane & ((1 << (LS - HG)) - 1)) == 0) {
+#pragma unroll
+          for (int e = 0; e < EG; ++e) {
+            const int r = TS * R + (e0 + e) / TS;
+            const int j = TS * C + (e0 + e) % TS;
+            g[r * GS + j] = j <= r ? acc[e] : 0.f;
+          }
+        }
+      }
+      nbar_sync<kWideGramP>(kBarG);
+      if (gw == 0 && lane < B) {
+        const float* g = gs + (c & 1) * B * GS;
+        const float den = fmaxf(g[lane * GS + lane] * sg / lam_n, 1e-12f);
+        float4* q4 = reinterpret_cast<float4*>(pr + ((c & 1) * B + lane) *
+                                               kWidePar);
+        q4[0] = make_float4(yv, __frcp_rn(den), den, av);
+        q4[1] = make_float4(mv, step * yv * mv, 0.f, 0.f);
+      }
+      nbar_sync<kWideThreads>(kBarQ);
+    }
+    return;
+  }
+
+  // ---- warp 0: the chain ---------------------------------------------------
+  float* dak = da + row0;
+  float q = 0.f, gc[B], yc, rc, den, al, mc, cm;
+  // take over block c: lane r (< B) loads row r's Gram row, parameters and
+  // base dot; lanes past B hold a row of zeros with mask 0
+  auto promote = [&](int c) {
+    if (lane < B) {
+      const float* g = gs + ((c & 1) * B + lane) * GS;
+#pragma unroll
+      for (int j = 0; j < B; j += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(g + j);
+        gc[j] = t.x; gc[j + 1] = t.y; gc[j + 2] = t.z; gc[j + 3] = t.w;
+      }
+      const float4* p4 = reinterpret_cast<const float4*>(
+          pr + ((c & 1) * B + lane) * kWidePar);
+      const float4 pa = p4[0], pb = p4[1];
+      yc = pa.x; rc = pa.y; den = pa.z; al = pa.w; mc = pb.x; cm = pb.y;
+      q = qb[lane];
+    } else {
+#pragma unroll
+      for (int j = 0; j < B; ++j) gc[j] = 0.f;
+      yc = 0.f; rc = 1.f; den = 1.f; al = 0.f; mc = 0.f; cm = 0.f; q = 0.f;
+    }
+  };
+
+  nbar_sync<kWideThreads>(kBarQ);
+  promote(0);
+  for (int c = 0; c < nb; ++c) {
+    float tk = 0.f;
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      // the chain: every lane's candidate (lane j's is the real one), s_j
+      // broadcast from lane j, every q updated
+      const float grad = 1.f - yc * q;
+      const float q0 = grad * rc;
+      const float quot = fmaf(fmaf(-den, q0, grad), rc, q0);
+      const float t = __saturatef(al + quot) - al;
+      const float sj = __shfl_sync(kFull, cm * t, j);
+      tk = lane == j ? t : tk;
+      q = fmaf(sj, gc[j], q);
+    }
+    if (lane < B) sb[lane] = cm * tk;  // s of this lane's row, as broadcast
+    nbar_arrive<kWideBoundP + 32>(kBarS);
+    // after the arrive: a barrier waits for the thread's earlier global
+    // stores, and this one is off the producers' path
+    if (lane < B && c * B + lane < M) dak[c * B + lane] = tk * mc;
+    if (c + 1 < nb) {
+      nbar_sync<kWideThreads>(kBarQ);
+      promote(c + 1);
+    }
+  }
+}
+
+template <int B>
+int launch_wide(const float* x, const float* y, const float* alpha,
+                const float* w, const float* mask, const float* sigma,
+                float lam_n, float* v_out, float* da, int K, int M, int F,
+                cudaStream_t stream) {
+  const int fixed = 4 * (F + 2 * B * (B + 4) + 2 * B * kWidePar + 2 * B);
+  const int slot = 4 * B * F;
+  const int ns = min(kWideSlotsMax, (kWideSmem - fixed - 8 * kWideSlotsMax)
+                                        / slot);
+  if (ns < 3) return (int)cudaErrorInvalidValue;
+  const int bytes = fixed + ns * slot + 8 * ns;
+  cudaError_t err = cudaFuncSetAttribute(
+      scd_wide_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  scd_wide_kernel<B><<<K, kWideThreads, bytes, stream>>>(
+      x, y, alpha, w, mask, sigma, lam_n, v_out, da, M, F, ns);
+  return 0;
 }
 
 }  // namespace
 
 // x: (K, M, F); y, alpha, mask, da: (K, M); w: (F,); sigma: (K,);
-// v_out: (K, F); all float32, contiguous.  F <= 1024.  Rows of F <= 64,
-// F a multiple of 4, in a 16-byte aligned x take the blocked kernel
-// (*variant = 1), all others the one-warp kernel (*variant = 0).  Returns
-// the CUDA error code of the launch (0 = queued).
+// v_out: (K, F); all float32, contiguous; F a multiple of 4, F <= 4096,
+// x 16-byte aligned (the wrapper pads other rows).  Rows of F <= 64 take
+// the blocked kernel (*variant = 1), wider ones the wide kernel
+// (*variant = 2).  Returns the CUDA error code of the launch (0 = queued).
 extern "C" int scd_pass_launch(const float* x, const float* y,
                                const float* alpha, const float* w,
                                const float* mask, const float* sigma,
                                float lam_n, float* v_out, float* da, int K,
                                int M, int F, cudaStream_t stream,
                                int* variant) {
-  const int nj = (F + 31) / 32;
-  if (K < 1 || M < 1 || F < 1 || nj > 32) return (int)cudaErrorInvalidValue;
-  *variant = F % 4 == 0 && F <= 64 && ((uintptr_t)x & 15) == 0;
-  if (*variant) {
-    int err;
+  if (K < 1 || M < 1 || F < 4 || F % 4 || ((uintptr_t)x & 15))
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (F <= 64) {
+    *variant = 1;
     if (F <= 8) err = launch_blocked<8>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
     else if (F <= 16) err = launch_blocked<16>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
     else if (F <= 32) err = launch_blocked<32>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
     else err = launch_blocked<64>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-    if (err) return err;
+  } else {
+    *variant = 2;
+    switch (wide_rows(F)) {
+      case 32: err = launch_wide<32>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
+      case 16: err = launch_wide<16>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
+      case 8: err = launch_wide<8>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
+      case 4: err = launch_wide<4>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  else if (nj <= 1) launch<1>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  else if (nj <= 2) launch<2>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  else if (nj <= 4) launch<4>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  else if (nj <= 8) launch<8>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  else if (nj <= 16) launch<16>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  else launch<32>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
+  if (err) return err;
   return (int)cudaGetLastError();
 }

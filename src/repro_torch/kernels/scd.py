@@ -15,16 +15,22 @@ and returns v_end (K, F) and the dual deltas da (K, M); masked samples
 give da exactly 0.  CoCoA's additive update is (v_end_k - w) / sigma_k.
 
 The kernels (`csrc/scd.cu`) are bound by the dependency chain, not by
-bytes: each step needs the v the step before wrote.  Rows of F <= 64, F
-a multiple of 4, in an x whose base is 16-byte aligned (`takes_blocked`),
-take the blocked kernel: rows in blocks of `BLOCK`, each
-step's dot formed as a base dot at the block's start plus Gram terms
+bytes: each step needs the v the step before wrote.  Both stage rows by
+TMA bulk copies, so they take F a multiple of 4 in a 16-byte aligned x;
+the wrapper copies other rows into an aligned buffer with zero columns
+up to the next multiple of 4 (zero columns add exactly 0 to every dot
+and to |x|^2; v_end is sliced back).  Rows of (padded) F <= 64
+(`takes_blocked`) take the blocked kernel: rows in blocks of `BLOCK`,
+each step's dot formed as a base dot at the block's start plus Gram terms
 (`scd_pass_blocked_plain` repeats its arithmetic), so the chain per step
 is one shuffle, one FMA and the scalar update; these launches are also
-counted in `scd_pass.launches_blocked`.  Other rows (up to F = 1024) take
-the one-warp kernel, which reduces each dot with warp shuffles.  Both are
-built from source with nvcc at first use (`kernels.build`) and loaded
-with ctypes.
+counted in `scd_pass.launches_blocked`.  Wider rows, up to F = `MAX_F`
+(`takes_wide`), take the wide kernel: the same chain, with the Gram
+matrices, the block-end v update and the base dots on nine producer
+warps and v in shared memory, in blocks of `wide_rows(F)` rows
+(`scd_pass_wide_plain` repeats its arithmetic); counted in
+`scd_pass.launches_wide`.  Both are built from source with nvcc at first
+use (`kernels.build`) and loaded with ctypes.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -36,16 +42,34 @@ from typing import Tuple
 
 import torch
 
-MAX_F = 1024
+MAX_F = 4096  # the wide kernel's limit: blocks of 4 rows of F <= 4096
 BLOCK = 32  # rows per block of the blocked kernel, one lane each
+WIDE_BF = 16384  # the wide kernel's B F: three slots of B rows fit
 
 
-def takes_blocked(F: int, aligned: bool = True) -> bool:
-    """The C launcher's rule, for the tests: rows of width F go to the
-    blocked kernel when F <= 64, F is a multiple of 4 and x's base is
-    16-byte `aligned` (as a fresh allocation is; an offset view takes the
-    one-warp kernel)."""
-    return aligned and F % 4 == 0 and F <= 64
+def _padded(F: int) -> int:
+    return -(-F // 4) * 4
+
+
+def takes_blocked(F: int) -> bool:
+    """The C launcher's rule, for the tests: rows of width F (padded to a
+    multiple of 4) go to the blocked kernel when F <= 64."""
+    return _padded(F) <= 64
+
+
+def takes_wide(F: int) -> bool:
+    """The C launcher's rule, for the tests: rows of width 64 < F <= MAX_F
+    (padded to a multiple of 4) go to the wide kernel."""
+    return 64 < _padded(F) <= MAX_F
+
+
+def wide_rows(F: int) -> int:
+    """Rows a block of the wide kernel at width F (padded to a multiple of
+    4): 32, halved while B F > WIDE_BF, at least 4 (the C rule)."""
+    F, b = _padded(F), BLOCK
+    while b > 4 and b * F > WIDE_BF:
+        b //= 2
+    return b
 
 
 def scd_pass_plain(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
@@ -110,6 +134,52 @@ def scd_pass_blocked_plain(x: torch.Tensor, y: torch.Tensor,
     return v, da[:, :M]
 
 
+def scd_pass_wide_plain(x: torch.Tensor, y: torch.Tensor,
+                        alpha: torch.Tensor, w: torch.Tensor,
+                        mask: torch.Tensor, lam_n: float,
+                        sigma: torch.Tensor, block: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide kernel's arithmetic, vectorized over the K workers: per
+    block of `block` rows (default `wide_rows(F)`; the last block padded
+    with zero rows of mask 0), the base dots x_r . v at the block's start,
+    the lower Gram matrix with |x_r|^2 on its diagonal, then per step j the
+    lane-j update s_j = ((sigma/lam_n) y_j mask_j) (a_new - alpha_j) added
+    as s_j G[r][j] to every later q_r; v moves only at the block's end,
+    by sum_j s_j x_j in four partial sums over j mod 4.  The kernel never
+    tiles F: it halves the block instead (`wide_rows`), so a block's rows
+    always fit its shared memory.  Used by the tests only."""
+    K, M, F = x.shape
+    block = block or wide_rows(F)
+    n_pad = -M % block
+    pad = lambda t: torch.nn.functional.pad(t, (0, n_pad))  # noqa: E731
+    xp = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
+    yp, ap, mp = pad(y), pad(alpha), pad(mask)
+    v = w.expand(K, F).clone()
+    da = torch.zeros(K, M + n_pad, dtype=torch.float32, device=x.device)
+    step = (sigma / lam_n)[:, None]
+    for i0 in range(0, M + n_pad, block):
+        xb = xp[:, i0:i0 + block]
+        yb, ab, mb = (t[:, i0:i0 + block] for t in (yp, ap, mp))
+        q = (xb * v[:, None]).sum(-1)
+        gram = xb @ xb.transpose(1, 2)
+        den = torch.clamp(torch.diagonal(gram, dim1=1, dim2=2)
+                          * sigma[:, None] / lam_n, min=1e-12)
+        lower = torch.tril(gram, diagonal=-1)
+        cm = step * yb * mb
+        s = torch.zeros_like(yb)
+        for j in range(block):
+            grad = 1.0 - yb[:, j] * q[:, j]
+            t = torch.clamp(ab[:, j] + grad / den[:, j], 0.0, 1.0) - ab[:, j]
+            s[:, j] = cm[:, j] * t
+            q = q + s[:, j, None] * lower[:, :, j]
+            da[:, i0 + j] = t * mb[:, j]
+        part = [torch.zeros_like(v) for _ in range(4)]
+        for j in range(block):
+            part[j % 4] = part[j % 4] + s[:, j, None] * xb[:, j]
+        v = v + ((part[0] + part[1]) + (part[2] + part[3]))
+    return v, da[:, :M]
+
+
 def _check(x, y, alpha, w, mask, sigma):
     if x.dim() != 3:
         raise ValueError(f"x must be (K, M, F); got {tuple(x.shape)}")
@@ -136,24 +206,33 @@ def _launch(x, y, alpha, w, mask, lam_n, sigma):
                        + [ctypes.c_void_p] * 2)
     K, M, F = x.shape
     if F > MAX_F:
-        raise ValueError(f"the CUDA SCD kernel holds v in registers and "
-                         f"takes F <= {MAX_F}; got F={F}")
+        raise ValueError(f"the CUDA SCD kernels take F <= {MAX_F} (the wide "
+                         f"kernel stages blocks of at least 4 rows of F "
+                         f"floats, three to a ring in shared memory); got "
+                         f"F={F}")
     x, y, alpha, w, mask, sigma = (t.contiguous() for t in
                                    (x, y, alpha, w, mask, sigma))
-    v_end = torch.empty(K, F, dtype=torch.float32, device=x.device)
+    Fp = _padded(F)
+    if Fp != F or x.data_ptr() % 16:
+        # TMA stages 16-byte aligned rows of 16-byte multiples: an aligned
+        # copy, with zero columns that add exactly 0 to every dot
+        x = torch.nn.functional.pad(x, (0, Fp - F))
+        w = torch.nn.functional.pad(w, (0, Fp - F))
+    v_end = torch.empty(K, Fp, dtype=torch.float32, device=x.device)
     da = torch.empty(K, M, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     variant = ctypes.c_int(0)
     err = fn(x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w.data_ptr(),
              mask.data_ptr(), sigma.data_ptr(), float(lam_n),
-             v_end.data_ptr(), da.data_ptr(), K, M, F, stream,
+             v_end.data_ptr(), da.data_ptr(), K, M, Fp, stream,
              ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"scd_pass launch failed: cudaError {err} "
                            f"(K={K} M={M} F={F})")
     scd_pass.launches += 1
-    scd_pass.launches_blocked += variant.value
-    return v_end, da
+    scd_pass.launches_blocked += variant.value == 1
+    scd_pass.launches_wide += variant.value == 2
+    return (v_end if Fp == F else v_end[:, :F].contiguous()), da
 
 
 def scd_pass(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
@@ -164,8 +243,8 @@ def scd_pass(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
 
     Returns (v_end (K, F), da (K, M)).  CUDA tensors launch a kernel (and
     count the launch in `scd_pass.launches`, and in
-    `scd_pass.launches_blocked` too when it took the blocked kernel); CPU
-    tensors run `scd_pass_plain`."""
+    `scd_pass.launches_blocked` or `scd_pass.launches_wide` too, by the
+    kernel it took); CPU tensors run `scd_pass_plain`."""
     _check(x, y, alpha, w, mask, sigma)
     if x.device.type == "cpu":
         return scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
@@ -177,3 +256,4 @@ def scd_pass(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
 
 scd_pass.launches = 0
 scd_pass.launches_blocked = 0
+scd_pass.launches_wide = 0

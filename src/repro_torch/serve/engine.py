@@ -1341,6 +1341,23 @@ class ServeEngine:
             self.suspended = False
             self.metrics.suspend_events.append((self._tick, "resume"))
 
+    # --- defrag -----------------------------------------------------------
+    def defrag(self) -> bool:
+        """Compact live pages to the low physical ids: one gather of every
+        KV leaf along its page axis (axis 1 of (nb, N, ps, kv, hd)), on the
+        leaf's device; the block tables and the prefix index are remapped
+        and token streams are unchanged.  Returns True if pages moved.
+        Call it between ticks."""
+        if self.mem is None:
+            return False
+        src = self.mem.defrag()  # also remaps the prefix index
+        if src is None:
+            return False
+        idx = torch.from_numpy(src).long()
+        for name, leaf in self.blocks.items():
+            self.blocks[name] = leaf.index_select(1, idx.to(leaf.device))
+        return True
+
     # --- main loop --------------------------------------------------------
     def _now(self) -> float:
         if self._clock is not None:

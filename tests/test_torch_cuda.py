@@ -286,21 +286,25 @@ def test_paged_attention_kernel_refuses_cpu_fallback(cuda):
 
 
 # (K, M, F, masked tail, lam*n, x offset bytes): the JAX SCD test's
-# shapes, the CoCoA path's widths (F=28 at HIGGS's lambda*n, F=256) and the
-# widest rows the kernel takes (F=1024), plus an F that is not a multiple
-# of 32, then a long chain at the path's width and lambda*n (the blocked
-# kernel's base dots and Gram terms round differently from a direct dot:
-# held over 32,768 steps), M not a multiple of the 32-row block, the
-# blocked kernel's widest instantiation (F=64), a narrow F that is not a
-# multiple of 4, and x views 4 bytes past 16-byte alignment, which TMA
-# cannot stage (the last three take the one-warp kernel)
+# shapes, the CoCoA path's widths (F=28 at HIGGS's lambda*n; the paper's
+# F=128 and 256), widths past the wide kernel's 32-row blocks (F=1024: 16
+# rows, 1100 and 2048: 8, 4096, its widest: 4), F not a multiple of 32 or
+# of 4 (padded with zero columns), then a long chain at the path's width
+# and lambda*n (the blocked kernel's base dots and Gram terms round
+# differently from a direct dot: held over 32,768 steps), M not a multiple
+# of the block, the blocked kernel's widest instantiation (F=64), and x
+# views 4 bytes past 16-byte alignment, which TMA cannot stage (copied
+# into an aligned buffer by the wrapper)
 SCD_CASES = [(1, 16, 8, 0, 10.0, 0), (3, 64, 32, 5, 10.0, 0),
              (4, 64, 8, 2, 10.0, 0), (16, 512, 28, 7, 11000.0, 0),
-             (16, 256, 256, 0, 11000.0, 0), (2, 64, 1024, 3, 100.0, 0),
-             (2, 96, 100, 1, 100.0, 0), (2, 32_768, 28, 0, 11000.0, 0),
-             (3, 1001, 28, 9, 11000.0, 0), (2, 200, 64, 4, 100.0, 0),
-             (2, 200, 30, 3, 100.0, 0), (3, 1001, 28, 9, 11000.0, 4),
-             (2, 200, 64, 4, 100.0, 4)]
+             (16, 256, 256, 0, 11000.0, 0), (16, 300, 128, 5, 11000.0, 0),
+             (2, 64, 1024, 3, 100.0, 0), (2, 70, 1100, 3, 100.0, 0),
+             (2, 45, 2048, 2, 100.0, 0), (1, 21, 4096, 2, 100.0, 0),
+             (2, 96, 100, 1, 100.0, 0), (2, 77, 65, 4, 100.0, 0),
+             (2, 32_768, 28, 0, 11000.0, 0), (3, 1001, 28, 9, 11000.0, 0),
+             (2, 200, 64, 4, 100.0, 0), (2, 200, 30, 3, 100.0, 0),
+             (3, 1001, 28, 9, 11000.0, 4), (2, 200, 64, 4, 100.0, 4),
+             (2, 301, 256, 9, 11000.0, 4), (2, 99, 66, 3, 100.0, 0)]
 
 
 def _scd_inputs(K, M, F, masked, seed=0):
@@ -329,13 +333,15 @@ def test_scd_kernel_matches_plain(cuda, case):
         flat[offset // 4:] = x.flatten()
         x = flat[offset // 4:].view(K, M, F)
         assert x.data_ptr() % 16 == offset
-    before = scd_pass.launches, scd_pass.launches_blocked
+    before = (scd_pass.launches, scd_pass.launches_blocked,
+              scd_pass.launches_wide)
     v, da = scd_pass(x, y, alpha, w, mask, lam_n, sigma)
     torch.cuda.synchronize()
-    # every launch the launcher's rule sends to the blocked kernel takes
-    # it, no other
-    assert (scd_pass.launches, scd_pass.launches_blocked) == (
-        before[0] + 1, before[1] + scd_mod.takes_blocked(F, not offset))
+    # every launch takes the kernel the launcher's rule names
+    assert (scd_pass.launches, scd_pass.launches_blocked,
+            scd_pass.launches_wide) == (
+        before[0] + 1, before[1] + scd_mod.takes_blocked(F),
+        before[2] + scd_mod.takes_wide(F))
     v_want, da_want = scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
     torch.testing.assert_close(v, v_want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(da, da_want, rtol=1e-5, atol=1e-5)
@@ -345,8 +351,10 @@ def test_scd_kernel_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_scd_kernel_refuses_rows_wider_than_its_registers(cuda):
-    x, y, alpha, w, mask, sigma = _scd_inputs(1, 4, 1025, 0)
-    with pytest.raises(ValueError, match="F <= 1024"):
+    """Past the wide kernel's limit (blocks of 4 rows of F floats, three
+    to a ring in shared memory) the wrapper raises and names it."""
+    x, y, alpha, w, mask, sigma = _scd_inputs(1, 4, 4097, 0)
+    with pytest.raises(ValueError, match="F <= 4096"):
         scd_pass(x, y, alpha, w, mask, 10.0, sigma)
 
 

@@ -69,6 +69,14 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+@pytest.mark.parametrize("name", ["cluster_mix_torch", "cocoa_svm_torch",
+                                  "load_balancing_torch"])
+def test_torch_examples_import_nothing_of_the_jax_package(name):
+    roots = _imported_roots(ROOT / "examples" / f"{name}.py")
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
 def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = smoke_variant(get_config("smollm-360m"))

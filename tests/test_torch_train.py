@@ -77,6 +77,23 @@ def test_mlp_logits_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("fn", ["softmax_loss", "accuracy"])
+@pytest.mark.parametrize("n,classes", [(1, 2), (37, 10)])
+def test_nets_loss_and_accuracy_match_jax(fn, n, classes):
+    """`nets.softmax_loss` (mean logsumexp less the labelled logit) and
+    `nets.accuracy` (float32 mean of argmax == label) against the JAX
+    package's, on logits with ties broken alike (distinct values)."""
+    rng = np.random.default_rng(n)
+    logits = (rng.standard_normal((n, classes)) * 3).astype(np.float32)
+    labels = rng.integers(0, classes, size=n).astype(np.int32)
+    labels[: n // 2] = logits[: n // 2].argmax(-1)  # some right answers
+    want = np.asarray(getattr(JN, fn)(jnp.asarray(logits),
+                                      jnp.asarray(labels)))
+    got = getattr(TN, fn)(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
 def test_port_init_has_the_jax_layouts_and_sizes():
     """The port's own initializers (explicit torch.Generator) give the
     paper CNN's 276,266 parameters at 32x32, and `params_from_numpy` maps
