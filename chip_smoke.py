@@ -17,24 +17,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               paged_attention: the JAX kernel's self-test cases plus the
               full-width h2o-danube-1.8b shapes (decode, a 256-token
               prefill chunk and the speculative verify span of spec_k 4:
-              q_span 5, 20 rows), two more spans of >= 16 rows (the
-              tensor-core kernel) and the split route's edge cases
-              (length 0, shorter than one run of keys, exactly P * ps, a
-              window starting inside a run, q_span 3 and 4) and the
-              full-width verify span at the ladder's spec_shrink (spec_k
-              2: q_span 3, 12 rows), fp32 at 2e-5
-              (TF32 off) and bf16 at 2e-2; every launch must take the
-              route the launcher's rule names; the split route gives
+              q_span 5, 20 rows), two more spans of >= 16 rows, the split
+              route's edge cases and the verify route's (length 0,
+              shorter than one run of keys, exactly P * ps, a window
+              starting inside a run, q_span 2-5, QG 32 at hd 64 and 128)
+              and the full-width verify span at the ladder's spec_shrink
+              (spec_k 2: q_span 3, 12 rows), fp32 at 2e-5 (TF32 off) and
+              bf16 at 2e-2; every launch must take the route the
+              launcher's rule names; the split and verify routes give
               bitwise-equal outputs on two calls.
               scd: the JAX kernel test's shapes (K <= 4, M in {16, 64},
               F in {8, 32}, masked tails), the CoCoA paths' shapes at
               K=16, F in {28, 128, 256} with M cut to 4,096, the wide
-              kernel's other block sizes (F = 65, 1100, 2048, 4096), a
-              long chain (K=2, M=32,768, F=28), and rows the wrapper
+              kernel's other block sizes (F = 65, 1100, 2048, 4096), the
+              row kernel's widths (F = 4097, 4100, 8192, 65536; K <= 2,
+              M <= 256), a long chain (K=2, M=32,768, F=28), and rows the
+              wrapper
               pads into an aligned copy (F=30; F=28 and F=256 with x 4
               bytes off alignment), fp32 at rtol/atol 1e-5; every launch
               takes the kernel the launcher's rule names (blocked for
-              F <= 64, wide above).  weighted_merge: K in 1..16, N in
+              F <= 64, wide up to 4096, row above).  weighted_merge: K in 1..16, N in
               {7, 5001, 5002, 5003, 4,100, 276,266, 276,267} (every
               row-alignment class), f32 at 1e-5 and bf16 at 3e-2.
               flash_attention: the JAX
@@ -57,7 +59,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               paged layout through the kernel at full h2o-danube-1.8b width,
               bf16: 8 requests of motif-tiled (repetitive) prompts of
               32-1536 tokens, 32 new tokens each; every verify launch (20
-              rows) must take the tensor-core kernel, verify launches
+              rows) must take the verify route and every prefill chunk
+              the tensor-core chunk kernel, verify launches
               must equal layers x verify dispatches, all launches layers
               x dispatches, and every request must finish.
               Acceptance rate, tokens per dispatch, tokens/s, TTFT, TPOT,
@@ -81,7 +84,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               equal layers x the verify dispatches at levels 0 and 1.
               (c) the same in bf16 on the real clock: tokens/s, goodput,
               TTFT, TPOT, rejected, shed, recovery ticks, the highest
-              brownout level (reported), every launch on its route; then
+              brownout level (reported), every launch on its route (each
+              verify span, 20 and 12 rows, on the verify route); then
               its first 16 ticks again under torch.profiler.
    overlap  — the overlapped tick (overlap=True) at the same width
               (paged, kernel).  (a) fp32: the engine burst with its scale
@@ -267,7 +271,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 10. timing  — each kernel, its plain version, its bound and its library
               yardstick at the main path's shapes, the wide SCD kernel at
               K=16, M=4,096 and F in {128, 256, 2000} beside its cost
-              model and cycles a step (the paged shapes also
+              model and cycles a step, the row SCD kernel at K=2,
+              M=1,024, F in {8192, 65536} (the paged shapes also
               held within one bf16 ulp of the fp32 plain result; their
               times are profiler device time, since CUDA events over
               back-to-back calls of the split route measure the host),
@@ -390,11 +395,10 @@ TOL_MERGE = {"float32": 1e-5, "bfloat16": 3e-2}
 SCD_CHAIN_CYCLES = 8 * 4.25 + 25.5
 SCD_LONG = (2, 32_768, 28)  # a long chain at the path's width
 SCD_WIDE_F = (128, 256, 2000)  # the timing phase's widths of the wide kernel
-SELFTEST_CASES = [(3, 2, 4, 32, 8, 4, 0, 1), (2, 1, 8, 64, 16, 3, 0, 1),
-                  (4, 2, 2, 32, 8, 8, 16, 1), (3, 2, 4, 32, 8, 4, 0, 3),
-                  (2, 2, 2, 32, 8, 6, 16, 4)]
-# spans of >= 16 rows at other head dims and windows (bf16: the
-# tensor-core kernel): QG 16 at hd 64 with a window, QG 64 at hd 128
+SCD_ROW_SHAPES = ((2, 1024, 8192), (2, 1024, 65536))  # (K, M, F), row kernel
+# spans of >= 16 rows at other head dims and windows: QG 16 at hd 64 with
+# a window (bf16: the verify route), QG 64 at hd 128 (bf16: the
+# tensor-core kernel)
 TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 40, 4), (2, 2, 1, 128, 16, 8, 0, 64)]
 # spans of <= 16 rows with their lengths (the split route, runs of 64
 # keys): length 0, shorter than a run, one run, exactly P * ps; a window
@@ -407,7 +411,16 @@ SPLIT_PAGED_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
                      # and a 2-position span (QG 12)
                      ((4, 8, 6, 128, 16, 8, 0, 1), [0, 5, 64, 128]),
                      ((3, 8, 6, 128, 16, 16, 40, 2), [200, 77, 256])]
-PAGED_TC_DIMS = (64, 80, 128)  # head dims of the paged tensor-core kernel
+# bf16 spans of G < QG <= 32 rows (the verify route: runs of 512 keys in
+# stages of 128) with their lengths: an inactive row, a length shorter
+# than one stage, exactly one run and exactly P * ps; windows whose first
+# visible key falls inside a run; QG 32 at hd 64 (G 8, q_span 4) and at
+# hd 128 (G 16, q_span 2); q_span 2 at G 4
+VERIFY_PAGED_CASES = [((4, 2, 4, 80, 16, 64, 0, 5), [0, 7, 512, 1024]),
+                      ((3, 2, 4, 80, 16, 40, 300, 2), [640, 333, 257]),
+                      ((3, 2, 8, 64, 16, 24, 0, 4), [384, 4, 200]),
+                      ((2, 2, 16, 128, 16, 40, 0, 2), [129, 640]),
+                      ((3, 2, 6, 128, 16, 64, 100, 3), [0, 700, 512])]
 # one bf16 ulp (8 significant bits) of the fp32 result, and an absolute
 # floor for outputs near zero
 ULP_REL, ULP_ABS = 2.0 ** -7, 1e-5
@@ -499,17 +512,15 @@ def sass_counts(lib: Path) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
-def paged_route(dtype_name, rows, hd) -> str:
-    """The paged launcher's rule: "tc" for bf16 spans of >= 16 rows at a
-    head dim the tensor-core kernel is built for, "split" for every other
-    span of <= 16 rows, "cuda_core" for the rest."""
-    if dtype_name == "bfloat16" and rows >= 16 and hd in PAGED_TC_DIMS:
-        return "tc"
-    return "split" if rows <= 16 else "cuda_core"
-
-
 def paged_counts(counted):
-    return (counted.launches, counted.launches_tc, counted.launches_split)
+    """(launches, tensor-core, split-KV, verify) counts of the wrapper."""
+    return (counted.launches, counted.launches_tc, counted.launches_split,
+            counted.launches_verify)
+
+
+def zero_paged(counted):
+    counted.launches = counted.launches_tc = counted.launches_split = 0
+    counted.launches_verify = 0
 
 
 def took(before, after) -> str:
@@ -517,8 +528,8 @@ def took(before, after) -> str:
     d = [a - b for a, b in zip(after, before)]
     if d[0] != 1:
         return f"{d[0]} launches"
-    return {(0, 0): "cuda_core", (1, 0): "tc", (0, 1): "split"}.get(
-        (d[1], d[2]), f"counts {d}")
+    return {(0, 0, 0): "cuda_core", (1, 0, 0): "tc", (0, 1, 0): "split",
+            (0, 0, 1): "verify"}.get(tuple(d[1:]), f"counts {d}")
 
 
 def record_paged_launches(module):
@@ -606,6 +617,28 @@ def work(np, inp, window, itemsize):
         lo = np.maximum(q_abs - window + 1, 0) if window else 0
         keys += int(np.maximum(hi - lo + 1, 0).sum())
     return nbytes, 4 * hd * KV * keys
+
+
+def verify_shapes(np):
+    """The four bf16 verify spans the `timing` phase and the moe phase's
+    `moe_kernel_checks` time, B=8 over the engine's pool, with the live
+    lengths they draw (their draws, in their order): name -> ((KV, G,
+    hd, window), q_span, lengths).  For the scripts that time the verify
+    route outside this script."""
+    dr = np.random.default_rng(0)  # main(): decode, chunk, verify, shrink
+    dr.integers(33, 1569, size=8)
+    dr.integers(1, 7, size=4)
+    dv, ds = dr.integers(37, 1573, size=8), dr.integers(35, 1571, size=8)
+    lo, hi = PROMPT_LEN
+    gr = np.random.default_rng(20)  # moe_kernel_checks: decode, verify, ...
+    gr.integers(lo + 1, hi + 33, size=8)
+    gv = gr.integers(lo + 5, hi + 37, size=8)
+    gs = gr.integers(lo + 3, hi + 35, size=8)
+    danube, grok = (8, 4, 80, 4096), (8, 6, 128, 0)
+    return {"verify": (danube, SPEC_K + 1, dv),
+            "verify_shrink": (danube, SPEC_K // 2 + 1, ds),
+            "verify hd128": (grok, SPEC_K + 1, gv),
+            "verify_shrink hd128": (grok, SPEC_K // 2 + 1, gs)}
 
 
 def library_call(torch, F, window):
@@ -757,12 +790,13 @@ def cuda_ms(torch, fn, iters=1):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, attempts=3):
+def device_ms(torch, fn, iters, attempts=3, records=None):
     """Device time per call of `fn` from torch.profiler: the time of the
     kernels it launches, without the host's launch gaps (which bound a
     back-to-back loop of a microsecond kernel).  The profiler can drop
     records, so each kernel is averaged over its own recorded launches
-    and counted as often per call as it was recorded per call; a window
+    and counted as often per call as it was recorded per call (appended
+    to `records`, kernel -> recorded launches, when given); a window
     with no device record at all is profiled again, up to `attempts`
     times."""
     from torch.autograd import DeviceType
@@ -781,17 +815,20 @@ def device_ms(torch, fn, iters, attempts=3):
     else:
         fail(f"torch.profiler recorded no device time for a kernel timing "
              f"in {attempts} tries")
+    if records is not None:
+        records.append({e.key: e.count for e in dev})
     return sum(e.self_device_time_total / e.count
                * max(1, round(e.count / iters)) for e in dev) / 1e3
 
 
-def rotating_device_ms(torch, fn, inputs, window, iters):
+def rotating_device_ms(torch, fn, inputs, window, iters, records=None):
     """`device_ms` of `fn` on the paged inputs in rotation (their pools
     together exceed the L2 cache, so each call reads its pages from
     HBM)."""
     it = iter(range(1 << 30))
     return device_ms(torch, lambda: call(
-        fn, inputs[next(it) % len(inputs)], window), iters)
+        fn, inputs[next(it) % len(inputs)], window), iters,
+        records=records)
 
 
 def host_profile(torch, run, n=8):
@@ -884,15 +921,21 @@ def scd_wide_model(F, wide_rows):
     return max(SCD_CHAIN_CYCLES, T * F / (4 * B)) + F / 16 + 300 / B
 
 
+def scd_counts(scd_pass):
+    return (scd_pass.launches_blocked, scd_pass.launches_wide,
+            scd_pass.launches_row)
+
+
 def check_scd(torch, np, scd_pass, scd_pass_plain, scd_mod):
     """The SCD kernels against their plain version: the JAX test's shapes,
     the CoCoA paths' (K=16, F in {28, 128, 256}, M cut to SCD_PATH_M), the
     wide kernel's other block sizes (F = 65 and 256: 32 rows, 1100 and
-    2048: 8, 4096: 4), a long chain (SCD_LONG), and rows TMA cannot stage
-    as they are, which the wrapper copies into an aligned buffer: F=30 (not
-    a multiple of 4), F=28 and F=256 with x a view 4 bytes past 16-byte
-    alignment.  Each launch takes the kernel `takes_blocked` or
-    `takes_wide` names."""
+    2048: 8, 4096: 4), the row kernel's (F = 4097, 4100, 8192, 65536), a
+    long chain (SCD_LONG), and rows the kernels cannot read as they are,
+    which the wrapper copies into an aligned buffer: F=30 (not a multiple
+    of 4), F=28 and F=256 with x a view 4 bytes past 16-byte alignment.
+    Each launch takes the kernel `takes_blocked`, `takes_wide` or
+    `takes_row` names."""
     rng = np.random.default_rng(1)
     cases = [(k, m, f, int(rng.integers(0, 6)), False, 10.0, False)
              for k in (1, 2, 3, 4) for m in (16, 64) for f in (8, 32)]
@@ -903,6 +946,12 @@ def check_scd(torch, np, scd_pass, scd_pass_plain, scd_mod):
               (2, 333, 1100, 3, False, 10.0, False),
               (2, 250, 2048, 3, False, 10.0, False),
               (1, 99, 4096, 2, False, 10.0, False)]
+    # the row kernel (F > 4096): v in shared memory, and at F = 65,536 in
+    # the worker's v_out row
+    cases += [(1, 256, 4097, 3, True, lam_n, False),
+              (2, 200, 4100, 5, True, lam_n, False),
+              (2, 256, 8192, 0, False, 10.0, False),
+              (2, 128, 65536, 4, True, lam_n, False)]
     cases += [(*SCD_LONG, 0, True, lam_n, False),
               (16, SCD_PATH_M, 30, 7, True, lam_n, False),
               (16, SCD_PATH_M, 28, 7, True, lam_n, True),
@@ -916,15 +965,16 @@ def check_scd(torch, np, scd_pass, scd_pass_plain, scd_mod):
             flat[1:] = x.flatten()
             x = flat[1:].view(K, M, F)
         sigma = torch.full((K,), float(K), device=DEVICE)
-        n_blocked, n_wide = scd_pass.launches_blocked, scd_pass.launches_wide
+        before = scd_counts(scd_pass)
         got = scd_pass(x, y, alpha, w, mask, ln, sigma)
         torch.cuda.synchronize()
-        blocked = scd_pass.launches_blocked - n_blocked
-        wide = scd_pass.launches_wide - n_wide
-        if (blocked, wide) != (scd_mod.takes_blocked(F),
-                               scd_mod.takes_wide(F)):
+        blocked, wide, row = (a - b for a, b in zip(scd_counts(scd_pass),
+                                                    before))
+        if (blocked, wide, row) != (scd_mod.takes_blocked(F),
+                                    scd_mod.takes_wide(F),
+                                    scd_mod.takes_row(F)):
             fail(f"scd case K={K} M={M} F={F} offset={offset}: {blocked} "
-                 f"blocked and {wide} wide launches")
+                 f"blocked, {wide} wide and {row} row launches")
         want = scd_pass_plain(x, y, alpha, w, mask, ln, sigma)
         err = 0.0
         for g, t in zip(got, want):
@@ -936,7 +986,7 @@ def check_scd(torch, np, scd_pass, scd_pass_plain, scd_mod):
             fail(f"scd case K={K} M={M} F={F}: masked rows moved")
         out.append({"K": K, "M": M, "F": F, "masked": masked,
                     "x_offset_bytes": 4 * offset, "blocked": blocked,
-                    "wide": wide, "max_abs_err": err})
+                    "wide": wide, "row": row, "max_abs_err": err})
         worst = max(worst, err)
     return worst, out
 
@@ -1030,7 +1080,7 @@ def cocoa_phase(torch, np, c=None, route="blocked", phase="cocoa",
         real = kernel_timer(torch, ops, "scd_local_pass", log)
         try:
             scd_pass.launches = scd_pass.launches_blocked = 0
-            scd_pass.launches_wide = 0
+            scd_pass.launches_wide = scd_pass.launches_row = 0
             t0 = time.perf_counter()
             hist = eng.run(iters, step, solver.metric)
             run_s = time.perf_counter() - t0
@@ -1076,8 +1126,8 @@ def cocoa_wide_phase(torch, np):
     """The `cocoa` phase's two schedules at the paper GLM's width through
     the wide SCD kernel, then examples/cocoa_svm_torch.py and
     examples/load_balancing_torch.py once each at their own sizes (F =
-    128), every SCD launch on the wide kernel and each example's own
-    checks passing (its printed lines kept, not shown)."""
+    128), every SCD launch on the kernel its width names and each
+    example's own checks passing (its printed lines kept, not shown)."""
     import contextlib
     import importlib.util
     import io
@@ -1092,7 +1142,7 @@ def cocoa_wide_phase(torch, np):
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         scd_pass.launches = scd_pass.launches_blocked = 0
-        scd_pass.launches_wide = 0
+        scd_pass.launches_wide = scd_pass.launches_row = 0
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1273,6 +1323,33 @@ def training_timing(torch, np, scd_pass, scd_pass_plain, weighted_merge,
             "model_ms": model * M / clock * 1e3,
             "ns_per_step": ms * 1e6 / M,
             "cycles_per_step": ms * 1e-3 * clock / M})
+        del x, y, args
+        torch.cuda.empty_cache()
+    # the row kernel (F > 4096): v in shared memory (F = 8192) and in the
+    # worker's v_out row (F = 65,536)
+    scd["row"] = []
+    for K, M, F in SCD_ROW_SHAPES:
+        x = torch.randn(K, M, F, device=DEVICE, generator=gen)
+        x /= x.norm(dim=-1, keepdim=True)
+        y = torch.where(torch.rand(K, M, device=DEVICE, generator=gen)
+                        > 0.5, 1.0, -1.0)
+        args = (x, y, torch.zeros(K, M, device=DEVICE),
+                0.1 * torch.randn(F, device=DEVICE, generator=gen),
+                torch.ones(K, M, device=DEVICE), lam_n,
+                torch.full((K,), float(K), device=DEVICE))
+        n_row = scd_pass.launches_row
+        runs = [cuda_ms(torch, lambda: scd_pass(*args), iters=5)
+                for _ in range(2)]
+        if scd_pass.launches_row - n_row != 12:
+            fail(f"scd timing F={F}: {scd_pass.launches_row - n_row} of "
+                 f"12 launches on the row kernel")
+        plain = cuda_ms(torch, lambda: scd_pass_plain(*args))
+        b_ms, b_by = bound(*scd_work(K, M, F))
+        ms = min(runs)
+        scd["row"].append({
+            "shape": {"K": K, "M": M, "F": F}, "ms": ms, "ms_runs": runs,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "us_per_step": ms * 1e3 / M})
         del x, y, args
         torch.cuda.empty_cache()
     scd["sm_clock_mhz"] = clock / 1e6
@@ -1699,27 +1776,34 @@ def spec_phase(torch, np, M, cfg, params, ServeEngine, Request, paged_mod):
     eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
                       device=DEVICE, spec="ngram", spec_k=SPEC_K, **ENGINE)
     span_log, restore = record_paged_launches(paged_mod)
-    paged_attention.launches = paged_attention.launches_tc = 0
-    paged_attention.launches_split = 0
+    zero_paged(paged_attention)
     metrics = eng.run(repetitive_requests(np, Request, vocab))
-    launches, launches_tc, launches_split = paged_counts(paged_attention)
+    launches, launches_tc, _, launches_verify = paged_counts(paged_attention)
     restore()
     s = metrics.summarize()
     from repro_torch.models.attention import head_layout
-    rows = (SPEC_K + 1) * head_layout(cfg)[2]  # q_span x padded group
+    G = head_layout(cfg)[2]  # the padded group
+    rows = (SPEC_K + 1) * G  # q_span x padded group
     dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
     if launches != cfg.num_layers * dispatches or launches <= 0:
         fail(f"spec: {launches} kernel launches for {dispatches} paged "
              f"dispatches of {cfg.num_layers} layers")
+    # every verify span on the verify route, every chunk on the tensor
+    # cores
     verify = [r for qg, r in span_log if qg == rows]
-    wrong = [(qg, r) for qg, r in span_log if r != "tc"]
+    wrong = [(qg, r) for qg, r in span_log
+             if r != ("verify" if qg == rows else "tc")
+             or r != paged_mod.route(getattr(torch, cfg.dtype), qg, G,
+                                     cfg.head_dim_())]
     if len(verify) != cfg.num_layers * s["decode_dispatches"] or wrong \
-            or len(span_log) != launches or launches_tc != launches:
+            or len(span_log) != launches \
+            or launches_verify != len(verify) \
+            or launches_tc + launches_verify != launches:
         fail(f"spec routes: {len(verify)} verify launches for "
              f"{s['decode_dispatches']} verify dispatches of "
-             f"{cfg.num_layers} layers, {launches_tc} tensor-core of "
-             f"{launches}; misrouted "
-             f"(rows, route): {wrong[:5]}")
+             f"{cfg.num_layers} layers, {launches_verify} on the verify "
+             f"route and {launches_tc} tensor-core of {launches}; "
+             f"misrouted (rows, route): {wrong[:5]}")
     toks = [t for r in metrics.requests for t in r.generated]
     if s["requests_finished"] != 8 or s["tokens_generated"] != 8 * 32 \
             or not all(0 <= t < vocab for t in toks) \
@@ -1743,6 +1827,7 @@ def spec_phase(torch, np, M, cfg, params, ServeEngine, Request, paged_mod):
           "prefill_dispatches": s["prefill_dispatches_total"],
           "kernel_launches": launches,
           "kernel_launches_tensor_core": launches_tc,
+          "kernel_launches_verify": launches_verify,
           "verify_launches": len(verify), "verify_rows": rows,
           "spec_off": {"tokens_per_dispatch": s_off["tokens_per_dispatch"],
                        "tokens_per_s": s_off["tokens_per_s"],
@@ -1761,6 +1846,7 @@ def spec_phase(torch, np, M, cfg, params, ServeEngine, Request, paged_mod):
                                                         vocab)))})
     del prof_eng
     return {"launches": launches, "launches_tc": launches_tc,
+            "launches_verify": launches_verify,
             "verify_launches": len(verify)}
 
 
@@ -1869,17 +1955,17 @@ def faults_phase(torch, np, cfg32, params32, want32, ServeEngine, Request,
     G = head_layout(cfg32)[2]  # the padded group: rows = q_span x G
     hd = cfg32.head_dim_()
     layers = cfg32.num_layers
-    launches = {}  # run -> (launches, tensor cores, split-KV)
+    launches = {}  # run -> (launches, tensor cores, split-KV, verify)
     seconds = {}
     t0 = time.perf_counter()
 
     def zero():
-        paged_attention.launches = paged_attention.launches_tc = 0
-        paged_attention.launches_split = 0
+        zero_paged(paged_attention)
 
     def check_routes(log, dtype_name, where):
         wrong = [(qg, r) for qg, r in log
-                 if r != paged_route(dtype_name, qg, hd)]
+                 if r != paged_mod.route(getattr(torch, dtype_name), qg,
+                                         G, hd)]
         if wrong:
             fail(f"faults {where}: misrouted (rows, route): {wrong[:5]}")
 
@@ -2017,6 +2103,11 @@ def faults_phase(torch, np, cfg32, params32, want32, ServeEngine, Request,
     if got_spans != want_spans:
         fail(f"faults (c): verify launches by q_span {got_spans}, want "
              f"{want_spans}")
+    # bf16 verify spans (q_span 5 and 3) on the verify route
+    if sum(1 for qg, r in log if r == "verify") != sum(want_spans.values()) \
+            or launches["overload_bf16"][3] != sum(want_spans.values()):
+        fail(f"faults (c): {launches['overload_bf16'][3]} launches on the "
+             f"verify route, want {sum(want_spans.values())}")
     toks = [t for r in m.requests for t in r.generated]
     if not all(0 <= t < vocab for t in toks) or not s["requests_finished"]:
         fail(f"faults (c): {s['requests_finished']} finished")
@@ -2040,13 +2131,17 @@ def faults_phase(torch, np, cfg32, params32, want32, ServeEngine, Request,
           "overload": OVERLOAD, "a_crash_recovery_fp32": part_a,
           "b_overload_tick_clock_fp32": part_b,
           "c_overload_wall_clock_bf16": part_c, "seconds": seconds})
-    n, tc, split = (sum(v[i] for v in launches.values()) for i in range(3))
+    n, tc, split, ver = (sum(v[i] for v in launches.values())
+                         for i in range(4))
     return {"launches": n, "by_run": {k: v[0] for k, v in launches.items()},
             "launches_tc": tc, "launches_split": split,
+            "launches_verify": ver,
             "verify_12_rows": part_b["verify_launches_by_rows"].get(
                 (SPEC_K // 2 + 1) * G, 0)
             + part_c["verify_launches_by_rows"].get((SPEC_K // 2 + 1) * G,
-                                                    0)}
+                                                    0),
+            "verify_12_rows_bf16": part_c["verify_launches_by_rows"].get(
+                (SPEC_K // 2 + 1) * G, 0)}
 
 
 def ring_gate(torch, np, packer):
@@ -2227,8 +2322,9 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
                      "unguarded_intact": bare_intact,
                      "unguarded_pack_host_s": bare_s},
           "verify_rows": (SPEC_K + 1) * G, "seconds": seconds})
-    n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
+    n, tc, split, ver = (sum(v[i] for _, v in launches) for i in range(4))
     return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "launches_verify": ver,
             "by_run": [[k, v[0]] for k, v in launches],
             "step_device_ms": launch["step_device_ms"]}
 
@@ -2236,12 +2332,11 @@ def overlap_phase(torch, np, M, cfg32, params32, want32, want_spec32,
 def counted_launches(paged_mod, run):
     """Call `run(log)` with the paged-attention launch counts zeroed just
     before and read just after; `log` gains (rows QG, route) at each
-    launch.  -> (what `run` returns, (launches, tensor cores, split),
-    `log`)."""
+    launch.  -> (what `run` returns, (launches, tensor cores, split,
+    verify), `log`)."""
     paged_attention = paged_mod.paged_attention
     log, restore = record_paged_launches(paged_mod)
-    paged_attention.launches = paged_attention.launches_tc = 0
-    paged_attention.launches_split = 0
+    zero_paged(paged_attention)
     try:
         out = run(log)
     finally:
@@ -2255,9 +2350,12 @@ def counted_launches(paged_mod, run):
 def check_launches(what, cfg, log, dispatches, rows=None):
     """Fail unless `log` holds layers x `dispatches` launches, each on the
     launcher's route and, where `rows` is given, of rows in `rows`."""
-    hd = cfg.head_dim_()
+    import torch
+    from repro_torch.kernels.paged_attention import route
+    from repro_torch.models.attention import head_layout
+    hd, G = cfg.head_dim_(), head_layout(cfg)[2]
     wrong = [(qg, r) for qg, r in log
-             if r != paged_route(cfg.dtype, qg, hd)
+             if r != route(getattr(torch, cfg.dtype), qg, G, hd)
              or (rows is not None and qg not in rows)]
     if not log or len(log) != cfg.num_layers * dispatches or wrong:
         fail(f"{what}: {len(log)} launches for {dispatches} paged "
@@ -2512,8 +2610,9 @@ def disagg_phase(torch, np, M, cfg32, params32, want32, DisaggEngine,
               * cfg32.head_dim_() * ENGINE["cache_len"] * ENGINE["capacity"]
               * sz / 1e9 for dt, sz in (("float32", 4), ("bfloat16", 2))},
           "seconds": seconds})
-    n, tc, split = (sum(v[i] for _, v in launches) for i in range(3))
+    n, tc, split, ver = (sum(v[i] for _, v in launches) for i in range(4))
     return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "launches_verify": ver,
             "by_run": [[k, v[0]] for k, v in launches]}
 
 
@@ -2800,9 +2899,9 @@ def cluster_phase(torch, np, M, cfg, cfg32, ServeEngine, synthetic_requests,
           "reduced": {"cocoa_n": "11,000,000 -> 1,100,000 (time)",
                       "nodes": "simulated on one card"},
           "a_fp32": part_a, "b_bf16": part_b, "seconds": seconds})
-    paged = [sum(n[i] for _, n, _ in runs) for i in range(3)]
+    paged = [sum(n[i] for _, n, _ in runs) for i in range(4)]
     return {"launches": paged[0], "launches_tc": paged[1],
-            "launches_split": paged[2],
+            "launches_split": paged[2], "launches_verify": paged[3],
             "by_run": [[k, n[0]] for k, n, _ in runs],
             "scd_launches": sum(s[0] for _, _, s in runs),
             "scd_launches_blocked": sum(s[1] for _, _, s in runs),
@@ -3197,7 +3296,8 @@ def zero_counts(counted):
     """Every launch count of the kernel wrappers in `counted` to 0."""
     for k in counted.values():
         for attr in ("launches", "launches_tc", "launches_split",
-                     "launches_blocked", "launches_wide"):
+                     "launches_verify", "launches_blocked",
+                     "launches_wide", "launches_row"):
             if hasattr(k, attr):
                 setattr(k, attr, 0)
 
@@ -3373,8 +3473,11 @@ def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
     upcast of its inputs, on the launcher's route; then its device time
     (profiler time over 4 rotating pool copies, > 50 MB of pages: the
     plain version, the kernel twice, the plain version, then gather +
-    SDPA), CUDA-event times of back-to-back calls, and its bound.
-    -> timing by shape name."""
+    SDPA), CUDA-event times of back-to-back calls, and its bound.  On
+    the split and verify routes the last timed call on each copy must
+    equal that copy's first call bit for bit, and the routes' counters
+    be zero after the timed calls (a launch that skipped its runs'
+    merge would show as a fast time).  -> timing by shape name."""
     paged_attention = paged_mod.paged_attention
     plain = paged_mod.paged_attention_plain
     KV, G, hd, ps, P = heads
@@ -3394,10 +3497,17 @@ def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
             v_pages=inp["v_pages"].float()), window)
         ulp = one_ulp_excess(got, want)
         if not math.isfinite(ulp) or ulp > 0 \
-                or route != paged_route("bfloat16", sh["Q"] * G, hd):
+                or route != paged_mod.route(torch.bfloat16, sh["Q"] * G,
+                                            G, hd):
             fail(f"{what}paged_attention {name}: one-ulp excess {ulp}, "
                  f"{route} route")
-        del got, want, inp
+        firsts = [got] + [call(paged_attention, r, window) for r in rot[1:]]
+        del want, inp
+        kept = {}  # q's address -> the last timed call's output
+
+        def kernel(q, *args, **kw):
+            kept[q.data_ptr()] = out = paged_attention(q, *args, **kw)
+            return out
         iters = 50
         nbytes, flops = work(np, rot[0], window, 2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3405,16 +3515,30 @@ def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
         # device time (profiler): CUDA events over back-to-back calls
         # measure the host's issue rate (~25 us a call) for a faster kernel
         runs = {"plain": [], "kernel": []}
+        records = []  # the profiler's kernel records in each kernel run
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn = plain if which == "plain" else paged_attention
-            runs[which].append(rotating_device_ms(torch, fn, rot, window,
-                                                  iters))
+            fn = plain if which == "plain" else kernel
+            runs[which].append(rotating_device_ms(
+                torch, fn, rot, window, iters,
+                records=records if fn is kernel else None))
+        torch.cuda.synchronize()
+        if route in ("split", "verify"):
+            counters = paged_mod._counters[firsts[0].device]
+            same = [torch.equal(kept[r["q"].data_ptr()], f)
+                    for r, f in zip(rot, firsts)]
+            if bool(counters.any()) or not all(same):
+                fail(f"{what}paged_attention {name}: after the timed calls "
+                     f"{int(counters.count_nonzero())} {route} counters are "
+                     f"not zero; timed outputs equal to the first calls: "
+                     f"{same}")
+        del firsts, kept
         timing[name] = {
             "shape": {"B": sh["B"], "KV": KV, "QG": sh["Q"] * G, "hd": hd,
                       "page_size": ps, "P": P,
                       "live_tokens": int(np.sum(sh["lengths"]))},
             "timer": "device time per call (torch.profiler)",
             "ms": min(runs["kernel"]), "ms_runs": runs["kernel"],
+            "kernel_records": records,
             "plain_ms": min(runs["plain"]), "plain_ms_runs": runs["plain"],
             "library_ms": rotating_device_ms(torch, lib, rot, window, iters),
             "events_ms": {  # back-to-back calls, bounded by the host
@@ -3423,6 +3547,7 @@ def paged_timing(torch, np, F, paged_mod, rng, heads, n_pages, window,
                 "plain": time_ms(torch, plain, rot, window, iters),
                 "library": time_ms(torch, lib, rot, window, iters)},
             "kernel": {"tc": "tensor cores", "split": "split-KV",
+                       "verify": "split-KV on the tensor cores (verify)",
                        "cuda_core": "CUDA cores"}[route],
             "one_ulp_excess": ulp,
             "bound_ms": max(t_bytes, t_ops),
@@ -3486,14 +3611,14 @@ def moe_kernel_checks(torch, np, F, paged_mod, cfg):
                 fail(f"moe paged_attention {name} {dtype_name}: max abs err "
                      f"{err} (plain), {lib_err} (gather + SDPA) > "
                      f"{TOL[dtype_name]}")
-            if route != paged_route(dtype_name, Q * G, hd):
+            rule = paged_mod.route(getattr(torch, dtype_name), Q * G, G, hd)
+            if route != rule:
                 fail(f"moe paged_attention {name} {dtype_name} took the "
-                     f"{route} route, not the "
-                     f"{paged_route(dtype_name, Q * G, hd)} route")
-            if route == "split" and not torch.equal(
+                     f"{route} route, not the {rule} route")
+            if route in ("split", "verify") and not torch.equal(
                     got, call(paged_attention, inp, 0)):
                 fail(f"moe paged_attention {name} {dtype_name}: two calls "
-                     f"of the split route differ")
+                     f"of the {route} route differ")
             worst[dtype_name] = max(worst[dtype_name], err)
             del got, inp
     timing = paged_timing(torch, np, F, paged_mod, rng, (KV, G, hd, ps, P),
@@ -3649,7 +3774,8 @@ def moe_phase(torch, np, F, M, get_config, ServeEngine, synthetic_requests,
     del params16, eng
     torch.cuda.empty_cache()
     seconds["b"] = time.perf_counter() - t0
-    n, tc, split = (sum(v[i] for _, v, _ in launches) for i in range(3))
+    n, tc, split, ver = (sum(v[i] for _, v, _ in launches)
+                         for i in range(4))
     emit({"phase": "moe", "arch": MOE_ARCH, "layers": MOE_LAYERS,
           "d_model": base.d_model, "heads": base.num_heads,
           "kv_heads": base.kv_heads(), "head_dim": base.head_dim_(),
@@ -3671,10 +3797,11 @@ def moe_phase(torch, np, F, M, get_config, ServeEngine, synthetic_requests,
           "c_kernels": {"tolerance": TOL, "max_abs_err": worst,
                         "checks": checks, "timing": timing},
           "launches": [{"run": name, "launches": v[0], "tensor_cores": v[1],
-                        "split": v[2], "rows": rows}
+                        "split": v[2], "verify": v[3], "rows": rows}
                        for name, v, rows in launches],
           "seconds": seconds})
     return {"launches": n, "launches_tc": tc, "launches_split": split,
+            "launches_verify": ver,
             "by_run": [[name, v[0]] for name, v, _ in launches],
             "timing": timing, "max_abs_err": worst}
 
@@ -3704,6 +3831,7 @@ def main() -> None:
                                                      flash_attention_plain)
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_plain)
+    import repro_torch.kernels.paged_attention as paged_mod
     from repro_torch.kernels import scd as scd_mod
     from repro_torch.kernels.scd import scd_pass, scd_pass_plain
     from repro_torch.models import model as M
@@ -3752,7 +3880,7 @@ def main() -> None:
         "verify": dict(B=8, Q=SPEC_K + 1,
                        lengths=rng.integers(37, 1573, size=8)),
         # the verify span at the ladder's spec_shrink (spec_k 2: q_span 3,
-        # 12 rows, the split route in both dtypes)
+        # 12 rows: the verify route in bf16, the split route in fp32)
         "verify_shrink": dict(B=8, Q=SPEC_K // 2 + 1,
                               lengths=rng.integers(35, 1571, size=8)),
     }
@@ -3761,8 +3889,10 @@ def main() -> None:
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         err = 0.0
-        cases = ([(c, None, None) for c in SELFTEST_CASES + TC_PAGED_CASES]
-                 + [(c, None, lens) for c, lens in SPLIT_PAGED_CASES]
+        cases = ([(c, None, None)
+                  for c in paged_mod.SELFTEST_CASES + TC_PAGED_CASES]
+                 + [(c, None, lens) for c, lens in SPLIT_PAGED_CASES
+                    + VERIFY_PAGED_CASES]
                  + [((s["B"], KV, G, hd, ps, P, cfg.sliding_window, s["Q"]),
                      n_pages, s["lengths"]) for s in shapes.values()])
         for case, pages, lens in cases:
@@ -3780,14 +3910,23 @@ def main() -> None:
             if not math.isfinite(e) or e > TOL[dtype_name]:
                 fail(f"paged_attention {dtype_name} case {case}: max abs "
                      f"err {e} > {TOL[dtype_name]}")
-            if route != paged_route(dtype_name, Q * g, d):
+            rule = paged_mod.route(dtype, Q * g, g, d)
+            if route != rule:
                 fail(f"paged_attention {dtype_name} case {case} took the "
-                     f"{route} route, not the "
-                     f"{paged_route(dtype_name, Q * g, d)} route")
-            if route == "split" and not torch.equal(
+                     f"{route} route, not the {rule} route")
+            if route in ("split", "verify") and not torch.equal(
                     got, call(paged_attention, inp, win)):
                 fail(f"paged_attention {dtype_name} case {case}: two calls "
-                     f"of the split route differ")
+                     f"of the {route} route differ")
+            if route == "verify":  # its masks' edges, to one bf16 ulp
+                ulp = one_ulp_excess(got, call(paged_attention_plain, dict(
+                    inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
+                    v_pages=inp["v_pages"].float()), win))
+                checks[-1]["one_ulp_excess"] = ulp
+                if not ulp <= 0:
+                    fail(f"paged_attention {dtype_name} case {case}: the "
+                         f"verify route is {ulp} past one bf16 ulp of the "
+                         f"fp32 plain version")
             err = max(err, e)
         worst[dtype_name] = err
     scd_err, scd_cases = check_scd(torch, np, scd_pass, scd_pass_plain,
@@ -3820,12 +3959,11 @@ def main() -> None:
     eng = ServeEngine(cfg, params=params, paged_impl="kernel", seed=0,
                       device=DEVICE, policies=[scale_policy()], **ENGINE)
     reqs = requests(np, synthetic_requests, cfg.vocab_size)
-    import repro_torch.kernels.paged_attention as paged_mod
     span_log, restore = record_paged_launches(paged_mod)
-    paged_attention.launches = paged_attention.launches_tc = 0
-    paged_attention.launches_split = 0
+    zero_paged(paged_attention)
     metrics = eng.run(reqs)
-    launches, launches_tc, launches_split = paged_counts(paged_attention)
+    launches, launches_tc, launches_split, launches_verify = paged_counts(
+        paged_attention)
     restore()
     s = metrics.summarize()
     dispatches = s["decode_dispatches"] + s["prefill_dispatches_total"]
@@ -3840,7 +3978,7 @@ def main() -> None:
     wrong = [(qg, r) for qg, r in span_log
              if r != ("tc" if qg >= 16 else "split" if qg == G else "?")]
     if len(span_log) != launches or wrong or not launches_tc \
-            or not launches_split \
+            or not launches_split or launches_verify \
             or launches_tc + launches_split != launches:
         fail(f"routes: {launches_tc} tensor-core and {launches_split} split "
              f"launches of {launches}; misrouted (rows, route): "
@@ -4063,6 +4201,14 @@ def main() -> None:
     all_split = launches_split + fault["launches_split"] \
         + ovl["launches_split"] + dis["launches_split"] \
         + moe["launches_split"] + clu["launches_split"]
+    all_verify = launches_verify + spec["launches_verify"] \
+        + fault["launches_verify"] + ovl["launches_verify"] \
+        + dis["launches_verify"] + moe["launches_verify"] \
+        + clu["launches_verify"]
+    cuda_core = {k: v["launches"] - v["launches_tc"] - v["launches_split"]
+                 - v["launches_verify"] for k, v in (("disagg", dis),
+                                                     ("moe", moe),
+                                                     ("cluster", clu))}
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4080,16 +4226,21 @@ def main() -> None:
                              "dryrun": plan["paged_attention"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
+        "launches_verify": all_verify,
         "routes": {"split (decode)": launches_split,
                    "tensor cores (engine prefill chunks)": launches_tc,
-                   "tensor cores (spec: chunks and verify)":
-                       spec["launches_tc"],
-                   "of which verify spans": spec["verify_launches"],
+                   "tensor cores (spec: chunks)": spec["launches_tc"],
+                   "verify (spec: verify spans, bf16 QG 20)":
+                       spec["launches_verify"],
                    "tensor cores (faults)": fault["launches_tc"],
-                   "split (faults: decode and verify)":
+                   "split (faults: decode, and fp32 verify)":
                        fault["launches_split"],
+                   "verify (faults (c): bf16 verify spans)":
+                       fault["launches_verify"],
                    "of which verify spans of 12 rows (spec_shrink)":
                        fault["verify_12_rows"],
+                   "of which bf16 verify spans of 12 rows":
+                       fault["verify_12_rows_bf16"],
                    "tensor cores (overlap: bf16 chunks)": ovl["launches_tc"],
                    "split (overlap: decode, fp32 and bf16)":
                        ovl["launches_split"],
@@ -4098,23 +4249,21 @@ def main() -> None:
                    "split (disagg: decode pool, fp32 and bf16)":
                        dis["launches_split"],
                    "CUDA cores (disagg: prefill pool, fp32 chunks)":
-                       dis["launches"] - dis["launches_tc"]
-                       - dis["launches_split"],
+                       cuda_core["disagg"],
                    "tensor cores (moe: bf16 chunks, hd 128)":
                        moe["launches_tc"],
                    "split (moe: decode QG 6, hd 128, fp32 and bf16)":
                        moe["launches_split"],
                    "CUDA cores (moe: fp32 chunks and verify QG 30)":
-                       moe["launches"] - moe["launches_tc"]
-                       - moe["launches_split"],
+                       cuda_core["moe"],
                    "tensor cores (cluster: bf16 chunks)":
                        clu["launches_tc"],
                    "split (cluster: decode, fp32 and bf16)":
                        clu["launches_split"],
                    "CUDA cores (cluster: fp32 chunks)":
-                       clu["launches"] - clu["launches_tc"]
-                       - clu["launches_split"],
-                   "CUDA cores": all_launches - all_tc - all_split},
+                       cuda_core["cluster"],
+                   "CUDA cores": all_launches - all_tc - all_split
+                   - all_verify},
         "sass": sass["paged_attention"],
         "max_abs_err": max(worst["float32"], moe["max_abs_err"]["float32"]),
         "max_abs_err_bf16": max(worst["bfloat16"],
@@ -4130,7 +4279,8 @@ def main() -> None:
                              "(body _scd_kernel :25)",
         "launches": cocoa["scale_in"]["launches"]
                     + cocoa["rebalance"]["launches"] + clu["scd_launches"]
-                    + wide_launches + fam["scd_pass"] + plan["scd_pass"],
+                    + wide_launches + fam["scd_pass"]
+                    + plan["scd_pass"],
         "launches_by_path": {
             "cocoa": {"scale_in": cocoa["scale_in"]["launches"],
                       "rebalance": cocoa["rebalance"]["launches"]},
@@ -4148,14 +4298,14 @@ def main() -> None:
                        cocoa["scale_in"]["launches_blocked"]
                        + cocoa["rebalance"]["launches_blocked"]
                        + clu["scd_launches_blocked"],
-                   "wide (F > 64: cocoa_wide and the two examples)":
-                       wide_launches},
+                   "wide (64 < F <= 4096: cocoa_wide and the two "
+                   "examples)": wide_launches},
         "launches_tc": None, "sass": sass["scd"],
         "max_abs_err": scd_err, "ms": scd_t["ms"],
         "plain_ms": scd_t["plain_ms"], "bound_ms": scd_t["bound_ms"],
         "bound_by": scd_t["bound_by"], "library_ms": None,
         "chain_bound_ms": scd_t["chain_bound_ms"], "timing": scd_t,
-        "timing_wide": scd_t["wide"]}, {
+        "timing_wide": scd_t["wide"], "timing_row": scd_t["row"]}, {
         "name": "weighted_merge", "route": "cuda",
         "source": "src/repro_torch/csrc/chunk_reduce.cu",
         "replaces": "src/repro/kernels/chunk_reduce.py:25",

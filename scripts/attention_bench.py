@@ -20,7 +20,11 @@ Shapes (h2o-danube-1.8b: KV=8, G=4, hd=80, window 4096):
 - paged chunk: a 256-token prefill chunk per row (B=4, QG=1024) over the
   engine's page pool (page_size 16, 128 pages a row); the yardstick is a
   gather plus SDPA (`chip_smoke.library_call`);
-- paged decode: B=8, QG=4 over the same pool.
+- paged decode: B=8, QG=4 over the same pool;
+- paged verify spans, B=8 over the same pool, with the live lengths
+  `chip_smoke.py` times them at: danube's spec span (q_span 5, QG 20) and
+  its spec_shrink span (q_span 3, QG 12), then grok-1-314b's heads (G 6,
+  hd 128, no window) at q_span 5 (QG 30) and 3 (QG 18).
 Paged times rotate over four pool copies (> 50 MB) so pages come from
 HBM.  `ms_runs` are CUDA events over 50 calls back to back, which the
 host's issue rate bounds for a kernel under ~25 us; `device_ms_runs` are
@@ -103,46 +107,51 @@ def main() -> None:
     del q, k, v
     torch.cuda.empty_cache()
 
-    # paged chunk and decode over the engine's pool
+    # paged chunk, decode and verify spans over the engine's pool
     ps, P = 16, 128
     n_pages = 8 * P + 1
     rng = np.random.default_rng(0)
-    lib_call = cs.library_call(torch, F, win)
-    for name, Bp, Q, lengths in (
-            ("chunk", 4, 256, [512, 1280, 1024, 1536]),
-            ("decode", 8, 1, rng.integers(33, 1569, size=8))):
-        rot = [cs.paged_inputs(torch, np, rng, Bp, KV, G, hd, ps, P, Q,
+    danube = (KV, G, hd, win)
+    for name, heads, Bp, Q, lengths in (
+            ("chunk", danube, 4, 256, [512, 1280, 1024, 1536]),
+            ("decode", danube, 8, 1, rng.integers(33, 1569, size=8)),
+            *((name, heads, 8, Q, lens) for name, (heads, Q, lens)
+              in cs.verify_shapes(np).items())):
+        kvh, g, d, w = heads
+        lib_call = cs.library_call(torch, F, w)
+        rot = [cs.paged_inputs(torch, np, rng, Bp, kvh, g, d, ps, P, Q,
                                torch.bfloat16, n_pages=n_pages,
                                lengths=lengths) for _ in range(4)]
         inp = rot[0]
-        n0 = getattr(paged_attention, "launches_tc", None)
-        s0 = getattr(paged_attention, "launches_split", None)
-        got = cs.call(paged_attention, inp, win)
+        before = {c: getattr(paged_attention, c, None) for c in
+                  ("launches_tc", "launches_split", "launches_verify")}
+        got = cs.call(paged_attention, inp, w)
         torch.cuda.synchronize()
-        tc = None if n0 is None else paged_attention.launches_tc - n0
-        split = None if s0 is None else paged_attention.launches_split - s0
+        took = {c: None if n is None else getattr(paged_attention, c) - n
+                for c, n in before.items()}
         f32 = dict(inp, q=inp["q"].float(), k_pages=inp["k_pages"].float(),
                    v_pages=inp["v_pages"].float())
-        want = cs.call(paged_attention_plain, f32, win)
+        want = cs.call(paged_attention_plain, f32, w)
         ulp = cs.one_ulp_excess(got, want)
         err = float((got.float() - want).abs().max())
-        kern1 = cs.time_ms(torch, paged_attention, rot, win, 50)
-        libt = cs.time_ms(torch, lib_call, rot, win, 50)
-        kern2 = cs.time_ms(torch, paged_attention, rot, win, 50)
-        dev = [cs.rotating_device_ms(torch, fn, rot, win, 50)
+        kern1 = cs.time_ms(torch, paged_attention, rot, w, 50)
+        libt = cs.time_ms(torch, lib_call, rot, w, 50)
+        kern2 = cs.time_ms(torch, paged_attention, rot, w, 50)
+        dev = [cs.rotating_device_ms(torch, fn, rot, w, 50)
                for fn in (paged_attention, lib_call, paged_attention)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(200):
-            cs.call(paged_attention, rot[i % len(rot)], win)
+            cs.call(paged_attention, rot[i % len(rot)], w)
         host_us = (time.perf_counter() - t0) / 200 * 1e6
         torch.cuda.synchronize()
-        nbytes, flops = cs.work(np, inp, win, 2)
+        nbytes, flops = cs.work(np, inp, w, 2)
         bound = max(nbytes / cs.HBM_BYTES_PER_S,
                     flops / cs.PEAK_FLOPS["bfloat16"]) * 1e3
         print(json.dumps({**head, "shape": f"paged {name} B={Bp} "
-                          f"QG={Q * G} hd={hd}", "launches_tc": tc,
-                          "launches_split": split,
+                          f"QG={Q * g} hd={d}",
+                          "live_tokens": int(np.sum(lengths)),
+                          **took,
                           "ms_runs": [kern1, kern2], "library_ms": libt,
                           "device_ms_runs": [dev[0], dev[2]],
                           "library_device_ms": dev[1], "host_us": host_us,

@@ -1,5 +1,7 @@
 // Warpgroup-level tensor-core attention for Hopper (sm_90a), shared by the
-// bf16 paths of flash_attention.cu and paged_attention.cu.
+// bf16 paths of flash_attention.cu and paged_attention.cu (whose verify
+// route uses the warp-level helpers too: cp.async, ldmatrix, mma.sync,
+// exp2, the P split and the quad reductions).
 //
 // One warpgroup (4 warps, 128 threads) owns 64 query rows and walks key
 // steps of KEYS keys that its block has staged in shared memory.  Each step
@@ -326,6 +328,30 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// ldsm_x4 with each 8 x 8 matrix transposed (the B operand of P V from
+// key-major V rows)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, fp32) += A (16 x 16, bf16, the A fragment) B (16 x 8, bf16:
+// b0 holds k rows 2t, 2t + 1 and b1 rows 2t + 8, 2t + 9 of column g), one
+// warp's mma.sync; d has the m16n8 C-fragment layout above
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {

@@ -21,10 +21,10 @@
 // softmax state in VMEM scratch from one step to the next.  Here each block
 // reads its own table entries and length (no scalar prefetch), and the
 // launcher (paged_attention_launch, which reports its choice) picks one of
-// three kernels:
+// four kernels:
 //
-// 1. Split-KV, for spans of at most 16 rows that the tensor-core kernel
-//    does not take: decode (QG = G rows) in bf16 and fp32, and short
+// 1. Split-KV, for spans of at most 16 rows that the tensor-core kernels
+//    do not take: decode (QG = G rows) in bf16 and fp32, and short fp32
 //    spans.  Bound: decode does ~4*G*hd flops per K/V row of 2*hd
 //    elements, far below the card's 295 ops/byte ridge, so it is bound by
 //    the bytes of the live K/V rows (2 * B * KV * live_tokens * hd *
@@ -56,11 +56,12 @@
 //    counters must be zero at launch and are zero after it; two launches
 //    that share counters must not run at once (one stream).
 //
-// 2. Tensor cores, for bf16 spans of at least 16 rows (QG >= 16: chunked
-//    prefill, spec verify) with hd 64, 80 or 128 and 16-byte aligned q,
-//    pools and out (paged_attention_tc_kernel, with the warpgroup routines
-//    of attention_mma.cuh): a block of two warpgroups owns 128 rows of one
-//    (b, kv), each warpgroup 64 of them with q in registers, and walks
+// 2. Tensor cores, for bf16 spans of at least 16 rows that 4. does not
+//    take (chunked prefill; decode at G >= 16) with hd 64, 80 or 128 and
+//    16-byte aligned q, pools and out (paged_attention_tc_kernel, with the
+//    warpgroup routines
+//    of attention_mma.cuh): a block of two warpgroups owns 128 rows of
+//    one (b, kv), each warpgroup 64 of them with q in registers, and walks
 //    64-key steps from the first key its rows' windows reach to the last
 //    key its last row can see (causal).  Each key is gathered through the
 //    block table by 16-byte cp.async copies (a pair of threads per 32-byte
@@ -81,6 +82,35 @@
 //    of the output (rows tr + 16a, dims tc + 16e), so each shared-memory
 //    read feeds four FMAs.  m and l live in shared memory (one warp per row
 //    updates them), the output accumulator in registers.
+//
+// 4. Split-KV on the tensor cores, for bf16 spans of G < QG <= 32 rows (a
+//    speculative verify span of q_span >= 2 positions, or a short last
+//    prefill chunk) with hd 64, 80 or 128 and 16-byte aligned q, pools and
+//    out (paged_attention_verify_kernel).  Bound: such a span does ~4 QG
+//    hd flops per K/V row of 2 hd elements, ~QG ops a byte, far below the
+//    295 ops/byte ridge, so it is bound by the bytes of the live K/V rows:
+//    22.8 MB, 6.8 us at 3.35 TB/s, at the served spec shape (QG 20, hd 80,
+//    8 sequences of ~1,089 live keys).  Kernel 2 gave such a span a block
+//    of 128 rows, 108 of them padding (its second warpgroup had none),
+//    and one block per (b, kv): 64 blocks for 132 SMs, each walking all of
+//    its sequence's keys in series; the split kernel (1.) did it on CUDA
+//    cores, at a cost that grows with the rows.  Here the rows are one or
+//    two 16-row m-tiles of mma.sync m16n8k16 (bf16 in, fp32 accumulation;
+//    no 64-row wgmma tile to pad), and the keys are cut into runs of 512:
+//    the grid is (KV, B, runs) from the table's width, ~170 live blocks of
+//    4 warps an m-tile at that shape, all resident at once, two an SM up
+//    to hd 80 (a ring's two stages and the q tile: 94 KB at hd 80, 145 KB
+//    at hd 128).  A live block gathers its run's K and V rows through the
+//    block table with 16-byte cp.async copies into padded bf16 rows
+//    (conflict-free ldmatrix), in stages of 128 keys through a two-slot
+//    ring (a stage lands while the warps compute on the one before), and
+//    each warp takes one m-tile against a 32-key quarter of each stage:
+//    S = Q K^T, an fp32 online softmax in registers (masked only on steps
+//    that cut a row's causal, live-tail or window edge), O += P V with P
+//    as its bf16 high and low halves (attention_mma.cuh's precision); the
+//    warps' (m, l, acc) merge in shared memory, and the runs' partials as
+//    the split kernel's do (merge_runs: the last run to finish, in run
+//    order), so two calls give bitwise-equal outputs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -438,6 +468,82 @@ __host__ __device__ inline int split_count(const Shape& s) {
   return (s.P * s.ps + SPLIT_KEYS - 1) / SPLIT_KEYS;
 }
 
+// The last live run of (b, kv) to finish merges all of them, in run order
+// whichever finished last, so a call's output does not depend on the
+// blocks' timing; the runs' partials are in `part` (per (b, kv), n_split
+// unnormalised QG x hd accumulators; from `ml_base` on, per (b, kv),
+// n_split x QG (m, l) pairs, m in log2 units when LOG2, else natural), and
+// `table` is shared memory for 2 n_live QG floats.  Every thread of the
+// block calls it after writing its run's partial.  (The grid-barrier
+// pattern: the block's writes, a barrier, then one thread's gpu-scope
+// fence and atomic; the merging block fences again before it reads the
+// partials through L2.)  counters[bkv] is zero again when it returns.
+template <typename T, bool LOG2, int NTH>
+__device__ __forceinline__ void merge_runs(const float* __restrict__ part,
+                                           int* __restrict__ counters,
+                                           size_t bkv, size_t ml_base,
+                                           int n_split, int s_first,
+                                           int n_live, int QG, int hd,
+                                           float* table, T* o) {
+  __shared__ int last_s;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last_s = atomicAdd(counters + bkv, 1) == n_live - 1;
+    if (last_s) __threadfence();
+  }
+  __syncthreads();
+  if (!last_s) return;
+  // each row's (m, l) of the live runs, a warp per row with its lanes
+  // over the runs (loads in parallel), into the table as e = exp(m - max
+  // m) and l
+  float* e_s = table;            // n_live x QG
+  float* lr_s = e_s + n_live * QG;  // n_live x QG
+  const float2* bml = reinterpret_cast<const float2*>(part + ml_base) +
+                      (bkv * n_split + s_first) * QG;
+  for (int r = warp; r < QG; r += NTH / 32) {
+    float mx = NEG_INF;
+    for (int i = lane; i < n_live; i += 32) {
+      const float2 ml = __ldcg(bml + i * QG + r);
+      e_s[i * QG + r] = ml.x;
+      lr_s[i * QG + r] = ml.y;
+      mx = fmaxf(mx, ml.x);
+    }
+    mx = warp_max(mx);
+    for (int i = lane; i < n_live; i += 32)
+      e_s[i * QG + r] = LOG2 ? exp2f(e_s[i * QG + r] - mx)
+                             : expf(e_s[i * QG + r] - mx);
+  }
+  __syncthreads();
+  // out = sum_s acc_s e_s / sum_s l_s e_s, both summed in run order; a
+  // thread per 4 output elements, its runs' loads unrolled 16 deep
+  const size_t stride4 = (size_t)QG * hd / 4;
+  const float4* bacc = reinterpret_cast<const float4*>(
+                           part + (bkv * n_split + s_first) * QG * hd);
+  for (int i = tid; i < QG * hd / 4; i += NTH) {
+    const int r = 4 * i / hd;
+    float Ls = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int sp = 0; sp < n_live; ++sp) {
+      const float4 x = __ldcg(bacc + sp * stride4 + i);
+      const float f = e_s[sp * QG + r];
+      Ls = fmaf(lr_s[sp * QG + r], f, Ls);
+      a.x = fmaf(x.x, f, a.x);
+      a.y = fmaf(x.y, f, a.y);
+      a.z = fmaf(x.z, f, a.z);
+      a.w = fmaf(x.w, f, a.w);
+    }
+    T* oo = o + 4 * i;
+    store(oo, a.x / Ls);
+    store(oo + 1, a.y / Ls);
+    store(oo + 2, a.z / Ls);
+    store(oo + 3, a.w / Ls);
+  }
+  if (tid == 0) counters[bkv] = 0;  // ready for the next launch
+}
+
 // One block per (kv head, sequence, run of SPLIT_KEYS keys); RPL rows per
 // lane group.  part holds, per (b, kv), n_split partials of QG x hd
 // unnormalised accumulators, then n_split x QG (m, l) pairs;
@@ -460,7 +566,6 @@ paged_attention_split_kernel(const T* __restrict__ q,
   constexpr int ROWS_T = LG * RPL;     // rows a lane's accumulators cover
   extern __shared__ __align__(16) unsigned char split_smem[];
   __shared__ long long roff_s[SPLIT_KEYS];  // key rows in the pools, or -1
-  __shared__ int last_s;
   const int kv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int n_split = gridDim.z;
   const int QG = s.QG, hd = s.hd, ps = s.ps, G = s.G;
@@ -651,68 +756,10 @@ paged_attention_split_kernel(const T* __restrict__ q,
     }
   }
   if (single) return;
-  // the last live run of (b, kv) to finish merges all of them, in run
-  // order whichever finished last, so a call's output does not depend on
-  // the blocks' timing
-  // (the grid-barrier pattern: the block's writes, a barrier, then one
-  // thread's gpu-scope fence and atomic; the merging block fences again
-  // before it reads the partials through L2)
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last_s = atomicAdd(counters + bkv, 1) == n_live - 1;
-    if (last_s) __threadfence();
-  }
-  __syncthreads();
-  if (!last_s) return;
-  // each row's (m, l) of the live runs, a warp per row with its lanes
-  // over the runs (loads in parallel), into V's space as
-  // e = exp(m - max m) and l
-  float* e_s = reinterpret_cast<float*>(split_smem + L.v);  // n_live x QG
-  float* lr_s = e_s + n_live * QG;                          // n_live x QG
-  const float2* bml = reinterpret_cast<const float2*>(
-                          part + (size_t)gridDim.x * gridDim.y * n_split *
-                                     QG * hd) +
-                      (bkv * n_split + s_first) * QG;
-  for (int r = warp; r < QG; r += SPLIT_WARPS) {
-    float mx = NEG_INF;
-    for (int i = lane; i < n_live; i += 32) {
-      const float2 ml = __ldcg(bml + i * QG + r);
-      e_s[i * QG + r] = ml.x;
-      lr_s[i * QG + r] = ml.y;
-      mx = fmaxf(mx, ml.x);
-    }
-    mx = warp_max(mx);
-    for (int i = lane; i < n_live; i += 32)
-      e_s[i * QG + r] = expf(e_s[i * QG + r] - mx);
-  }
-  __syncthreads();
-  // out = sum_s acc_s e_s / sum_s l_s e_s, both summed in run order; a
-  // thread per 4 output elements, its runs' loads unrolled 16 deep
-  const size_t stride4 = (size_t)QG * hd / 4;
-  const float4* bacc = reinterpret_cast<const float4*>(
-                           part + (bkv * n_split + s_first) * QG * hd);
-  for (int i = tid; i < QG * hd / 4; i += SPLIT_THREADS) {
-    const int r = 4 * i / hd;
-    float Ls = 0.f;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 16
-    for (int sp = 0; sp < n_live; ++sp) {
-      const float4 x = __ldcg(bacc + sp * stride4 + i);
-      const float f = e_s[sp * QG + r];
-      Ls = fmaf(lr_s[sp * QG + r], f, Ls);
-      a.x = fmaf(x.x, f, a.x);
-      a.y = fmaf(x.y, f, a.y);
-      a.z = fmaf(x.z, f, a.z);
-      a.w = fmaf(x.w, f, a.w);
-    }
-    T* oo = o + 4 * i;
-    store(oo, a.x / Ls);
-    store(oo + 1, a.y / Ls);
-    store(oo + 2, a.z / Ls);
-    store(oo + 3, a.w / Ls);
-  }
-  if (tid == 0) counters[bkv] = 0;  // ready for the next launch
+  merge_runs<T, false, SPLIT_THREADS>(
+      part, counters, bkv,
+      (size_t)gridDim.x * gridDim.y * n_split * QG * hd, n_split, s_first,
+      n_live, QG, hd, reinterpret_cast<float*>(split_smem + L.v), o);
 }
 
 template <typename T, int RPL>
@@ -936,16 +983,400 @@ int launch_tc_hd(const void* q, const void* k, const void* v,
 #undef PAGED_TC
 }
 
+// ---- bf16 spans of G < QG <= 32 rows: split-KV on the tensor cores -----
+
+constexpr int VERIFY_KEYS = 512;  // keys a block: one run of the span's keys
+constexpr int VERIFY_STAGE = 128;  // keys a stage of the ring
+constexpr int VERIFY_SLOTS = 2;    // stages in the ring
+constexpr int VERIFY_WARPS = 4;    // warps an m-tile: each a quarter of a stage
+constexpr int VERIFY_ROWS = 32;    // the most rows: two 16-row m-tiles
+constexpr size_t VERIFY_SMEM_MAX = 232448 - 8192;  // a block's, less static
+// blocks an SM: two up to hd 80 (94 KB of tiles each at hd 80), one at
+// hd 128 (145 KB, and ~170 registers a thread)
+__host__ __device__ constexpr int verify_blocks_an_sm(int hd) {
+  return hd <= 80 ? 2 : 1;
+}
+// blocks per (b, kv): runs over the table's width
+__host__ __device__ inline int verify_count(const Shape& s) {
+  return (s.P * s.ps + VERIFY_KEYS - 1) / VERIFY_KEYS;
+}
+// the verify kernel's dynamic shared memory, in bytes: the ring's slots
+// (K then V, a stage's rows each), then the q tile (16 MT rows), bf16
+// rows of hd + 8 elements (16 bytes of padding, so ldmatrix's eight
+// 16-byte row reads hit distinct banks); once the keys are done, the
+// same space holds the warps' fp32 accumulators (4 x 32 x hd) and the
+// merge's table of runs (2 x runs x QG floats)
+__host__ __device__ inline size_t verify_smem(const Shape& s, int mt) {
+  return max_size((size_t)(2 * VERIFY_SLOTS * VERIFY_STAGE + 16 * mt) *
+                      (s.hd + 8) * 2,
+                  (size_t)VERIFY_WARPS * VERIFY_ROWS * s.hd * 4 +
+                      (size_t)8 * verify_count(s) * s.QG);
+}
+
+// One warp's VSUB keys (K and V rows from k_rows, v_rows, the first at key
+// position kq) against the 16 q rows at q_rows, this thread's rows g and
+// g + 8 visible at lo[i] <= key < hi[i]: S = Q K^T and O += P V on
+// mma.sync, the online softmax in fp32 registers (log2 units), P V with P
+// as its bf16 high and low halves (attention_mma.cuh's precision).
+template <int HD, int VSUB, bool MASK>
+__device__ __forceinline__ void verify_step(
+    const attn_mma::bf16* q_rows, const attn_mma::bf16* k_rows,
+    const attn_mma::bf16* v_rows, int kq, const int (&lo)[2],
+    const int (&hi)[2], float scale_log2, float (&acc)[HD / 8][4],
+    float (&m)[2], float (&l)[2], int lane) {
+  using namespace attn_mma;
+  constexpr int KST = HD + 8;
+  constexpr int NS = VSUB / 8;  // score n-tiles
+  float sc[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, q_rows + (lane & 15) * KST + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NS / 2; ++np) {
+      uint32_t bk[4];  // keys 16 np + (0..7, 8..15), dims 16 ks + (0, 8)
+      ldsm_x4(bk, k_rows + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * KST +
+                      ks * 16 + ((lane >> 3) & 1) * 8);
+      mma_16816(sc[2 * np], a, bk[0], bk[1]);
+      mma_16816(sc[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+  // scaled (log2 units) and, on a step that cuts some row's edge, masked
+  // scores; the rows' maxima (a row's scores sit in the 4 threads of a
+  // quad)
+  const int t2 = 2 * (lane & 3);
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float x = sc[j][e] * scale_log2;
+      if (MASK) {
+        const int key = kq + 8 * j + t2 + (e & 1);
+        x = key >= lo[i] && key < hi[i] ? x : NEG_INF;
+      }
+      sc[j][e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(m[i], quad_max(mx[i]));
+    alpha[i] = exp2_approx(m[i] - mx[i]);
+    m[i] = mx[i];
+  }
+  // P = exp2(s - m) as A fragments, high and low halves: n-tile j is
+  // k-step j / 2 of P V, its (j & 1) half
+  uint32_t ph[NS / 2][4], pl[NS / 2][4];
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const float p0 = exp2_approx(sc[j][0] - mx[0]);
+    const float p1 = exp2_approx(sc[j][1] - mx[0]);
+    const float p2 = exp2_approx(sc[j][2] - mx[1]);
+    const float p3 = exp2_approx(sc[j][3] - mx[1]);
+    rs[0] += p0 + p1;
+    rs[1] += p2 + p3;
+    split_bf16(p0, p1, ph[j >> 1][(j & 1) * 2], pl[j >> 1][(j & 1) * 2]);
+    split_bf16(p2, p3, ph[j >> 1][(j & 1) * 2 + 1],
+               pl[j >> 1][(j & 1) * 2 + 1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk)
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bv[4];  // keys 16 kk + (0..7, 8..15), dims 16 np + (0, 8)
+      ldsm_x4_trans(bv, v_rows + (kk * 16 + (lane & 7) +
+                                  ((lane >> 3) & 1) * 8) * KST +
+                            np * 16 + (lane >> 4) * 8);
+      mma_16816(acc[2 * np], ph[kk], bv[0], bv[1]);
+      mma_16816(acc[2 * np], pl[kk], bv[0], bv[1]);
+      mma_16816(acc[2 * np + 1], ph[kk], bv[2], bv[3]);
+      mma_16816(acc[2 * np + 1], pl[kk], bv[2], bv[3]);
+    }
+}
+
+// One block per (kv head, sequence, run of VERIFY_KEYS keys), MT
+// 16-row m-tiles of q, VERIFY_WARPS warps an m-tile (warp w takes m-tile
+// w / VERIFY_WARPS against quarter w % VERIFY_WARPS of the run's keys).
+// part and counters as the split kernel's (runs of VERIFY_KEYS keys;
+// m in log2 units).
+template <int HD, int MT>
+__global__ void __launch_bounds__(32 * VERIFY_WARPS * MT,
+                                  verify_blocks_an_sm(HD))
+paged_attention_verify_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k_pages,
+                              const __nv_bfloat16* __restrict__ v_pages,
+                              const int32_t* __restrict__ table,
+                              const int32_t* __restrict__ lengths,
+                              const int32_t* __restrict__ q_start,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ part,
+                              int* __restrict__ counters, Shape s) {
+  using namespace attn_mma;
+  constexpr int KST = HD + 8;  // elements a shared-memory row
+  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  constexpr int NTH = 32 * VERIFY_WARPS * MT;
+  constexpr int RUN = VERIFY_KEYS, STAGE = VERIFY_STAGE;
+  constexpr int VSUB = STAGE / VERIFY_WARPS;  // keys a warp a stage
+  constexpr int KPT = RUN / NTH;  // keys a thread looks up
+  static_assert(RUN % NTH == 0, "a run's keys over the block's threads");
+  extern __shared__ __align__(16) unsigned char verify_smem_raw[];
+  __shared__ long long roff_s[RUN];  // key rows in the pools, or -1
+  __shared__ float m_s[VERIFY_WARPS][VERIFY_ROWS];
+  __shared__ float l_s[VERIFY_WARPS][VERIFY_ROWS];
+  // slot i: K at ring + 2 i STAGE KST, V STAGE KST after it
+  bf16* ring = reinterpret_cast<bf16*>(verify_smem_raw);
+  bf16* q_s = ring + 2 * VERIFY_SLOTS * STAGE * KST;
+  const int kv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z;
+  const int QG = s.QG, ps = s.ps, G = s.G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t bkv = (size_t)b * s.KV + kv;
+  const int kb = split * RUN;
+  // the thread's keys' table entries, read beside the length
+  int my_page[KPT];
+#pragma unroll
+  for (int u = 0; u < KPT; ++u) {
+    const int pos = kb + tid + u * NTH;
+    my_page[u] = pos < s.P * ps ? table[(size_t)b * s.P + pos / ps] : 0;
+  }
+  const int length = lengths[b], qs0 = q_start[b];
+  bf16* o = out + bkv * QG * HD;
+  const int k_end = min(length, s.P * ps);  // keys past it are masked
+  // key k is visible to row r iff lo(r) <= k < hi(r); both grow with r
+  auto lo_of = [&](int r) {
+    return s.window > 0 ? qs0 + r / G - s.window + 1 : 0;
+  };
+  auto hi_of = [&](int r) { return min(k_end, qs0 + r / G + 1); };
+  const int k_lo = max(0, lo_of(0)), k_hi = hi_of(QG - 1);
+  if (length <= 0 || k_hi <= k_lo) {  // inactive row: zeros, from run 0
+    if (split == 0)
+      for (int i = tid; i < QG * HD / 2; i += NTH)
+        reinterpret_cast<__nv_bfloat162*>(o)[i] =
+            __floats2bfloat162_rn(0.f, 0.f);
+    return;
+  }
+  const int s_first = k_lo / RUN, s_last = (k_hi - 1) / RUN;
+  if (split < s_first || split > s_last) return;  // no row sees this run
+  const int n_live = s_last - s_first + 1;
+  // keys of the run some row sees; the rest of the run is zero-filled
+  const int ld_lo = max(kb, k_lo), ld_hi = min(kb + RUN, k_hi);
+  const size_t tok_stride = (size_t)s.KV * HD;  // one token row of a page
+#pragma unroll
+  for (int u = 0; u < KPT; ++u) {  // -1 = absent in the table: null page
+    const int j = tid + u * NTH, pos = kb + j;
+    roff_s[j] = pos >= ld_lo && pos < ld_hi
+                    ? (long long)(((size_t)max(my_page[u], 0) * ps +
+                                   pos % ps) * tok_stride + (size_t)kv * HD)
+                    : -1LL;
+  }
+  __syncthreads();
+  // the stages some row sees, through the ring: copy group i holds stage
+  // st0 + i (group 0 the q tile too, rows past QG zero); the next
+  // VERIFY_SLOTS - 1 stages' copies land while the warps compute on one
+  const int st0 = (ld_lo - kb) / STAGE;
+  const int n_st = (ld_hi - 1 - kb) / STAGE - st0 + 1;
+  auto stage = [&](int i) {
+    bf16* kd = ring + (i % VERIFY_SLOTS) * 2 * STAGE * KST;
+    const int j0 = (st0 + i) * STAGE;
+    for (int c = tid; c < STAGE * CPR; c += NTH) {
+      const int jr = c / CPR, ch = c - jr * CPR;
+      const long long off = roff_s[j0 + jr];
+      const size_t src = off >= 0 ? (size_t)off + ch * 8 : 0;
+      cp_async16(kd + jr * KST + ch * 8, k_pages + src, off >= 0);
+      cp_async16(kd + (STAGE + jr) * KST + ch * 8, v_pages + src, off >= 0);
+    }
+  };
+  const bf16* qp = q + bkv * QG * HD;
+  for (int c = tid; c < 16 * MT * CPR; c += NTH) {
+    const int r = c / CPR, ch = c - r * CPR;
+    cp_async16(q_s + r * KST + ch * 8,
+               r < QG ? qp + (size_t)r * HD + ch * 8 : qp, r < QG);
+  }
+  for (int i = 0; i < VERIFY_SLOTS; ++i) {
+    if (i < n_st) stage(i);
+    cp_async_commit();
+  }
+
+  // the warp's m-tile and quarter of each stage; this thread's rows g and
+  // g + 8 of the m-tile (past QG: none visible)
+  const int mt = warp / VERIFY_WARPS, quarter = warp % VERIFY_WARPS;
+  const int g = lane >> 2;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * mt + g + 8 * i;
+    lo[i] = r < QG ? lo_of(r) : ROW_ALL;
+    hi[i] = r < QG ? hi_of(r) : -ROW_ALL;
+  }
+  const int lo_min = lo_of(0), lo_max = lo_of(QG - 1);
+  const int hi_min = hi_of(0), hi_max = k_hi;
+  float acc[HD / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale_log2 = s.sm_scale * LOG2E;
+  for (int i = 0; i < n_st; ++i) {
+    cp_async_wait<VERIFY_SLOTS - 1>();  // stage i has landed
+    __syncthreads();
+    const bf16* kd = ring + (i % VERIFY_SLOTS) * 2 * STAGE * KST +
+                     quarter * VSUB * KST;
+    const int kq = kb + (st0 + i) * STAGE + quarter * VSUB;  // its first key
+    if (max(lo_min, kq) < min(hi_max, kq + VSUB)) {  // some row sees them
+      if (lo_max > kq || hi_min < kq + VSUB)  // some row's edge cuts them
+        verify_step<HD, VSUB, true>(q_s + 16 * mt * KST, kd,
+                                    kd + STAGE * KST, kq, lo, hi,
+                                    scale_log2, acc, m, l, lane);
+      else
+        verify_step<HD, VSUB, false>(q_s + 16 * mt * KST, kd,
+                                     kd + STAGE * KST, kq, lo, hi,
+                                     scale_log2, acc, m, l, lane);
+    }
+    __syncthreads();  // every warp is done with slot i % VERIFY_SLOTS
+    if (i + VERIFY_SLOTS < n_st) stage(i + VERIFY_SLOTS);
+    cp_async_commit();
+  }
+  // the warps' (m, l, acc) into shared memory, acc over the tiles (every
+  // warp is done with them)
+  float* acc_s = reinterpret_cast<float*>(verify_smem_raw);  // 4 x 32 x HD
+  float* acc_w = acc_s + quarter * VERIFY_ROWS * HD;
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * mt + g + 8 * i;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(acc_w + r * HD + 8 * n + t2) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    const float lt = quad_sum(l[i]);
+    if ((lane & 3) == 0) {
+      m_s[quarter][r] = m[i];
+      l_s[quarter][r] = lt;
+    }
+  }
+  __syncthreads();
+
+  // the quarters' (m, l, acc), merged once in order: the run's partial,
+  // or the output when the span's visible keys lie in this one run
+  const bool single = n_live == 1;
+  const size_t ml_base = (size_t)gridDim.x * gridDim.y * n_split * QG * HD;
+  float* pacc = part + (bkv * n_split + split) * QG * HD;
+  float* pml = part + ml_base + (bkv * n_split + split) * QG * 2;
+  for (int i = tid; i < QG * HD; i += NTH) {
+    const int r = i / HD, d = i - r * HD;
+    float M = m_s[0][r];
+#pragma unroll
+    for (int w = 1; w < VERIFY_WARPS; ++w) M = fmaxf(M, m_s[w][r]);
+    float Ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < VERIFY_WARPS; ++w) {
+      const float f = exp2f(m_s[w][r] - M);
+      Ls = fmaf(l_s[w][r], f, Ls);
+      a = fmaf(acc_s[(w * VERIFY_ROWS + r) * HD + d], f, a);
+    }
+    if (single) {
+      o[i] = __float2bfloat16(a / Ls);  // Ls >= 1: the max's own p is 1
+    } else {
+      pacc[i] = a;
+      if (d == 0) {
+        pml[2 * r] = M;
+        pml[2 * r + 1] = Ls;
+      }
+    }
+  }
+  if (single) return;
+  merge_runs<__nv_bfloat16, true, NTH>(
+      part, counters, bkv, ml_base, n_split, s_first, n_live, QG, HD,
+      acc_s + VERIFY_WARPS * VERIFY_ROWS * HD, o);
+}
+
+template <int HD, int MT>
+int launch_verify(const void* q, const void* k, const void* v,
+                  const void* table, const void* lengths, const void* q_start,
+                  void* out, void* part, void* counters, int B,
+                  const Shape& s, cudaStream_t stream) {
+  const size_t smem = verify_smem(s, MT);
+  auto kern = paged_attention_verify_kernel<HD, MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(s.KV, B, verify_count(s));
+  kern<<<grid, 32 * VERIFY_WARPS * MT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(q_start), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), s);
+  return (int)cudaGetLastError();
+}
+
+// the verify route's rule: bf16 (the caller's), G < QG <= VERIFY_ROWS (a
+// span of at least two positions), hd 64, 80 or 128, 16-byte aligned q,
+// pools and out, and the shared memory (with the merge's table of runs)
+// within a block's; -1 if it does not take the call
+int launch_verify_hd(const void* q, const void* k, const void* v,
+                     const void* table, const void* lengths,
+                     const void* q_start, void* out, void* part,
+                     void* counters, int B, const Shape& s,
+                     cudaStream_t stream) {
+  if (s.QG <= s.G || s.QG > VERIFY_ROWS ||
+      (s.hd != 64 && s.hd != 80 && s.hd != 128) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+          16 ||
+      verify_count(s) > 65535 || verify_smem(s, 2) > VERIFY_SMEM_MAX)
+    return -1;
+  if (part == nullptr || counters == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define PAGED_VERIFY(H)                                                    \
+  case H:                                                                  \
+    return s.QG <= 16                                                      \
+               ? launch_verify<H, 1>(q, k, v, table, lengths, q_start, out, \
+                                     part, counters, B, s, stream)         \
+               : launch_verify<H, 2>(q, k, v, table, lengths, q_start, out, \
+                                     part, counters, B, s, stream)
+  switch (s.hd) {
+    PAGED_VERIFY(64);
+    PAGED_VERIFY(80);
+    PAGED_VERIFY(128);
+    default: return -1;
+  }
+#undef PAGED_VERIFY
+}
+
 }  // namespace
 
-// The split route's keys per run, for the wrapper, which sizes the
-// route's workspace from it.
+// The split and verify routes' keys per run, for the wrapper, which sizes
+// the routes' workspace from them.
 extern "C" int paged_attention_split_keys() { return SPLIT_KEYS; }
+extern "C" int paged_attention_verify_keys() { return VERIFY_KEYS; }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched)
 // and sets *variant to the kernel it launched:
-//   1 = the tensor-core kernel (bf16, QG >= 16, hd 64, 80 or 128,
-//       16-byte aligned q, pools and out);
+//   3 = the verify kernel (bf16, G < QG <= 32, hd 64, 80 or 128, 16-byte
+//       aligned q, pools and out; needs `part`, B * KV *
+//       ceil(P * page_size / VERIFY_KEYS) * QG * (hd + 2) floats, and
+//       `counters`, as the split kernel);
+//   1 = the tensor-core kernel (bf16 spans it does not take with QG >= 16,
+//       hd 64, 80 or 128, 16-byte aligned q, pools and out);
 //   2 = the split kernel (every other span of QG <= 16 rows: decode; needs
 //       `part`, B * KV * ceil(P * page_size / SPLIT_KEYS) * QG * (hd + 2)
 //       floats, and `counters`, B * KV ints that are zero);
@@ -976,8 +1407,14 @@ extern "C" int paged_attention_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    const int err = launch_tc_hd(q, k_pages, v_pages, table, lengths,
-                                 q_start, out, B, s, st);
+    int err = launch_verify_hd(q, k_pages, v_pages, table, lengths, q_start,
+                               out, part, counters, B, s, st);
+    if (err >= 0) {
+      *variant = 3;
+      return err;
+    }
+    err = launch_tc_hd(q, k_pages, v_pages, table, lengths, q_start, out, B,
+                       s, st);
     if (err >= 0) {
       *variant = 1;
       return err;

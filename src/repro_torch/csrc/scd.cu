@@ -18,10 +18,11 @@
 // across workers (one block each) and across F or rows within a step; the
 // steps stay sequential and in order.
 //
-// Two kernels, both on rows staged by TMA bulk copies, so both need F a
-// multiple of 4 and a 16-byte aligned x (the wrapper pads other rows with
-// zero columns into an aligned copy): the blocked kernel for F <= 64, the
-// wide kernel above; the launcher reports which one ran.
+// Three kernels, all on F a multiple of 4 and a 16-byte aligned x (the
+// wrapper pads other rows with zero columns into an aligned copy): the
+// blocked kernel for F <= 64, the wide kernel for 64 < F <= 4096 (both
+// stage rows by TMA bulk copies), the row kernel above; the launcher
+// reports which one ran.
 //
 // scd_blocked_kernel (F <= 64, F a multiple of 4): the dot leaves the
 // chain.  Rows go in blocks of 32, lane r owning row r of the block.  With
@@ -84,6 +85,21 @@
 // shared loads on two warps that share one issue port, and the hand-offs),
 // which warp 0 waits for.  Rows past M are a slot's old (finite; zero at
 // start) rows with mask 0: s = 0.
+//
+// scd_row_kernel (F > 4096, where three slots of 4 rows do not fit
+// shared memory): one step at a time, as the reference's loop runs it.
+// One block of 512 threads per worker; thread t owns the float4 columns
+// t, t + 512, ... of v, which lives in shared memory while 4 F bytes fit
+// (F <= 57,856) and in the worker's v_out row otherwise (no thread reads
+// another's columns, so v needs no barrier either way).  Each step reads
+// its row once with 16-byte loads (the next row is prefetched into L2
+// meanwhile), forms the thread's parts of x_i . v and |x_i|^2, sums them
+// by warp butterflies and one shared-memory exchange (double-buffered by
+// the step's parity: one barrier a step), after which every thread adds
+// the warps' parts in the same order and takes the same clipped step as
+// scd_pass_plain (an IEEE quotient; thread 0 writes d_i), then adds
+// s_i x_i to its columns of v.  Its time is M steps of a row read, two
+// reductions and a barrier: a simple kernel, correct at any F.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -767,13 +783,120 @@ int launch_wide(const float* x, const float* y, const float* alpha,
   return 0;
 }
 
+// ---- the row kernel (F > 4096) -------------------------------------------
+
+constexpr int kRowThreads = 512;
+constexpr int kRowWarps = kRowThreads / 32;
+// v in shared memory up to this many bytes (a block's most, less the
+// static exchange buffer)
+constexpr int kRowSmem = 232448 - 1024;
+
+// F % 4 == 0, x 16-byte aligned; one block per worker.  V_SHARED: v in
+// dynamic shared memory (4 F bytes), else in the worker's v_out row.
+template <bool V_SHARED>
+__global__ void __launch_bounds__(kRowThreads, 1)
+scd_row_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               const float* __restrict__ alpha, const float* __restrict__ w,
+               const float* __restrict__ mask,
+               const float* __restrict__ sigma, float lam_n,
+               float* __restrict__ v_out, float* __restrict__ da, int M,
+               int F) {
+  extern __shared__ __align__(16) float v_sm[];
+  __shared__ float part[2][2][kRowWarps];  // [step & 1][dot, |x|^2][warp]
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int F4 = F / 4;
+  float4* v4 = reinterpret_cast<float4*>(V_SHARED ? v_sm
+                                                  : v_out + (size_t)k * F);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  for (int c = tid; c < F4; c += kRowThreads) v4[c] = w4[c];
+  const float sg = sigma[k];
+  const float step = sg / lam_n;
+  const size_t row0 = (size_t)k * M;
+  const float* xk = x + row0 * F;
+  for (int i = 0; i < M; ++i) {
+    const float4* xr = reinterpret_cast<const float4*>(xk + (size_t)i * F);
+    if (i + 1 < M)  // the next row into L2, a 128-byte line a thread
+      for (int c = 8 * tid; c < F4; c += 8 * kRowThreads)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(xr + F4 + c));
+    float dq = 0.f, sq = 0.f;
+    for (int c = tid; c < F4; c += kRowThreads) {
+      const float4 a = __ldg(xr + c);
+      const float4 u = v4[c];
+      dq = fmaf(a.x, u.x, dq);
+      dq = fmaf(a.y, u.y, dq);
+      dq = fmaf(a.z, u.z, dq);
+      dq = fmaf(a.w, u.w, dq);
+      sq = fmaf(a.x, a.x, sq);
+      sq = fmaf(a.y, a.y, sq);
+      sq = fmaf(a.z, a.z, sq);
+      sq = fmaf(a.w, a.w, sq);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      dq += __shfl_xor_sync(kFull, dq, o);
+      sq += __shfl_xor_sync(kFull, sq, o);
+    }
+    if (lane == 0) {
+      part[i & 1][0][warp] = dq;
+      part[i & 1][1][warp] = sq;
+    }
+    const float yi = y[row0 + i], ai = alpha[row0 + i], mi = mask[row0 + i];
+    __syncthreads();
+    float q = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRowWarps; ++j) {
+      q += part[i & 1][0][j];
+      s2 += part[i & 1][1][j];
+    }
+    // scd_pass_plain's step, in every thread alike
+    const float grad = 1.f - yi * q;
+    const float den = fmaxf(s2 * sg / lam_n, 1e-12f);
+    const float a_new = fminf(fmaxf(ai + grad / den, 0.f), 1.f);
+    const float d = (a_new - ai) * mi;
+    if (tid == 0) da[row0 + i] = d;
+    const float s = step * d * yi;
+    for (int c = tid; c < F4; c += kRowThreads) {
+      const float4 a = __ldg(xr + c);
+      float4 u = v4[c];
+      u.x = fmaf(s, a.x, u.x);
+      u.y = fmaf(s, a.y, u.y);
+      u.z = fmaf(s, a.z, u.z);
+      u.w = fmaf(s, a.w, u.w);
+      v4[c] = u;
+    }
+  }
+  if (V_SHARED) {
+    float4* o4 = reinterpret_cast<float4*>(v_out + (size_t)k * F);
+    for (int c = tid; c < F4; c += kRowThreads) o4[c] = v4[c];
+  }
+}
+
+int launch_row(const float* x, const float* y, const float* alpha,
+               const float* w, const float* mask, const float* sigma,
+               float lam_n, float* v_out, float* da, int K, int M, int F,
+               cudaStream_t stream) {
+  if ((size_t)4 * F <= (size_t)kRowSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scd_row_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        4 * F);
+    if (err != cudaSuccess) return (int)err;
+    scd_row_kernel<true><<<K, kRowThreads, 4 * F, stream>>>(
+        x, y, alpha, w, mask, sigma, lam_n, v_out, da, M, F);
+  } else {
+    scd_row_kernel<false><<<K, kRowThreads, 0, stream>>>(
+        x, y, alpha, w, mask, sigma, lam_n, v_out, da, M, F);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // x: (K, M, F); y, alpha, mask, da: (K, M); w: (F,); sigma: (K,);
-// v_out: (K, F); all float32, contiguous; F a multiple of 4, F <= 4096,
-// x 16-byte aligned (the wrapper pads other rows).  Rows of F <= 64 take
-// the blocked kernel (*variant = 1), wider ones the wide kernel
-// (*variant = 2).  Returns the CUDA error code of the launch (0 = queued).
+// v_out: (K, F); all float32, contiguous; F a multiple of 4, x 16-byte
+// aligned (the wrapper pads other rows).  Rows of F <= 64 take the blocked
+// kernel (*variant = 1), rows up to F = 4096 the wide kernel
+// (*variant = 2), wider ones the row kernel (*variant = 3).  Returns the
+// CUDA error code of the launch (0 = queued).
 extern "C" int scd_pass_launch(const float* x, const float* y,
                                const float* alpha, const float* w,
                                const float* mask, const float* sigma,
@@ -789,15 +912,18 @@ extern "C" int scd_pass_launch(const float* x, const float* y,
     else if (F <= 16) err = launch_blocked<16>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
     else if (F <= 32) err = launch_blocked<32>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
     else err = launch_blocked<64>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream);
-  } else {
+  } else if (wide_rows(F)) {
     *variant = 2;
     switch (wide_rows(F)) {
       case 32: err = launch_wide<32>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
       case 16: err = launch_wide<16>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
       case 8: err = launch_wide<8>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
-      case 4: err = launch_wide<4>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
-      default: return (int)cudaErrorInvalidValue;
+      default: err = launch_wide<4>(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F, stream); break;
     }
+  } else {
+    *variant = 3;
+    err = launch_row(x, y, alpha, w, mask, sigma, lam_n, v_out, da, K, M, F,
+                     stream);
   }
   if (err) return err;
   return (int)cudaGetLastError();

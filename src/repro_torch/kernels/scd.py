@@ -15,21 +15,25 @@ and returns v_end (K, F) and the dual deltas da (K, M); masked samples
 give da exactly 0.  CoCoA's additive update is (v_end_k - w) / sigma_k.
 
 The kernels (`csrc/scd.cu`) are bound by the dependency chain, not by
-bytes: each step needs the v the step before wrote.  Both stage rows by
-TMA bulk copies, so they take F a multiple of 4 in a 16-byte aligned x;
-the wrapper copies other rows into an aligned buffer with zero columns
-up to the next multiple of 4 (zero columns add exactly 0 to every dot
-and to |x|^2; v_end is sliced back).  Rows of (padded) F <= 64
-(`takes_blocked`) take the blocked kernel: rows in blocks of `BLOCK`,
-each step's dot formed as a base dot at the block's start plus Gram terms
-(`scd_pass_blocked_plain` repeats its arithmetic), so the chain per step
-is one shuffle, one FMA and the scalar update; these launches are also
-counted in `scd_pass.launches_blocked`.  Wider rows, up to F = `MAX_F`
-(`takes_wide`), take the wide kernel: the same chain, with the Gram
-matrices, the block-end v update and the base dots on nine producer
-warps and v in shared memory, in blocks of `wide_rows(F)` rows
+bytes: each step needs the v the step before wrote.  They take F a
+multiple of 4 in a 16-byte aligned x; the wrapper copies other rows into
+an aligned buffer with zero columns up to the next multiple of 4 (zero
+columns add exactly 0 to every dot and to |x|^2; v_end is sliced back).
+Rows of (padded) F <= 64 (`takes_blocked`) take the blocked kernel: rows
+in blocks of `BLOCK`, each step's dot formed as a base dot at the block's
+start plus Gram terms (`scd_pass_blocked_plain` repeats its arithmetic),
+so the chain per step is one shuffle, one FMA and the scalar update;
+these launches are also counted in `scd_pass.launches_blocked`.  Rows up
+to F = `WIDE_MAX_F` (`takes_wide`) take the wide kernel: the same chain,
+with the Gram matrices, the block-end v update and the base dots on nine
+producer warps and v in shared memory, in blocks of `wide_rows(F)` rows
 (`scd_pass_wide_plain` repeats its arithmetic); counted in
-`scd_pass.launches_wide`.  Both are built from source with nvcc at first
+`scd_pass.launches_wide`.  Wider rows (`takes_row`) take the row kernel,
+which runs `scd_pass_plain`'s loop one step at a time: a 512-thread block
+per worker reads each row once, sums x_i . v and |x_i|^2 in a block-wide
+reduction, takes the clipped step and updates v (in shared memory while
+it fits, else in the worker's v_out row); counted in
+`scd_pass.launches_row`.  All are built from source with nvcc at first
 use (`kernels.build`) and loaded with ctypes.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
@@ -42,9 +46,9 @@ from typing import Tuple
 
 import torch
 
-MAX_F = 4096  # the wide kernel's limit: blocks of 4 rows of F <= 4096
 BLOCK = 32  # rows per block of the blocked kernel, one lane each
 WIDE_BF = 16384  # the wide kernel's B F: three slots of B rows fit
+WIDE_MAX_F = WIDE_BF // 4  # the wide kernel's widest rows: blocks of 4
 
 
 def _padded(F: int) -> int:
@@ -58,9 +62,15 @@ def takes_blocked(F: int) -> bool:
 
 
 def takes_wide(F: int) -> bool:
-    """The C launcher's rule, for the tests: rows of width 64 < F <= MAX_F
-    (padded to a multiple of 4) go to the wide kernel."""
-    return 64 < _padded(F) <= MAX_F
+    """The C launcher's rule, for the tests: rows of width 64 < F <=
+    WIDE_MAX_F (padded to a multiple of 4) go to the wide kernel."""
+    return 64 < _padded(F) <= WIDE_MAX_F
+
+
+def takes_row(F: int) -> bool:
+    """The C launcher's rule, for the tests: rows wider than WIDE_MAX_F
+    (padded to a multiple of 4) go to the row kernel."""
+    return _padded(F) > WIDE_MAX_F
 
 
 def wide_rows(F: int) -> int:
@@ -205,17 +215,12 @@ def _launch(x, y, alpha, w, mask, lam_n, sigma):
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 2)
     K, M, F = x.shape
-    if F > MAX_F:
-        raise ValueError(f"the CUDA SCD kernels take F <= {MAX_F} (the wide "
-                         f"kernel stages blocks of at least 4 rows of F "
-                         f"floats, three to a ring in shared memory); got "
-                         f"F={F}")
     x, y, alpha, w, mask, sigma = (t.contiguous() for t in
                                    (x, y, alpha, w, mask, sigma))
     Fp = _padded(F)
     if Fp != F or x.data_ptr() % 16:
-        # TMA stages 16-byte aligned rows of 16-byte multiples: an aligned
-        # copy, with zero columns that add exactly 0 to every dot
+        # the kernels read 16-byte aligned rows of 16-byte multiples: an
+        # aligned copy, with zero columns that add exactly 0 to every dot
         x = torch.nn.functional.pad(x, (0, Fp - F))
         w = torch.nn.functional.pad(w, (0, Fp - F))
     v_end = torch.empty(K, Fp, dtype=torch.float32, device=x.device)
@@ -232,6 +237,7 @@ def _launch(x, y, alpha, w, mask, lam_n, sigma):
     scd_pass.launches += 1
     scd_pass.launches_blocked += variant.value == 1
     scd_pass.launches_wide += variant.value == 2
+    scd_pass.launches_row += variant.value == 3
     return (v_end if Fp == F else v_end[:, :F].contiguous()), da
 
 
@@ -243,8 +249,9 @@ def scd_pass(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
 
     Returns (v_end (K, F), da (K, M)).  CUDA tensors launch a kernel (and
     count the launch in `scd_pass.launches`, and in
-    `scd_pass.launches_blocked` or `scd_pass.launches_wide` too, by the
-    kernel it took); CPU tensors run `scd_pass_plain`."""
+    `scd_pass.launches_blocked`, `scd_pass.launches_wide` or
+    `scd_pass.launches_row` too, by the kernel it took); CPU tensors run
+    `scd_pass_plain`."""
     _check(x, y, alpha, w, mask, sigma)
     if x.device.type == "cpu":
         return scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
@@ -257,3 +264,4 @@ def scd_pass(x: torch.Tensor, y: torch.Tensor, alpha: torch.Tensor,
 scd_pass.launches = 0
 scd_pass.launches_blocked = 0
 scd_pass.launches_wide = 0
+scd_pass.launches_row = 0

@@ -37,8 +37,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.launch.elastic import ElasticTrainer
 from repro_torch.models import model as M
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_plain)
+from repro_torch.kernels.paged_attention import (
+    paged_attention, paged_attention_plain, paged_attention_split_plain,
+    VERIFY_KEYS, route)
 from repro_torch.kernels import scd as scd_mod
 from repro_torch.kernels.scd import scd_pass, scd_pass_plain
 
@@ -70,21 +71,25 @@ FLASH_TC_DIMS = (32, 64, 80, 128)
 
 
 def _tc(dtype, rows, hd, dims):
-    """Whether the launchers' rule sends a call to a tensor-core kernel:
-    bf16, at least 16 rows (paged; flash always has them) and hd one of
+    """Whether the flash launcher's rule sends a call to its tensor-core
+    kernel: bf16, at least 16 rows (flash always has them) and hd one of
     the kernel's `dims`."""
     return dtype == torch.bfloat16 and rows >= 16 and hd in dims
 
 
-def _split(dtype, rows, hd):
-    """Whether the paged launcher's rule sends a call to the split route:
-    a span of at most 16 rows that the tensor-core kernel does not take."""
-    return rows <= 16 and not _tc(dtype, rows, hd, PAGED_TC_DIMS)
-
-
 def _paged_counts():
     return (paged_attention.launches, paged_attention.launches_tc,
-            paged_attention.launches_split)
+            paged_attention.launches_split, paged_attention.launches_verify)
+
+
+def _counted(name):
+    """The counts `_paged_counts` gains from one launch on route `name`
+    ("tc", "split", "verify" or "cuda_core")."""
+    return (1, name == "tc", name == "split", name == "verify")
+
+
+def _after(before, name):
+    return tuple(b + d for b, d in zip(before, _counted(name)))
 
 
 def _one_ulp_excess(got, want):
@@ -131,10 +136,8 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype, tol):
     before = _paged_counts()
     got = paged_attention(q, kp, vp, table, lengths, window=win, q_span=Q)
     torch.cuda.synchronize()
-    tc = _tc(dtype, q.shape[2], q.shape[3], PAGED_TC_DIMS)
-    split = _split(dtype, q.shape[2], q.shape[3])
-    assert _paged_counts() == (before[0] + 1, before[1] + tc,
-                               before[2] + split)
+    assert _paged_counts() == _after(before, route(dtype, Q * case[2],
+                                                   case[2], case[3]))
     want = paged_attention_plain(q, kp, vp, table, lengths, window=win,
                                  q_span=Q)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -142,10 +145,11 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype, tol):
 
 
 # (B, KV, G, hd, ps, P, window, q_span) of bf16 spans of >= 16 rows (the
-# tensor-core kernel): QG 16, 64 and 1024, hd 64, 80 and 128, a window
-# that starts inside a key step, and lengths whose last page is ragged;
-# then the served speculative verify span (h2o-danube-1.8b, spec_k 4:
-# q_span 5, QG 20)
+# tensor-core kernels: the verify route for spans of G < QG <= 32 rows,
+# the chunk kernel for the rest): QG 16, 64 and 1024, hd 64, 80 and 128, a
+# window that starts inside a key step, and lengths whose last page is
+# ragged; then the served speculative verify span (h2o-danube-1.8b,
+# spec_k 4: q_span 5, QG 20)
 TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 0, 4), (2, 2, 4, 80, 16, 16, 0, 16),
                   (2, 2, 1, 128, 16, 8, 0, 64),
                   (2, 2, 4, 64, 16, 16, 40, 16),
@@ -157,7 +161,8 @@ TC_PAGED_CASES = [(3, 2, 4, 64, 16, 8, 0, 4), (2, 2, 4, 80, 16, 16, 0, 16),
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TC_PAGED_CASES)
 def test_paged_attention_tensor_core_spans(cuda, case):
-    """Spans of >= 16 rows in bf16 take the tensor-core kernel and match
+    """Spans of >= 16 rows in bf16 take a tensor-core kernel (the verify
+    route's where the rule names it, else the chunk kernel) and match
     the plain version at 2e-2 and within one ulp of its fp32 result; an
     inactive row (length 0) gives zeros."""
     B, KV, G, hd, ps, P, win, Q = case
@@ -167,11 +172,12 @@ def test_paged_attention_tensor_core_spans(cuda, case):
     lengths = np.minimum(lengths, P * ps - 1)
     lengths[-1] = 0
     q, kp, vp, table, lens = _inputs(case, torch.bfloat16, lengths=lengths)
-    before = paged_attention.launches, paged_attention.launches_tc
+    before = _paged_counts()
     got = paged_attention(q, kp, vp, table, lens, window=win, q_span=Q)
     torch.cuda.synchronize()
-    assert Q * G >= 16 and paged_attention.launches == before[0] + 1
-    assert paged_attention.launches_tc == before[1] + 1
+    name = route(torch.bfloat16, Q * G, G, hd)
+    assert Q * G >= 16 and name in ("tc", "verify")
+    assert _paged_counts() == _after(before, name)
     want = paged_attention_plain(q, kp, vp, table, lens, window=win,
                                  q_span=Q)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
@@ -187,7 +193,8 @@ def test_paged_attention_tensor_core_spans(cuda, case):
 # run, exactly one run and exactly P * ps; a window whose first visible key
 # falls inside a run; q_span 3 and 4; hd 128 and hd 32 with pages of 8;
 # 16 rows at hd 64 (split in fp32, tensor cores in bf16); then the served
-# decode shape (h2o-danube-1.8b, one inactive row)
+# decode shape (h2o-danube-1.8b, one inactive row); in bf16 the spans of
+# G < QG <= 32 rows at hd 64, 80 or 128 take the verify route instead
 SPLIT_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
                ((3, 2, 4, 80, 16, 16, 40, 1), [200, 77, 256]),
                ((3, 2, 4, 64, 16, 8, 0, 3), [3, 70, 128]),
@@ -200,9 +207,9 @@ SPLIT_CASES = [((4, 2, 4, 80, 16, 8, 0, 1), [0, 5, 64, 128]),
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,lengths", SPLIT_CASES)
 def test_paged_attention_split_route_matches_plain(cuda, case, lengths):
-    """The split route against the plain version: fp32 at 2e-5, bf16 at
-    2e-2 and within one bf16 ulp of the plain version on the fp32-cast
-    inputs; length-0 rows are zeros."""
+    """The split route against the plain version (in bf16, the route the
+    rule names): fp32 at 2e-5, bf16 at 2e-2 and within one bf16 ulp of the
+    plain version on the fp32-cast inputs; length-0 rows are zeros."""
     B, KV, G, hd, ps, P, win, Q = case
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         q, kp, vp, table, lens = _inputs(case, dtype, seed=sum(case),
@@ -210,9 +217,9 @@ def test_paged_attention_split_route_matches_plain(cuda, case, lengths):
         before = _paged_counts()
         got = paged_attention(q, kp, vp, table, lens, window=win, q_span=Q)
         torch.cuda.synchronize()
-        split = _split(dtype, Q * G, hd)
-        assert _paged_counts() == (before[0] + 1, before[1] + (not split),
-                                   before[2] + split)
+        name = route(dtype, Q * G, G, hd)
+        assert dtype == torch.bfloat16 or name == "split"
+        assert _paged_counts() == _after(before, name)
         want = paged_attention_plain(q, kp, vp, table, lens, window=win,
                                      q_span=Q)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
@@ -242,11 +249,11 @@ def test_paged_attention_split_route_is_deterministic(cuda, dtype):
 @pytest.mark.cuda
 def test_paged_attention_decode_takes_the_split_route(cuda):
     """Decode (G rows) and other spans of at most 16 rows that the
-    tensor-core kernel does not take (fp32; bf16 at a head dim it is not
+    tensor-core kernels do not take (fp32; bf16 at a head dim they are not
     built for) take the split route, never the tensor cores; fp32 spans of
     more than 16 rows, and bf16 ones at such a head dim, keep the CUDA-core
     kernel."""
-    for case, dtype, route in (
+    for case, dtype, name in (
             ((8, 8, 4, 80, 16, 128, 4096, 1), torch.bfloat16, "split"),
             ((8, 8, 4, 80, 16, 128, 4096, 1), torch.float32, "split"),
             ((2, 2, 4, 64, 16, 8, 0, 4), torch.float32, "split"),
@@ -258,8 +265,118 @@ def test_paged_attention_decode_takes_the_split_route(cuda):
         paged_attention(q, kp, vp, table, lengths, window=case[6],
                         q_span=case[7])
         torch.cuda.synchronize()
-        assert _paged_counts() == (before[0] + 1, before[1],
-                                   before[2] + (route == "split"))
+        assert _paged_counts() == _after(before, name)
+
+
+# (B, KV, G, hd, ps, P, window, q_span), lengths: bf16 spans of G < QG <=
+# 32 rows (the verify route: runs of 512 keys in stages of 128): the four
+# served verify spans (h2o-danube-1.8b's q_span 5 and 3, grok-1-314b's
+# heads, G 6, hd 128, at q_span 5 and 3); an inactive row, a length
+# shorter than one stage, exactly one run and exactly P * ps; windows
+# whose first visible key falls inside a run; QG 32 at hd 64 and 128;
+# q_span 2
+VERIFY_CASES = [((8, 8, 4, 80, 16, 128, 4096, 5), None),
+                ((8, 8, 4, 80, 16, 128, 4096, 3), None),
+                ((8, 8, 6, 128, 16, 128, 0, 5), None),
+                ((8, 8, 6, 128, 16, 128, 0, 3), None),
+                ((4, 2, 4, 80, 16, 64, 0, 5), [0, 7, 512, 1024]),
+                ((3, 2, 4, 80, 16, 40, 300, 2), [640, 333, 257]),
+                ((3, 2, 8, 64, 16, 24, 0, 4), [384, 4, 200]),
+                ((2, 2, 16, 128, 16, 40, 0, 2), [129, 640]),
+                ((3, 2, 6, 128, 16, 64, 100, 3), [0, 700, 512])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,lengths", VERIFY_CASES)
+def test_paged_attention_verify_route_matches_plain(cuda, case, lengths):
+    """bf16 spans of G < QG <= 32 rows take the verify route and match the
+    plain version at 2e-2, within one bf16 ulp of its result on the
+    fp32-cast inputs, and the route's arithmetic in fp32
+    (`paged_attention_split_plain` at its run length) at 2e-2; length-0
+    rows are zeros."""
+    B, KV, G, hd, ps, P, win, Q = case
+    q, kp, vp, table, lens = _inputs(case, torch.bfloat16, seed=sum(case),
+                                     lengths=lengths)
+    before = _paged_counts()
+    got = paged_attention(q, kp, vp, table, lens, window=win, q_span=Q)
+    torch.cuda.synchronize()
+    assert route(torch.bfloat16, Q * G, G, hd) == "verify"
+    assert _paged_counts() == _after(before, "verify")
+    want = paged_attention_plain(q, kp, vp, table, lens, window=win,
+                                 q_span=Q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    f32 = (q.float(), kp.float(), vp.float(), table, lens)
+    want32 = paged_attention_plain(*f32, window=win, q_span=Q)
+    assert _one_ulp_excess(got, want32) <= 0
+    runs = paged_attention_split_plain(*f32, window=win, q_span=Q,
+                                       split_keys=VERIFY_KEYS)
+    torch.testing.assert_close(got.float(), runs, rtol=2e-2, atol=2e-2)
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [VERIFY_CASES[0][0], VERIFY_CASES[2][0]])
+def test_paged_attention_verify_route_is_deterministic(cuda, case):
+    """The runs' partials are merged in run order, not in the order the
+    blocks finish: two calls give bitwise-equal outputs."""
+    q, kp, vp, table, lengths = _inputs(case, torch.bfloat16, seed=5)
+    before = paged_attention.launches_verify
+    outs = [paged_attention(q, kp, vp, table, lengths, window=case[6],
+                            q_span=case[7]) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert paged_attention.launches_verify == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_paged_attention_verify_route_takes_only_verify_spans(cuda):
+    """The verify route takes bf16 spans of two or more positions up to 32
+    rows; decode (QG = G) keeps the split route, 256-token chunks and
+    spans over 32 rows the chunk kernel, fp32 spans their fp32 routes, and
+    bf16 spans at a head dim the tensor-core kernels are not built for
+    the split or CUDA-core kernel."""
+    for case, dtype, name in (
+            ((8, 8, 4, 80, 16, 128, 4096, 5), torch.bfloat16, "verify"),
+            ((8, 8, 4, 80, 16, 128, 4096, 1), torch.bfloat16, "split"),
+            ((2, 2, 16, 64, 16, 8, 0, 1), torch.bfloat16, "tc"),
+            ((2, 8, 4, 80, 16, 128, 4096, 256), torch.bfloat16, "tc"),
+            ((2, 2, 4, 64, 16, 16, 0, 9), torch.bfloat16, "tc"),
+            ((8, 8, 4, 80, 16, 128, 4096, 5), torch.float32, "cuda_core"),
+            ((8, 8, 4, 80, 16, 128, 4096, 3), torch.float32, "split"),
+            ((2, 2, 4, 32, 16, 8, 0, 3), torch.bfloat16, "split"),
+            ((2, 2, 4, 32, 16, 8, 0, 5), torch.bfloat16, "cuda_core")):
+        q, kp, vp, table, lengths = _inputs(case, dtype)
+        before = _paged_counts()
+        paged_attention(q, kp, vp, table, lengths, window=case[6],
+                        q_span=case[7])
+        torch.cuda.synchronize()
+        assert route(dtype, case[7] * case[2], case[2], case[3]) == name
+        assert _paged_counts() == _after(before, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,name", [(VERIFY_CASES[1][0], "split"),
+                                       (VERIFY_CASES[0][0], "cuda_core")])
+def test_paged_attention_unaligned_q_leaves_the_verify_route(cuda, case,
+                                                             name):
+    """A bf16 verify span whose q is not 16-byte aligned leaves the verify
+    and tensor-core kernels: 12 rows take the split route (the wrapper
+    sizes the workspace for it), 20 the CUDA-core kernel; both match the
+    plain version at 2e-2."""
+    B, KV, G, hd, ps, P, win, Q = case
+    q, kp, vp, table, lens = _inputs(case, torch.bfloat16, seed=3)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device="cuda")
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    before = _paged_counts()
+    got = paged_attention(q_off, kp, vp, table, lens, window=win, q_span=Q)
+    torch.cuda.synchronize()
+    assert _paged_counts() == _after(before, name)
+    want = paged_attention_plain(q, kp, vp, table, lens, window=win,
+                                 q_span=Q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -291,7 +408,9 @@ def test_paged_attention_kernel_refuses_cpu_fallback(cuda):
 # rows, 1100 and 2048: 8, 4096, its widest: 4), F not a multiple of 32 or
 # of 4 (padded with zero columns), then a long chain at the path's width
 # and lambda*n (the blocked kernel's base dots and Gram terms round
-# differently from a direct dot: held over 32,768 steps), M not a multiple
+# differently from a direct dot: held over 32,768 steps), the row kernel's
+# widths (F > 4096: v in shared memory, and at F = 65,536 in the worker's
+# v_out row), M not a multiple
 # of the block, the blocked kernel's widest instantiation (F=64), and x
 # views 4 bytes past 16-byte alignment, which TMA cannot stage (copied
 # into an aligned buffer by the wrapper)
@@ -304,7 +423,10 @@ SCD_CASES = [(1, 16, 8, 0, 10.0, 0), (3, 64, 32, 5, 10.0, 0),
              (2, 32_768, 28, 0, 11000.0, 0), (3, 1001, 28, 9, 11000.0, 0),
              (2, 200, 64, 4, 100.0, 0), (2, 200, 30, 3, 100.0, 0),
              (3, 1001, 28, 9, 11000.0, 4), (2, 200, 64, 4, 100.0, 4),
-             (2, 301, 256, 9, 11000.0, 4), (2, 99, 66, 3, 100.0, 0)]
+             (2, 301, 256, 9, 11000.0, 4), (2, 99, 66, 3, 100.0, 0),
+             (1, 64, 4097, 3, 100.0, 0), (2, 200, 4100, 5, 11000.0, 0),
+             (2, 256, 8192, 0, 100.0, 0), (2, 128, 65536, 4, 11000.0, 0),
+             (2, 100, 4100, 2, 100.0, 4)]
 
 
 def _scd_inputs(K, M, F, masked, seed=0):
@@ -334,14 +456,14 @@ def test_scd_kernel_matches_plain(cuda, case):
         x = flat[offset // 4:].view(K, M, F)
         assert x.data_ptr() % 16 == offset
     before = (scd_pass.launches, scd_pass.launches_blocked,
-              scd_pass.launches_wide)
+              scd_pass.launches_wide, scd_pass.launches_row)
     v, da = scd_pass(x, y, alpha, w, mask, lam_n, sigma)
     torch.cuda.synchronize()
     # every launch takes the kernel the launcher's rule names
     assert (scd_pass.launches, scd_pass.launches_blocked,
-            scd_pass.launches_wide) == (
+            scd_pass.launches_wide, scd_pass.launches_row) == (
         before[0] + 1, before[1] + scd_mod.takes_blocked(F),
-        before[2] + scd_mod.takes_wide(F))
+        before[2] + scd_mod.takes_wide(F), before[3] + scd_mod.takes_row(F))
     v_want, da_want = scd_pass_plain(x, y, alpha, w, mask, lam_n, sigma)
     torch.testing.assert_close(v, v_want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(da, da_want, rtol=1e-5, atol=1e-5)
@@ -350,12 +472,21 @@ def test_scd_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_scd_kernel_refuses_rows_wider_than_its_registers(cuda):
+def test_scd_row_kernel_matches_plain_past_the_wide_kernel(cuda):
     """Past the wide kernel's limit (blocks of 4 rows of F floats, three
-    to a ring in shared memory) the wrapper raises and names it."""
-    x, y, alpha, w, mask, sigma = _scd_inputs(1, 4, 4097, 0)
-    with pytest.raises(ValueError, match="F <= 4096"):
-        scd_pass(x, y, alpha, w, mask, 10.0, sigma)
+    to a ring in shared memory) rows of F > 4096 take the row kernel and
+    match the plain version at 1e-5, v in shared memory up to F = 57,856
+    and in the worker's v_out row past it (F = 60,000)."""
+    for K, M, F in ((1, 4, 4097), (2, 90, 60_000)):
+        x, y, alpha, w, mask, sigma = _scd_inputs(K, M, F, 1)
+        before = scd_pass.launches_row
+        v, da = scd_pass(x, y, alpha, w, mask, 10.0, sigma)
+        torch.cuda.synchronize()
+        assert scd_pass.launches_row == before + 1
+        v_want, da_want = scd_pass_plain(x, y, alpha, w, mask, 10.0, sigma)
+        torch.testing.assert_close(v, v_want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(da, da_want, rtol=1e-5, atol=1e-5)
+        assert not da[:, -1].any()
 
 
 # every row-alignment class of the kernel: N = 1, 2, 3 (mod 4) and, for
@@ -644,8 +775,8 @@ def test_elastic_trainer_round_trip_on_the_card(cuda):
 
 
 def _grouped_small(dtype):
-    """h2o-danube-1.8b's head geometry (32 heads over 8 KV heads, G 4, hd
-    80) at 2 layers and d_model 256: small, and its verify spans are
+    """h2o-danube-1.8b's head geometry (32 heads over 8 KV heads, G 4) at
+    2 layers and d_model 256 (so hd 8): small, and its verify spans are
     q_span x 4 rows, as at full width."""
     return dataclasses.replace(
         get_config("h2o-danube-1.8b"), num_layers=2, d_model=256,
@@ -742,8 +873,9 @@ def test_crash_recovery_on_the_card_matches_the_fault_free_run(cuda):
 def test_brownout_spec_shrink_verifies_12_rows_on_the_split_route(cuda):
     """bf16 at the ladder's spec_shrink level (spec_k 4 halved to 2): every
     verify span is q_span 3 x G 4 = 12 rows, under the tensor-core
-    kernel's 16, so the launcher sends it to the split route; the streams
-    equal an engine configured with spec_k 2 from the start."""
+    kernel's 16 and at a head dim (8) the verify route does not take, so
+    the launcher sends it to the split route; the streams equal an engine
+    configured with spec_k 2 from the start."""
     from repro_torch.serve import DegradationLadder, ServeEngine
     import repro_torch.kernels.paged_attention as paged_mod
 
@@ -763,7 +895,8 @@ def test_brownout_spec_shrink_verifies_12_rows_on_the_split_route(cuda):
         before = _paged_counts()
         out = real(q, *args)
         after = _paged_counts()
-        log.append((q.shape[2], after[1] - before[1], after[2] - before[2]))
+        log.append((q.shape[2], tuple(a - b for a, b in
+                                      zip(after[1:], before[1:]))))
         return out
 
     paged_mod._launch = recorded
@@ -774,10 +907,12 @@ def test_brownout_spec_shrink_verifies_12_rows_on_the_split_route(cuda):
     finally:
         paged_mod._launch = real
     assert eng.spec_k == 2
-    verify = [(tc, split) for rows, tc, split in log if rows == 12]
+    verify = [counts for rows, counts in log if rows == 12]
     s = got.summarize()
     assert len(verify) == cfg.num_layers * s["decode_dispatches"] > 0
-    assert all((tc, split) == (0, 1) for tc, split in verify)
+    # hd 8, a head dim no tensor-core kernel is built for: split
+    assert route(torch.bfloat16, 12, 4, cfg.head_dim_()) == "split"
+    assert all(counts == _counted("split")[1:] for counts in verify)
     assert {r.rid: r.generated for r in got.requests} == \
         {r.rid: r.generated for r in want.requests}
 

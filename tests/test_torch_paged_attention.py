@@ -4,8 +4,11 @@ runs it) and against `kernels.ref.paged_attention_ref`, on the kernel's
 self-test cases plus wider spans; the split route's arithmetic
 (`paged_attention_split_plain`: runs of keys, per-run (m, l, acc), merged
 in run order) against the same, on those cases, the served decode shape
-and the route's edge cases; and the wrapper's input checks.  The CUDA
-kernels themselves are tested on the card by tests/test_torch_cuda.py.
+and the route's edge cases; the same arithmetic at the verify route's run
+length on verify spans (q_span 3-8, hd 64 and 80); the launcher's rule
+(`route`) over every rows/group/head-dim triple; the self-test entry
+point on the CPU; and the wrapper's input checks.  The CUDA kernels
+themselves are tested on the card by tests/test_torch_cuda.py.
 
 Tolerances are the reference's (tests/test_kernels.py): fp32 2e-5."""
 import jax.numpy as jnp
@@ -15,9 +18,12 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro_torch.kernels import paged_attention as paged_mod
 from repro_torch.kernels.paged_attention import (SPLIT_KEYS,
                                                  paged_attention,
-                                                 paged_attention_split_plain)
+                                                 paged_attention_plain,
+                                                 paged_attention_split_plain,
+                                                 VERIFY_KEYS, route)
 
 # (B, KV, G, hd, ps, P, window, q_span): the five cases of the JAX kernel's
 # _selftest, then an hd that is not a power of two and a wide windowed span
@@ -163,3 +169,87 @@ def test_wrapper_rejects_bad_inputs(bad):
     with pytest.raises((TypeError, ValueError)):
         paged_attention(q, kp, vp, table, lengths, **kw)
 
+
+
+# (case, lengths) of bf16 verify spans (the verify route: G < QG <= 32,
+# runs of VERIFY_KEYS = 512 keys): q_span 3 to 8, hd 64 and 80, over
+# tables of 1-2 runs; an inactive row, a length shorter than a stage,
+# exactly one run and exactly P * ps; windows whose first visible key
+# falls inside a run; QG 32 (G 8, q_span 4; G 4, q_span 8)
+VERIFY_CASES = [((2, 2, 4, 64, 16, 40, 0, 3), None),
+                ((2, 2, 4, 80, 16, 36, 0, 5), [0, 576]),
+                ((3, 1, 4, 80, 16, 40, 300, 4), [640, 7, 512]),
+                ((2, 2, 8, 64, 16, 24, 0, 4), [384, 200]),
+                ((2, 1, 4, 80, 16, 20, 100, 8), [310, 320]),
+                ((2, 2, 2, 64, 16, 34, 0, 6), [530, 41])]
+
+
+@pytest.mark.parametrize("case,lengths", VERIFY_CASES)
+def test_verify_arithmetic_matches_jax_kernel_and_plain(case, lengths):
+    """The verify route's arithmetic (`paged_attention_split_plain` at its
+    run length) on verify spans, in fp32 at 2e-5, against the port's
+    plain version, the JAX oracle and the Pallas kernel in interpret mode;
+    length-0 rows are zeros."""
+    B, KV, G, hd, ps, P, win, Q = case
+    assert route(torch.bfloat16, Q * G, G, hd) == "verify"
+    q, kp, vp, table, lengths = make_inputs(case, seed=sum(case),
+                                            lengths=lengths)
+    args = _torch(q, kp, vp, table, lengths)
+    got = paged_attention_split_plain(*args, window=win, q_span=Q,
+                                      split_keys=VERIFY_KEYS).numpy()
+    plain = paged_attention_plain(*args, window=win, q_span=Q).numpy()
+    np.testing.assert_allclose(got, plain, rtol=2e-5, atol=2e-5)
+    jx = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    want = np.asarray(ref.paged_attention_ref(*jx, window=win, q_span=Q))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    want_kernel = np.asarray(jax_paged(*jx, window=win, q_span=Q,
+                                       interpret=True))
+    np.testing.assert_allclose(got, want_kernel, rtol=2e-5, atol=2e-5)
+    assert not got[lengths == 0].any()
+
+
+def test_launcher_rule_over_every_shape():
+    """`route`, the C launcher's rule as the wrapper states it: bf16 spans
+    of G < QG <= 32 rows at hd 64, 80 or 128 take the verify route; other
+    bf16 spans of >= 16 rows at those head dims the chunk kernel; every
+    other span of <= 16 rows the split route; the rest the CUDA-core
+    kernel.  Checked over every group up to 32, q_span up to 40 and head
+    dim (multiples of 8 up to 128) in both dtypes, and at the served
+    shapes."""
+    seen = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for G in range(1, 33):
+            for q_span in range(1, 41):
+                QG = G * q_span
+                for hd in range(8, 129, 8):
+                    tc = dtype == torch.bfloat16 and hd in (64, 80, 128)
+                    want = ("verify" if tc and q_span >= 2 and QG <= 32
+                            else "tc" if tc and QG >= 16
+                            else "split" if QG <= 16 else "cuda_core")
+                    got = route(dtype, QG, G, hd)
+                    assert got == want, (dtype, G, q_span, hd)
+                    seen.add(got)
+    assert seen == {"verify", "tc", "split", "cuda_core"}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # h2o-danube-1.8b (G 4, hd 80): decode, verify at q_span 5 and 3, chunk
+    assert [route(bf16, q * 4, 4, 80) for q in (1, 5, 3, 256)] == [
+        "split", "verify", "verify", "tc"]
+    assert [route(f32, q * 4, 4, 80) for q in (1, 5, 3, 256)] == [
+        "split", "cuda_core", "split", "cuda_core"]
+    # grok-1-314b (G 6, hd 128): decode, verify at q_span 5 and 3, chunk
+    assert [route(bf16, q * 6, 6, 128) for q in (1, 5, 3, 256)] == [
+        "split", "verify", "verify", "tc"]
+    assert VERIFY_KEYS == 512
+
+
+def test_selftest_entry_point_on_the_cpu(capsys):
+    """`python -m repro_torch.kernels.paged_attention --selftest --device
+    cpu`: the JAX self-test's five cases (its draws: the same lengths)
+    through the wrapper and each route's arithmetic, one line a case."""
+    paged_mod._selftest("cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(SELFTEST_CASES) == 5
+    assert all(ln.startswith("paged_attention parity OK (cpu)")
+               for ln in lines)
+    assert "lengths=[0, 23, 17]" in lines[0]  # the JAX self-test's draws
+    assert "lengths=[25, 39]" in lines[-1]

@@ -5,8 +5,11 @@ kernel in interpret mode and its oracle `ref.scd_pass_ref`, at the JAX
 kernel test's tolerance (rtol/atol 1e-5); M not a multiple of the
 kernel's block, masked tails exactly 0; every block size the launcher can
 take; the CoCoA update dw_k = (v_end_k - w) / sigma_k against the JAX
-solver's `_scd_pass` dw at the paper's widths (F = 128, 256); and the
-launcher's routing rules (`takes_blocked`, `takes_wide`, `wide_rows`)."""
+solver's `_scd_pass` dw at the paper's widths (F = 128, 256); the
+launcher's routing rules (`takes_blocked`, `takes_wide`, `takes_row`,
+`wide_rows`); and, past the wide kernel (F > 4096, the row kernel's
+route), the wrapper against the Pallas kernel and the port's CoCoA solver
+against the JAX solver at F = 4100."""
 import functools
 
 import jax.numpy as jnp
@@ -14,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as J
+import repro_torch.core as T
 from repro.core.cocoa import _scd_pass
+from repro.data import make_svm_data
 from repro.kernels import ref, scd
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.scd import (MAX_F, WIDE_BF, scd_pass,
+from repro_torch.kernels.scd import (WIDE_BF, WIDE_MAX_F, scd_pass,
                                      scd_pass_plain, scd_pass_wide_plain,
-                                     takes_blocked, takes_wide, wide_rows)
+                                     takes_blocked, takes_row, takes_wide,
+                                     wide_rows)
 
 TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_scd.py's
 
@@ -131,16 +138,17 @@ def test_cocoa_update_matches_jax_scd_pass_dw_at_paper_widths(K, F):
 
 def test_routing_rules():
     """The launcher's rules as the tests' copies state them: rows padded
-    to a multiple of 4; F <= 64 blocked, 64 < F <= MAX_F wide, in blocks
-    of 32 halved while B F > WIDE_BF; the two routes cover every F up to
-    MAX_F, and the paths' widths take the expected route."""
-    assert MAX_F == 4096
-    for F in range(1, MAX_F + 200):
+    to a multiple of 4; F <= 64 blocked, 64 < F <= WIDE_MAX_F wide, in
+    blocks of 32 halved while B F > WIDE_BF, wider rows the row kernel;
+    exactly one route takes every F up to 70,000, and the paths' widths
+    take the expected route."""
+    assert WIDE_MAX_F == 4096 == WIDE_BF // 4
+    for F in range(1, 70_001):
         Fp = -(-F // 4) * 4
         assert takes_blocked(F) == (Fp <= 64)
-        assert takes_wide(F) == (64 < Fp <= MAX_F)
-        if F <= MAX_F:
-            assert takes_blocked(F) != takes_wide(F)
+        assert takes_wide(F) == (64 < Fp <= WIDE_MAX_F)
+        assert takes_row(F) == (Fp > WIDE_MAX_F)
+        assert takes_blocked(F) + takes_wide(F) + takes_row(F) == 1
         if takes_wide(F):
             b = wide_rows(F)
             assert b in (4, 8, 16, 32) and b * Fp <= WIDE_BF
@@ -150,6 +158,7 @@ def test_routing_rules():
                                                     8, 8, 4]
     assert takes_blocked(28) and takes_blocked(30) and takes_blocked(64)
     assert not takes_wide(64) and takes_wide(65) and not takes_wide(4097)
+    assert not takes_row(4096) and takes_row(4097) and takes_row(65536)
 
 
 def test_plain_version_is_the_cpu_path_at_wide_rows():
@@ -157,10 +166,54 @@ def test_plain_version_is_the_cpu_path_at_wide_rows():
     and counts no launch on either route."""
     args = [torch.from_numpy(a) for a in _inputs(2, 40, 256, 3, seed=5)]
     before = (scd_pass.launches, scd_pass.launches_blocked,
-              scd_pass.launches_wide)
+              scd_pass.launches_wide, scd_pass.launches_row)
     got = scd_pass(*args[:5], 7.0, args[5])
     want = scd_pass_plain(*args[:5], 7.0, args[5])
     assert (scd_pass.launches, scd_pass.launches_blocked,
-            scd_pass.launches_wide) == before
+            scd_pass.launches_wide, scd_pass.launches_row) == before
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("F", [4097, 4100])
+def test_rows_past_the_wide_kernel_match_pallas_interpret_and_ref(F):
+    """Rows wider than the wide kernel takes (the row kernel's route on the
+    card, which runs `scd_pass_plain`'s loop): the wrapper against the
+    Pallas kernel in interpret mode and the oracle, masked tail 0."""
+    assert takes_row(F)
+    k, m, masked = 2, 23, 3
+    inputs, wants = _jax(k, m, F, masked, seed=F)
+    args = [torch.from_numpy(a) for a in inputs]
+    v, da = scd_pass(*args[:5], 10.0, args[5])
+    for want_v, want_da in wants:
+        np.testing.assert_allclose(v.numpy(), want_v, **TOL)
+        np.testing.assert_allclose(da.numpy(), want_da, **TOL)
+    assert np.all(da.numpy()[:, m - masked:] == 0.0)
+
+
+def test_cocoa_solver_past_the_wide_kernel_matches_jax():
+    """The port's CoCoASolver (CPU: the kernels' plain versions) against
+    the JAX solver at F = 4100, past the wide kernel's 4096, K = 2 over
+    300 samples in 6 chunks: w, alpha, the primal (hinge) loss and the
+    duality gap after each of 3 iterations at 1e-5."""
+    x, y = make_svm_data(300, 4100, seed=0)
+    out = {}
+    for name, pkg in (("jax", J), ("torch", T)):
+        store = pkg.ChunkStore({"x": x, "y": y}, chunk_size=50)
+        a = pkg.Assignment(store.n_chunks, 2, np.random.default_rng(0))
+        kw = {} if name == "jax" else {"device": "cpu"}
+        solver = pkg.CoCoASolver(store, lam=1e-3, **kw)
+        rows = []
+        for _ in range(3):
+            solver.step(store, a)
+            w = np.asarray(solver.w, np.float64)
+            loss = 5e-4 * w @ w + np.maximum(1.0 - y * (x @ w), 0.0).mean()
+            rows.append((w, store.state["alpha"].copy(), loss,
+                         solver.metric()))
+        out[name] = rows
+    for (wj, aj, lj, gj), (wt, at, lt, gt) in zip(out["jax"], out["torch"]):
+        np.testing.assert_allclose(wt, wj, **TOL)
+        np.testing.assert_allclose(at, aj, **TOL)
+        np.testing.assert_allclose(lt, lj, **TOL)
+        np.testing.assert_allclose(gt, gj, **TOL)
+    assert out["torch"][-1][3] < out["torch"][0][3]  # the gap fell
