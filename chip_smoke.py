@@ -242,6 +242,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               examples/load_balancing_torch.py once each (F = 128), every
               SCD launch on the wide kernel and each example's checks
               passing.
+   examples — the port's other five examples, each once at its own
+              size as its command line runs it (quickstart_torch,
+              train_elastic_lm_torch --quick: its full 300-step run took
+              37.8-54.2 s, over the 45 s this phase allows it,
+              elastic_remesh_torch, serve_decode_torch,
+              disagg_serve_torch), each ending on its own "OK" line:
+              serve_decode (flat layout) launches no paged attention,
+              disagg_serve launches it in both pools (prefill chunks and
+              decode spans, layers x each pool's dispatches, on the
+              launcher's routes); then disagg_serve_torch at full
+              h2o-danube-1.8b width in fp32 (the streams phase's
+              weights): its disaggregated streams bit-identical to its
+              flat oracle (else the first divergence and its top-2
+              margin), every request handed off once.  Wall seconds,
+              first and last printed line, launches by route.
 6. lsgd     — the paper's CNN at CIFAR-10's shape: local SGD (L=8, H=16,
               momentum 0.9, lr 1e-4 sqrt(K)) over 50,000 synthetic 32x32x3
               images in chunks of 50, K 16 -> 8 -> 16, 24 iterations
@@ -1122,6 +1137,16 @@ def cocoa_phase(torch, np, c=None, route="blocked", phase="cocoa",
     return results
 
 
+def load_example(name):
+    """examples/<name>.py of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def cocoa_wide_phase(torch, np):
     """The `cocoa` phase's two schedules at the paper GLM's width through
     the wide SCD kernel, then examples/cocoa_svm_torch.py and
@@ -1129,7 +1154,6 @@ def cocoa_wide_phase(torch, np):
     128), every SCD launch on the kernel its width names and each
     example's own checks passing (its printed lines kept, not shown)."""
     import contextlib
-    import importlib.util
     import io
     from repro_torch.kernels.scd import scd_pass
     t0 = time.perf_counter()
@@ -1137,10 +1161,7 @@ def cocoa_wide_phase(torch, np):
                       phase="cocoa_wide", profile=False)
     examples = {}
     for name in ("cocoa_svm_torch", "load_balancing_torch"):
-        spec = importlib.util.spec_from_file_location(
-            name, ROOT / "examples" / f"{name}.py")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = load_example(name)
         scd_pass.launches = scd_pass.launches_blocked = 0
         scd_pass.launches_wide = scd_pass.launches_row = 0
         buf = io.StringIO()
@@ -1160,6 +1181,151 @@ def cocoa_wide_phase(torch, np):
           "phase_s": time.perf_counter() - t0})
     res["examples"] = examples
     return res
+
+
+# the five examples the `examples` phase runs at their own sizes, with the
+# keywords of their command lines: train_elastic_lm as --quick (its full
+# 300-step run takes 38-54 s on an H100, past the 45 s the phase gives it)
+EXAMPLES = ("quickstart_torch", "train_elastic_lm_torch",
+            "elastic_remesh_torch", "serve_decode_torch",
+            "disagg_serve_torch")
+EXAMPLE_KW = {"train_elastic_lm_torch": dict(quick=True)}
+
+
+def example_run(torch, paged_mod, mod, on_log=None, **kw):
+    """`mod.run(DEVICE, **kw)` with its printed lines captured and the
+    paged-attention launches counted (zeroed just before, read just
+    after; `on_log(log)` gets the launch log first); fail unless its last
+    line is its "... OK" line.  -> (what it returns, a record: wall
+    seconds, first and last printed line, launches and their routes)."""
+    import collections
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t = time.perf_counter()
+
+    def go(log):
+        if on_log is not None:
+            on_log(log)
+        with contextlib.redirect_stdout(buf):
+            return mod.run(DEVICE, **kw)
+    out, n, log = counted_launches(paged_mod, go)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    if not lines or "OK" not in lines[-1]:
+        fail(f"examples {mod.__name__}: last line {lines[-1:]}")
+    return out, {
+        "wall_s": time.perf_counter() - t, "first_line": lines[0],
+        "last_line": lines[-1], "paged_launches": n[0],
+        "paged_routes": dict(collections.Counter(r for _, r in log)),
+        "paged_counts": list(n)}
+
+
+def disagg_example_run(torch, np, M, paged_mod, mod, what, **kw):
+    """examples/disagg_serve_torch.py's `run` through `example_run`, its
+    DisaggEngine's launches split into pools and checked as the disagg
+    phase checks them (`check_pool_launches`), its streams against its
+    flat oracle's; where they differ (or the example's own check fails),
+    the first divergence and its top-2 margin are emitted before the
+    phase fails.  -> the record."""
+    built, marks, logs = {}, [], []
+    base_eng, base_dis = mod.ServeEngine, mod.DisaggEngine
+
+    class Oracle(base_eng):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built["oracle"] = self
+
+    class Marked(base_dis):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built["disagg"] = self
+            mark_pool_ticks(self, logs[0], marks)
+
+    mod.ServeEngine, mod.DisaggEngine = Oracle, Marked
+    err = None
+    try:
+        (m, want), rec = example_run(torch, paged_mod, mod,
+                                     on_log=logs.append, **kw)
+    except AssertionError as e:
+        err, m = e, built["disagg"].metrics if "disagg" in built else None
+        want = streams(built["oracle"].metrics) if "oracle" in built \
+            else None
+    finally:
+        mod.ServeEngine, mod.DisaggEngine = base_eng, base_dis
+    oracle = built.get("oracle")
+    div = None if m is None or want is None else first_divergence(
+        torch, np, M, oracle.cfg, oracle.params, streams(m), want,
+        {r.rid: r.prompt for r in m.requests})
+    if err is not None or div is not None:
+        emit({"phase": "examples", "run": what, "equal": div is None,
+              "error": str(err), **(div or {})})
+        fail(f"examples {what}: {err or 'streams differ from the oracle'}"
+             + (f" at request {div['rid']} step {div['step']}" if div
+                else ""))
+    n = tuple(rec["paged_counts"])
+    rec["by_pool"] = check_pool_launches(what, built["disagg"], m, n,
+                                         logs[0], marks)
+    s = m.summarize()
+    rec.update(streams_equal_flat_oracle=True,
+               requests=s["requests_finished"],
+               tokens=s["tokens_generated"],
+               handoffs=s["disagg"]["handoffs"],
+               handoff_bytes=s["disagg"]["handoff_bytes"],
+               split_events=s["disagg"]["split_events"],
+               tokens_per_s=s["tokens_per_s"], ttft_p50_s=s["ttft_p50_s"])
+    if not n[0] or rec["handoffs"] != rec["requests"]:
+        fail(f"examples {what}: {n[0]} paged_attention launches, "
+             f"{rec['handoffs']} handoffs for {rec['requests']} requests")
+    return rec
+
+
+def examples_phase(torch, np, M, cfg32, params32, paged_mod):
+    """The port's five examples beside the JAX package's (quickstart,
+    train_elastic_lm, elastic_remesh, serve_decode, disagg_serve), each once
+    at its own size as its command line runs it on the card (no --fast;
+    train_elastic_lm --quick, `EXAMPLE_KW`), each printing its own `... OK`
+    last line; serve_decode (the flat layout) must launch no paged
+    attention, disagg_serve must launch it in both pools.  Then
+    disagg_serve at h2o-danube-1.8b's full width in fp32 (`cfg32`,
+    `params32`: the streams phase's weights), its flat oracle and streams
+    bit-identical.  -> launches by run and route."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        kw = EXAMPLE_KW.get(name, {})
+        if name == "disagg_serve_torch":
+            runs[name] = disagg_example_run(torch, np, M, paged_mod, mod,
+                                            name, **kw)
+            continue
+        try:
+            runs[name] = {**example_run(torch, paged_mod, mod, **kw)[1], **kw}
+        except AssertionError as e:
+            fail(f"examples {name}: {e}")
+    if runs["serve_decode_torch"]["paged_launches"]:
+        fail(f"examples serve_decode_torch: "
+             f"{runs['serve_decode_torch']['paged_launches']} "
+             f"paged_attention launches on the flat layout")
+    full = disagg_example_run(torch, np, M, paged_mod,
+                              load_example("disagg_serve_torch"),
+                              f"disagg_serve_torch at {ARCH} fp32",
+                              cfg=cfg32, params=params32)
+    emit({"phase": "examples", "own_size": runs,
+          "disagg_serve_torch_full_width": {
+              "arch": ARCH, "dtype": cfg32.dtype, **full},
+          "phase_s": time.perf_counter() - t0})
+    by_run = {name: r["paged_launches"] for name, r in runs.items()}
+    by_run[f"disagg_serve_torch@{ARCH}_fp32"] = full["paged_launches"]
+    counts = [runs["disagg_serve_torch"]["paged_counts"],
+              full["paged_counts"]]
+    return {"launches": sum(by_run.values()),
+            "launches_tc": sum(c[1] for c in counts),
+            "launches_split": sum(c[2] for c in counts),
+            "launches_verify": sum(c[3] for c in counts),
+            "by_run": by_run,
+            "routes": {"own_size": runs["disagg_serve_torch"][
+                "paged_routes"], "full_width": full["paged_routes"]}}
 
 
 def lsgd_phase(torch, np):
@@ -1663,6 +1829,19 @@ def same_state(torch, a, b) -> bool:
         torch.equal(x, b[i][k]) for i in (0, 1) for k, x in a[i].items())
 
 
+def state_diff(torch, a, b) -> list:
+    """Where two (params, momentum, step) host snapshots differ: one row
+    [tree, leaf, elements that differ, largest |difference|] a leaf."""
+    rows = [] if a[2] == b[2] else [["step", "", 1, abs(a[2] - b[2])]]
+    for i, tree in ((0, "params"), (1, "momentum")):
+        for k, x in a[i].items():
+            if not torch.equal(x, b[i][k]):
+                d = (x.float() - b[i][k].float()).abs()
+                rows.append([tree, k, int((d != 0).sum()),
+                             float(d.nan_to_num(float("inf")).max())])
+    return rows
+
+
 def lm_elastic_phase(torch, np):
     """ElasticTrainer on h2o-danube-1.8b at full width and depth: 2 steps of
     8 x 4096 tokens, K 4 -> 2 at step 1, suspended to the host after that
@@ -1723,25 +1902,42 @@ def lm_elastic_phase(torch, np):
     # before CUDA started)
     was_det = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
+    def det_run(suspend):
+        tr = ElasticTrainer(cfg, tc, seed=0, device=DEVICE)
+        losses = []
+        for it in range(c["det_steps"]):
+            losses.append(tr.train_step(batches[it][1])["loss"])
+            if suspend and it == 0:
+                tr.suspend()
+                tr.resume(1)
+        state = state_on_host(tr, M)
+        del tr
+        torch.cuda.empty_cache()
+        return state, losses
+
     try:
-        states = []
-        for suspend in (False, True):
-            tr = ElasticTrainer(cfg, tc, seed=0, device=DEVICE)
-            for it in range(c["det_steps"]):
-                tr.train_step(batches[it][1])
-                if suspend and it == 0:
-                    tr.suspend()
-                    tr.resume(1)
-            states.append(state_on_host(tr, M))
-            del tr
-            torch.cuda.empty_cache()
-        det_equal = same_state(torch, *states)
-        del states
+        (plain, plain_loss), (susp, susp_loss) = det_run(False), det_run(True)
+        det_equal = same_state(torch, plain, susp)
+        if not det_equal:
+            # before failing, say where they differ and whether a second
+            # uninterrupted run repeats the first one
+            diff = state_diff(torch, plain, susp)
+            again, again_loss = det_run(False)
+            emit({"phase": "lm_elastic_det_mismatch",
+                  "losses": {"uninterrupted": plain_loss,
+                             "suspended": susp_loss,
+                             "uninterrupted_again": again_loss},
+                  "leaves_differing": len(diff), "leaves": diff[:40],
+                  "uninterrupted_repeats": same_state(torch, plain, again),
+                  "suspended_equals_repeat": same_state(torch, susp,
+                                                        again)})
+        del plain, susp
     finally:
         torch.use_deterministic_algorithms(was_det)
     if not det_equal:
         fail("lm_elastic: a suspended run and an uninterrupted one differ "
-             "under deterministic algorithms")
+             "under deterministic algorithms (phase lm_elastic_det_mismatch "
+             "says where)")
     emit({"phase": "lm_elastic", "arch": ARCH, "params": n_params,
           "model": {"layers": cfg.num_layers, "d_model": cfg.d_model,
                     "heads": cfg.num_heads, "kv_heads": cfg.kv_heads(),
@@ -2419,36 +2615,37 @@ def launch_vs_step(torch, eng, trc, reqs):
     return launch, span_s
 
 
-def counted_disagg_run(paged_mod, what, dis, reqs):
-    """Run the DisaggEngine `dis` (paged, through the kernel) over `reqs`
-    with the paged-attention launch counts zeroed just before and read
-    just after, the log split into pools by marks that each half's `tick`
-    leaves; fail unless the prefill pool's launches are all chunk-shaped
-    (prefill_chunk x G rows) and equal layers x its chunk dispatches, the
-    decode pool's are all decode or verify spans and equal layers x its
-    decode dispatches, each on the launcher's route.  -> (metrics,
-    (launches, tensor cores, split), per-pool launches)."""
-    cfg = dis.cfg
-    G = cfg.num_heads // cfg.kv_heads()
-    marks = []  # (pool, first launch, past the last launch) per tick
+def mark_pool_ticks(dis, log, marks):
+    """Wrap each half of the DisaggEngine `dis` so that its `tick` leaves
+    (pool, first launch, past the last launch) in `marks`, positions in
+    the launch `log`; -> a function that takes the wrappers off."""
+    for name in ("prefill", "decode"):
+        half = getattr(dis, name)
 
-    def run(log):
+        def tick(tick=half.tick, name=name):
+            start = len(log)
+            try:
+                return tick()
+            finally:
+                marks.append((name, start, len(log)))
+        half.tick = tick
+
+    def restore():
         for name in ("prefill", "decode"):
-            half = getattr(dis, name)
+            del getattr(dis, name).tick
+    return restore
 
-            def tick(tick=half.tick, name=name):
-                start = len(log)
-                try:
-                    return tick()
-                finally:
-                    marks.append((name, start, len(log)))
-            half.tick = tick
-        try:
-            return dis.run(reqs)
-        finally:
-            for name in ("prefill", "decode"):
-                del getattr(dis, name).tick
-    m, n, log = counted_launches(paged_mod, run)
+
+def check_pool_launches(what, dis, m, n, log, marks):
+    """Split the launch `log` of the DisaggEngine `dis`'s run (metrics
+    `m`, counts `n`) into pools by `marks`; fail unless the prefill pool's
+    launches are all chunk-shaped (prefill_chunk x G rows) and equal
+    layers x its chunk dispatches, the decode pool's are all decode or
+    verify spans and equal layers x its decode dispatches, each on the
+    launcher's route.  -> per-pool launches."""
+    from repro_torch.models.attention import head_layout
+    cfg = dis.cfg
+    G = head_layout(cfg)[2]
     pools = {"prefill": [], "decode": []}
     for name, a, b in marks:
         pools[name].extend(log[a:b])
@@ -2466,7 +2663,25 @@ def counted_disagg_run(paged_mod, what, dis, reqs):
                    ds["decode_dispatches"],
                    rows={G} | ({(dis.decode.spec_k + 1) * G}
                                if dis.decode.spec_k else set()))
-    return m, n, {name: len(got) for name, got in pools.items()}
+    return {name: len(got) for name, got in pools.items()}
+
+
+def counted_disagg_run(paged_mod, what, dis, reqs):
+    """Run the DisaggEngine `dis` (paged, through the kernel) over `reqs`
+    with the paged-attention launch counts zeroed just before and read
+    just after, the log split into pools by marks that each half's `tick`
+    leaves, and checked by `check_pool_launches`.  -> (metrics,
+    (launches, tensor cores, split), per-pool launches)."""
+    marks = []  # (pool, first launch, past the last launch) per tick
+
+    def run(log):
+        restore = mark_pool_ticks(dis, log, marks)
+        try:
+            return dis.run(reqs)
+        finally:
+            restore()
+    m, n, log = counted_launches(paged_mod, run)
+    return m, n, check_pool_launches(what, dis, m, n, log, marks)
 
 
 def contained_s(inner, outer):
@@ -4133,7 +4348,6 @@ def main() -> None:
                        DisaggEngine, ScheduledSplitPolicy,
                        synthetic_requests, paged_mod, bf16_params,
                        engine_s, ovl["step_device_ms"])
-    del params32
     torch.cuda.empty_cache()
 
     # ---- cluster: jobs contending for simulated nodes of the card --------
@@ -4170,6 +4384,11 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     wide = cocoa_wide_phase(torch, np)
     torch.cuda.empty_cache()
+
+    # ---- examples: the five ported examples, then disagg at full width ----
+    ex = examples_phase(torch, np, M, cfg32, params32, paged_mod)
+    del params32
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lsgd = lsgd_phase(torch, np)
     torch.cuda.empty_cache()
@@ -4194,21 +4413,24 @@ def main() -> None:
         + sum(v["scd_launches"] for v in wide["examples"].values())
     all_launches = launches + spec["launches"] + fault["launches"] \
         + ovl["launches"] + dis["launches"] + moe["launches"] \
-        + clu["launches"] + fam["paged_attention"] + plan["paged_attention"]
+        + clu["launches"] + fam["paged_attention"] + plan["paged_attention"] \
+        + ex["launches"]
     all_tc = launches_tc + spec["launches_tc"] + fault["launches_tc"] \
         + ovl["launches_tc"] + dis["launches_tc"] + moe["launches_tc"] \
-        + clu["launches_tc"]
+        + clu["launches_tc"] + ex["launches_tc"]
     all_split = launches_split + fault["launches_split"] \
         + ovl["launches_split"] + dis["launches_split"] \
-        + moe["launches_split"] + clu["launches_split"]
+        + moe["launches_split"] + clu["launches_split"] \
+        + ex["launches_split"]
     all_verify = launches_verify + spec["launches_verify"] \
         + fault["launches_verify"] + ovl["launches_verify"] \
         + dis["launches_verify"] + moe["launches_verify"] \
-        + clu["launches_verify"]
+        + clu["launches_verify"] + ex["launches_verify"]
     cuda_core = {k: v["launches"] - v["launches_tc"] - v["launches_split"]
                  - v["launches_verify"] for k, v in (("disagg", dis),
                                                      ("moe", moe),
-                                                     ("cluster", clu))}
+                                                     ("cluster", clu),
+                                                     ("examples", ex))}
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4223,7 +4445,8 @@ def main() -> None:
                              "moe": moe["by_run"],
                              "cluster": clu["by_run"],
                              "families": fam["paged_attention"],
-                             "dryrun": plan["paged_attention"]},
+                             "dryrun": plan["paged_attention"],
+                             "examples": ex["by_run"]},
         "launches_tc": all_tc,
         "launches_split": all_split,
         "launches_verify": all_verify,
@@ -4262,6 +4485,10 @@ def main() -> None:
                        clu["launches_split"],
                    "CUDA cores (cluster: fp32 chunks)":
                        cuda_core["cluster"],
+                   "split (examples: disagg decode pool, fp32)":
+                       ex["launches_split"],
+                   "CUDA cores (examples: disagg prefill pool, fp32 "
+                   "chunks)": cuda_core["examples"],
                    "CUDA cores": all_launches - all_tc - all_split
                    - all_verify},
         "sass": sass["paged_attention"],

@@ -70,7 +70,12 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("name", ["cluster_mix_torch", "cocoa_svm_torch",
-                                  "load_balancing_torch"])
+                                  "load_balancing_torch",
+                                  "quickstart_torch",
+                                  "train_elastic_lm_torch",
+                                  "elastic_remesh_torch",
+                                  "serve_decode_torch",
+                                  "disagg_serve_torch"])
 def test_torch_examples_import_nothing_of_the_jax_package(name):
     roots = _imported_roots(ROOT / "examples" / f"{name}.py")
     assert "repro_torch" in roots
