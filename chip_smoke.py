@@ -714,8 +714,11 @@ def profile_run(torch, run, kernel="paged_attention", attempts=1):
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        # the program's spans are profiler ranges, mirrored on the device's
+        # timeline over its kernels: not device work
         dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
         mine = sum(e.self_device_time_total for e in dev if kernel in e.key)
         if mine > 0 or attempt == attempts:
             break
@@ -824,7 +827,8 @@ def device_ms(torch, fn, iters, attempts=3, records=None):
                 fn()
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count]
+               if e.device_type == DeviceType.CUDA and e.count
+               and not e.is_user_annotation]
         if dev:
             break
     else:

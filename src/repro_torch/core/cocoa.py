@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import PROGRAM_TRACER
 from .chunks import Assignment, ChunkStore
 
 
@@ -59,7 +60,18 @@ class CoCoASolver:
 
     X and y go to `device` once; `w` stays there.  `w0` (numpy, optional)
     is the starting model; a starting alpha is whatever
-    `store.state["alpha"]` holds (zeros if absent)."""
+    `store.state["alpha"]` holds (zeros if absent).
+
+    `obs.PROGRAM_TRACER` (which records only under a profiler) gets a
+    span for each phase of `step`, in order: ``cocoa.pools``
+    (chunk ids, shuffles, share cut, idx and mask), ``cocoa.to_device``
+    (idx, alpha, sigma, mask; arg ``bytes``), ``cocoa.gather``,
+    ``cocoa.scd_pass`` (the launch; args ``K``, ``M``),
+    ``cocoa.merge``, ``cocoa.da_to_host`` (``cat="device"``: the host waits
+    for the pass; ``bytes``) and ``cocoa.alpha_scatter``; and `metric` is
+    ``cocoa.gap`` over ``cocoa.to_device`` (alpha) and
+    ``cocoa.gap_to_host`` (``cat="device"``: the gap's launches and the
+    blocking ``float()``)."""
 
     def __init__(self, store: ChunkStore, lam: float = 1e-2, seed: int = 0,
                  *, w0: Optional[np.ndarray] = None, device="cuda"):
@@ -86,50 +98,68 @@ class CoCoASolver:
         sample_shares: fraction of its local data each worker processes this
         iteration (load balancing: slow workers process less); None = all.
         """
+        trc = PROGRAM_TRACER
         K = assignment.n_workers
-        pools = []
-        for wk in range(K):
-            ids = np.concatenate([store.chunk_sample_ids(c)
-                                  for c in assignment.chunks_of(wk)]) \
-                if assignment.chunks_of(wk) else np.zeros(0, np.int64)
-            self.rng.shuffle(ids)
-            if sample_shares is not None and len(ids):
-                ids = ids[: max(1, int(len(ids) * sample_shares[wk]))]
-            pools.append(ids)
-        M = max(max(len(p) for p in pools), 1)
-        idx = np.zeros((K, M), np.int32)
-        mask = np.zeros((K, M), np.float32)
-        for wk, p in enumerate(pools):
-            idx[wk, : len(p)] = p
-            mask[wk, : len(p)] = 1.0
+        with trc.span("cocoa.pools"):
+            pools = []
+            for wk in range(K):
+                ids = np.concatenate([store.chunk_sample_ids(c)
+                                      for c in assignment.chunks_of(wk)]) \
+                    if assignment.chunks_of(wk) else np.zeros(0, np.int64)
+                self.rng.shuffle(ids)
+                if sample_shares is not None and len(ids):
+                    ids = ids[: max(1, int(len(ids) * sample_shares[wk]))]
+                pools.append(ids)
+            M = max(max(len(p) for p in pools), 1)
+            idx = np.zeros((K, M), np.int32)
+            mask = np.zeros((K, M), np.float32)
+            for wk, p in enumerate(pools):
+                idx[wk, : len(p)] = p
+                mask[wk, : len(p)] = 1.0
 
         n = store.n_samples
         # float32 throughout, as the JAX solver: lam * n and n / n_k
         lam_n = float(np.float32(self.lam) * np.float32(n))
-        sigma = np.float32(n) / np.maximum(mask.sum(axis=1), np.float32(1))
+        sigma = (np.float32(n) / np.maximum(mask.sum(axis=1), np.float32(1))
+                 ).astype(np.float32)
         dev = self.device
-        idx_d = torch.from_numpy(idx).to(dev).long()
-        alpha = torch.from_numpy(store.state["alpha"]).to(dev)
-        sigma_d = torch.from_numpy(sigma.astype(np.float32)).to(dev)
-        v_end, da = ops.scd_local_pass(
-            self.X[idx_d], self.y[idx_d], alpha[idx_d], self.w,
-            torch.from_numpy(mask).to(dev), lam_n, sigma_d)
-        # additive merge: (v_end_k - w) / sigma_k is worker k's
-        # (1/(lam n)) sum_j d_j y_j x_j
-        dw = (v_end - self.w) / sigma_d[:, None]
-        self.w = self.w + dw.sum(dim=0)
-        a_np = store.state["alpha"].copy()
-        da_np = da.cpu().numpy()
-        for wk in range(K):
-            m = mask[wk] > 0
-            np.add.at(a_np, idx[wk][m], da_np[wk][m])
-        store.state["alpha"] = np.clip(a_np, 0.0, 1.0)
+        a_host = store.state["alpha"]
+        with trc.span("cocoa.to_device", bytes=idx.nbytes + a_host.nbytes
+                      + sigma.nbytes + mask.nbytes):
+            idx_d = torch.from_numpy(idx).to(dev).long()
+            alpha = torch.from_numpy(a_host).to(dev)
+            sigma_d = torch.from_numpy(sigma).to(dev)
+            mask_d = torch.from_numpy(mask).to(dev)
+        with trc.span("cocoa.gather"):
+            xs, ys, alphas = self.X[idx_d], self.y[idx_d], alpha[idx_d]
+        with trc.span("cocoa.scd_pass", K=K, M=M):
+            v_end, da = ops.scd_local_pass(xs, ys, alphas, self.w, mask_d,
+                                           lam_n, sigma_d)
+        with trc.span("cocoa.merge"):
+            # additive merge: (v_end_k - w) / sigma_k is worker k's
+            # (1/(lam n)) sum_j d_j y_j x_j
+            dw = (v_end - self.w) / sigma_d[:, None]
+            self.w = self.w + dw.sum(dim=0)
+        with trc.span("cocoa.da_to_host", cat="device",
+                      bytes=da.numel() * da.element_size()):
+            da_np = da.cpu().numpy()
+        with trc.span("cocoa.alpha_scatter"):
+            a_np = a_host.copy()
+            for wk in range(K):
+                m = mask[wk] > 0
+                np.add.at(a_np, idx[wk][m], da_np[wk][m])
+            store.state["alpha"] = np.clip(a_np, 0.0, 1.0)
         samples = int(mask.sum())
         return {"samples_processed": samples,
                 "per_worker_samples": mask.sum(axis=1)}
 
     def metric(self) -> float:
         """Duality gap (paper's convergence metric for CoCoA)."""
-        alpha = torch.from_numpy(self.store.state["alpha"]).to(self.device)
-        return float(duality_gap(self.X, self.y, alpha, self.w,
-                                 float(np.float32(self.lam))))
+        trc = PROGRAM_TRACER
+        a_host = self.store.state["alpha"]
+        with trc.span("cocoa.gap"):
+            with trc.span("cocoa.to_device", bytes=a_host.nbytes):
+                alpha = torch.from_numpy(a_host).to(self.device)
+            with trc.span("cocoa.gap_to_host", cat="device"):
+                return float(duality_gap(self.X, self.y, alpha, self.w,
+                                         float(np.float32(self.lam))))

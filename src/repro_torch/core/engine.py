@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs import PROGRAM_TRACER
 from .chunks import Assignment, ChunkStore
 from .policies import Policy
 
@@ -66,7 +67,12 @@ class IterationRecord:
 
 
 class UniTaskEngine:
-    """Central trainer loop (the paper's 'trainer' + scheduler)."""
+    """Central trainer loop (the paper's 'trainer' + scheduler).
+
+    Each iteration is an ``engine.iteration`` span (arg ``it``) of
+    `obs.PROGRAM_TRACER` (which records only under a profiler) over its
+    phases: ``engine.schedule``, ``engine.solver_step``,
+    ``engine.metric``."""
 
     def __init__(self, store: ChunkStore, assignment: Assignment,
                  policies: Sequence[Policy], *,
@@ -97,8 +103,15 @@ class UniTaskEngine:
     def run(self, iterations: int, solver_step: Callable[..., Dict],
             metric_fn: Callable[[], float], *, eval_every: int = 1) -> List[IterationRecord]:
         for _ in range(iterations):
-            # ---- scheduler phase (owns chunks); policies see the LAST
-            # iteration's timings (the paper's feedback loop) ----
+            with PROGRAM_TRACER.span("engine.iteration", it=self.iteration):
+                self._iteration(solver_step, metric_fn, eval_every)
+        return self.history
+
+    def _iteration(self, solver_step, metric_fn, eval_every: int) -> None:
+        trc = PROGRAM_TRACER
+        # ---- scheduler phase (owns chunks); policies see the LAST
+        # iteration's timings (the paper's feedback loop) ----
+        with trc.span("engine.schedule"):
             stats: Dict = dict(self._last_stats)
             for p in self.policies:
                 p.between_iterations(self, stats)
@@ -108,39 +121,41 @@ class UniTaskEngine:
             K = self.assignment.n_workers
             shares = None
             if self.balance_processing:
-                counts = self.assignment.sample_counts(self.store).astype(float)
+                counts = self.assignment.sample_counts(
+                    self.store).astype(float)
                 shares = counts / max(counts.sum(), 1.0)
+        with trc.span("engine.solver_step"):
             out = solver_step(self.store, self.assignment, shares)
-            self.assignment.end_iteration()
+        self.assignment.end_iteration()
 
-            # ---- time accounting (simulated heterogeneous cluster) ----
-            per_worker = np.asarray(out["per_worker_samples"], float)
-            task_times = {w: per_worker[w] * self.node_pst(w) for w in range(K)}
-            it_time = max(task_times.values()) + self.comm_overhead
-            self.sim_time += it_time
-            self.samples_processed += int(out["samples_processed"])
-            self.iteration += 1
+        # ---- time accounting (simulated heterogeneous cluster) ----
+        per_worker = np.asarray(out["per_worker_samples"], float)
+        task_times = {w: per_worker[w] * self.node_pst(w) for w in range(K)}
+        it_time = max(task_times.values()) + self.comm_overhead
+        self.sim_time += it_time
+        self.samples_processed += int(out["samples_processed"])
+        self.iteration += 1
 
-            stats["task_times"] = task_times
-            stats["per_sample_times"] = {
-                w: self.node_pst(w) for w in range(K)}
-            self._last_stats = {"task_times": task_times,
-                                "per_sample_times": stats["per_sample_times"]}
+        stats["task_times"] = task_times
+        stats["per_sample_times"] = {
+            w: self.node_pst(w) for w in range(K)}
+        self._last_stats = {"task_times": task_times,
+                            "per_sample_times": stats["per_sample_times"]}
 
-            metric = None
-            if self.iteration % eval_every == 0:
+        metric = None
+        if self.iteration % eval_every == 0:
+            with trc.span("engine.metric"):
                 metric = metric_fn()
-            self.history.append(IterationRecord(
-                iteration=self.iteration,
-                epoch=self.samples_processed / self.store.n_samples,
-                sim_time=self.sim_time,
-                metric=metric,
-                n_workers=K,
-                task_times=task_times,
-                chunk_counts=[len(c) for c in self.assignment.workers],
-                events=list(stats.get("scale_events", [])),
-            ))
-        return self.history
+        self.history.append(IterationRecord(
+            iteration=self.iteration,
+            epoch=self.samples_processed / self.store.n_samples,
+            sim_time=self.sim_time,
+            metric=metric,
+            n_workers=K,
+            task_times=task_times,
+            chunk_counts=[len(c) for c in self.assignment.workers],
+            events=list(stats.get("scale_events", [])),
+        ))
 
 
 class MicroTaskEmulator:

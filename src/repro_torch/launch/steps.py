@@ -25,6 +25,7 @@ from ..configs.base import (MAX_FULL_ATTENTION_SEQ, ModelConfig,
                             ShapeConfig, TrainConfig)
 from ..models import model as M
 from ..models.layers import torch_dtype
+from ..obs import PROGRAM_TRACER
 from ..optim import optimizers as opt
 from ..sharding import AxisRules, Spec, canonical
 
@@ -66,24 +67,34 @@ def memory_len(cfg: ModelConfig) -> int:
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays or tensors as tensors on `device`."""
-    return {k: (torch.from_numpy(np.ascontiguousarray(v))
-                if isinstance(v, np.ndarray) else v).to(device)
-            for k, v in batch.items()}
+    """A batch of numpy arrays or tensors as tensors on `device`; a
+    ``train.to_device`` span of `obs.PROGRAM_TRACER` with the batch's
+    ``bytes``."""
+    with PROGRAM_TRACER.span("train.to_device",
+                             bytes=sum(v.nbytes for v in batch.values())):
+        return {k: (torch.from_numpy(np.ascontiguousarray(v))
+                    if isinstance(v, np.ndarray) else v).to(device)
+                for k, v in batch.items()}
 
 
 def value_and_grad(cfg: ModelConfig, params: M.Transformer,
                    batch: Dict[str, torch.Tensor], *, remat: bool,
-                   total_weight: Optional[torch.Tensor] = None
+                   total_weight: Optional[torch.Tensor] = None, **span_args
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Tree]:
     """(loss + aux, metrics, grads by path) of `M.loss_fn`, the gradient
-    in each parameter's dtype (`jax.value_and_grad(..., has_aux=True)`)."""
+    in each parameter's dtype (`jax.value_and_grad(..., has_aux=True)`).
+    `obs.PROGRAM_TRACER` times the two halves on the card:
+    ``train.forward`` and ``train.backward`` (remat's recomputation
+    included), with `span_args`."""
     leaves = M.param_dict(params)
     params.requires_grad_(True)
+    dev, trc = batch["tokens"].device, PROGRAM_TRACER
     with torch.enable_grad():
-        total, metrics = M.loss_fn(cfg, params, batch, remat=remat,
-                                   total_weight=total_weight)
-        grads = torch.autograd.grad(total, list(leaves.values()))
+        with trc.device_span("train.forward", device=dev, **span_args):
+            total, metrics = M.loss_fn(cfg, params, batch, remat=remat,
+                                       total_weight=total_weight)
+        with trc.device_span("train.backward", device=dev, **span_args):
+            grads = torch.autograd.grad(total, list(leaves.values()))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return total.detach(), metrics, dict(zip(leaves, grads))
 
@@ -101,7 +112,15 @@ def _assign(params: M.Transformer, new: Tree) -> None:
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics) with
-    metrics {"loss", "aux_loss", "grad_norm"} (fp32 tensors)."""
+    metrics {"loss", "aux_loss", "grad_norm"} (fp32 tensors).
+
+    Each step is timed on the card by `obs.PROGRAM_TRACER`:
+    ``train.forward``, ``train.backward`` and one ``train.optimizer`` (the
+    update, its assignment and the grad norm); with
+    accumulation a forward and a backward per micro-batch and a
+    ``train.optimizer`` for each micro-batch's add into the momentum (arg
+    ``micro``), besides the step's own."""
+    trc = PROGRAM_TRACER
 
     def _apply(grads, leaves, opt_state):
         if tc.optimizer == "adamw":
@@ -113,10 +132,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
 
     def train_step(params, opt_state, batch):
         leaves = M.param_dict(params)
+        dev = batch["tokens"].device
         if tc.accum_steps <= 1:
             _, metrics, grads = value_and_grad(cfg, params, batch,
                                                remat=tc.remat)
-            with torch.no_grad():
+            with trc.device_span("train.optimizer", device=dev), \
+                    torch.no_grad():
                 updates, opt_state2 = _apply(grads, leaves, opt_state)
                 _assign(params, opt.apply_updates(leaves, updates))
                 metrics = dict(metrics, grad_norm=_tree_gn(grads))
@@ -136,12 +157,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             micro = {k: v[a * n:(a + 1) * n] for k, v in batch.items()}
             _, metrics, g = value_and_grad(cfg, params, micro,
                                            remat=tc.remat,
-                                           total_weight=total_w)
-            with torch.no_grad():
+                                           total_weight=total_w, micro=a)
+            with trc.device_span("train.optimizer", device=dev, micro=a), \
+                    torch.no_grad():
                 mu = {k: mu[k] + g[k].float() for k in mu}
             loss = loss + metrics["loss"]
             aux = aux + metrics["aux_loss"]
-        with torch.no_grad():
+        with trc.device_span("train.optimizer", device=dev), \
+                torch.no_grad():
             g_total = {k: mu[k] - mu0[k] for k in mu}
             updates = {k: -tc.learning_rate * m for k, m in mu.items()}
             _assign(params, opt.apply_updates(leaves, updates))

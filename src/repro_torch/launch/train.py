@@ -33,6 +33,7 @@ from ..core import (Assignment, ChunkStore, ElasticScalingPolicy,
                     RebalancePolicy, ScaleEvent)
 from ..data import ChunkBatchPipeline, make_lm_tokens
 from ..models import model as M
+from ..obs import PROGRAM_TRACER
 from ..optim import init_opt_state
 from . import steps
 
@@ -83,16 +84,19 @@ def scheduled_batch(it: int, pipe: ChunkBatchPipeline, policies, *,
     between iterations against a lightweight engine whose clock is the
     STEP index (deterministic), then the assignment enters the iteration.
     The caller ends it (`pipe.assignment.end_iteration()`) after the step.
+    A ``train.schedule`` span of `obs.PROGRAM_TRACER`.
     """
-    eng = type("E", (), {"sim_time": float(it),
-                         "assignment": pipe.assignment, "store": pipe.store,
-                         "rng": np.random.default_rng(seed + it),
-                         "on_worker_added": lambda *_: None,
-                         "on_worker_removed": lambda *_: None})()
-    for p in policies:
-        p.between_iterations(eng, stats)
-    pipe.assignment.begin_iteration()
-    return pipe.next_batch()
+    with PROGRAM_TRACER.span("train.schedule"):
+        eng = type("E", (), {"sim_time": float(it),
+                             "assignment": pipe.assignment,
+                             "store": pipe.store,
+                             "rng": np.random.default_rng(seed + it),
+                             "on_worker_added": lambda *_: None,
+                             "on_worker_removed": lambda *_: None})()
+        for p in policies:
+            p.between_iterations(eng, stats)
+        pipe.assignment.begin_iteration()
+        return pipe.next_batch()
 
 
 def train(arch: str, *, scale: Optional[str] = None, smoke: bool = False,

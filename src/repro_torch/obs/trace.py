@@ -6,13 +6,14 @@ Design constraints, in priority order:
    attribute check returning a shared no-op context manager — no object
    allocation, no clock read, no event append.  The serving engine keeps
    its tracer calls inline on the hot path because of this.
-2. **Device time is attributed explicitly.** Under async XLA dispatch a
-   jitted call returns immediately and whichever host phase happens to
-   touch the result pays the wait.  Callers wrap their
-   ``jax.block_until_ready`` in a span with ``cat="device"`` (by
-   convention named ``device_wait``, placed on the *owning phase's* track)
-   so the attribution report can split host ms from device ms per phase
-   instead of blaming a random host phase for device latency.
+2. **Device time is attributed explicitly.** CUDA launches return before
+   the card has run them, and whichever host phase first reads a result
+   (``.cpu()``, ``.item()``, ``float()``) pays the wait.  Callers wrap such
+   a blocking read in a span with ``cat="device"`` (placed on the *owning
+   phase's* track) so the attribution report can split host ms from
+   device ms per phase instead of blaming a random host phase for device
+   latency; `Tracer.device_span` times a stretch of work on the card
+   itself, by a pair of CUDA events resolved only when events are read.
 3. **Loadable traces.** `to_chrome()` emits Chrome trace-event JSON
    (``{"traceEvents": [...]}`` with complete "X" and instant "i" events
    plus process/thread-name metadata), viewable in Perfetto or
@@ -25,8 +26,15 @@ Spans are exception-safe: a span whose body raises is still recorded (with
 `MetricsRegistry` via `count`/`gauge`/`observe` helpers that no-op when
 disabled, so callers never branch on ``tracer.enabled`` themselves.
 
-Stdlib-only; single-threaded by design (one tracer per engine/orchestrator
-tick loop).
+While a `torch.profiler` session records, every span an enabled tracer
+opens is also a ``record_function`` range of the same name, so spans stand
+in the profiler's own timeline, on the clock of its kernels.
+`PROGRAM_TRACER` is the process-wide tracer of the training path: it
+records exactly while a profiler records, keeps the newest session's
+events only, and adds ``python.gc`` spans for the collector's passes.
+
+Imports torch only for the profiler mirror and CUDA events; single-threaded
+by design (one tracer per engine/orchestrator tick loop).
 
 CLI: ``python -m repro_torch.obs.trace --validate trace.json --require a,b``
 validates an exported file (used by scripts/smoke.sh and CI).
@@ -34,9 +42,13 @@ validates an exported file (used by scripts/smoke.sh and CI).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+import torch
+from torch.autograd import profiler as _profiler
 
 from .metrics import MetricsRegistry
 
@@ -54,6 +66,7 @@ class TraceEvent:
     depth: int = 0     # nesting depth at emission (tests / debugging)
     args: Dict[str, Any] = dataclasses.field(default_factory=dict)
     error: bool = False
+    parent: Optional[int] = None  # index in `events` of the enclosing span
 
 
 class _NoopSpan:
@@ -72,8 +85,13 @@ NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
+    """An open span.  It sits on its tracer's stack of open spans from
+    enter to exit and keeps its finished children's event indices: events
+    are appended as spans finish, so a parent's index is known only after
+    its children's."""
+
     __slots__ = ("_tracer", "_name", "_cat", "_track", "_args", "_t0",
-                 "_depth")
+                 "_depth", "_stack", "_up", "_kids", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, track: str,
                  args: Dict[str, Any]):
@@ -85,20 +103,68 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         tr = self._tracer
-        self._depth = tr._depth
-        tr._depth += 1
         self._t0 = tr._clock()
+        self._rf = (_profiler.record_function(self._name).__enter__()
+                    if _profiler._is_profiler_enabled else None)
+        stack = self._stack = tr._open
+        self._depth = len(stack)
+        self._up = stack[-1] if stack else None
+        self._kids = []
+        stack.append(self)
         return self
+
+    def _finish(self, t1: float) -> float:
+        """The span's duration, its end read at `t1`."""
+        return t1 - self._t0
 
     def __exit__(self, etype, evalue, tb) -> bool:
         tr = self._tracer
-        t1 = tr._clock()
-        tr._depth -= 1
-        tr.events.append(TraceEvent(
-            name=self._name, ph="X", track=self._track, cat=self._cat,
-            ts=self._t0 - tr._epoch, dur=t1 - self._t0, depth=self._depth,
-            args=self._args, error=etype is not None))
+        if self._rf is not None:  # inside the span, as its enter is
+            self._rf.__exit__(None, None, None)
+        dur = self._finish(tr._clock())
+        self._stack.pop()
+        if self._stack is tr._open:  # else clear() or a new session dropped it
+            ev = TraceEvent(
+                name=self._name, ph="X", track=self._track, cat=self._cat,
+                ts=self._t0 - tr._epoch, dur=dur, depth=self._depth,
+                args=self._args, error=etype is not None)
+            tr._append(ev, self)
+            self._recorded(ev)
         return False  # never swallow the exception
+
+    def _recorded(self, ev: TraceEvent) -> None:
+        pass
+
+
+class _DeviceSpan(_Span):
+    """A span timed on the card: a CUDA event on the device's current
+    stream at enter and at exit, read (``elapsed_time``) only when the
+    tracer's events are; without a CUDA device, the host clock."""
+
+    __slots__ = ("_device", "_start", "_end")
+
+    def __init__(self, tracer, name, cat, track, args, device):
+        super().__init__(tracer, name, cat, track, args)
+        self._device = device
+
+    def __enter__(self) -> "_DeviceSpan":
+        super().__enter__()
+        self._start = None
+        if self._device is not None and self._device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self._device))
+        return self
+
+    def _finish(self, t1: float) -> float:
+        if self._start is None:
+            return t1 - self._t0
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._end.record(torch.cuda.current_stream(self._device))
+        return 0.0  # read from the events with the tracer's events
+
+    def _recorded(self, ev: TraceEvent) -> None:
+        if self._start is not None:
+            self._tracer._pending.append((ev, self._start, self._end))
 
 
 class Tracer:
@@ -113,8 +179,40 @@ class Tracer:
         self.registry = registry if registry is not None else MetricsRegistry()
         self._clock = clock
         self._epoch = clock()
-        self._depth = 0
-        self.events: List[TraceEvent] = []
+        self._open: List[_Span] = []
+        self._events: List[TraceEvent] = []
+        self._pending: List = []  # (event, start, end) of device spans
+
+    @property
+    def events(self) -> List[TraceEvent]:
+        """Finished spans and instants in the order they finished.  Device
+        spans' durations are read from their CUDA events here, which waits
+        for the card to reach each one's end."""
+        if self._pending:
+            for ev, start, end in self._pending:
+                end.synchronize()
+                ev.dur = start.elapsed_time(end) / 1e3
+            self._pending.clear()
+        return self._events
+
+    @property
+    def _depth(self) -> int:
+        return len(self._open)
+
+    def _append(self, ev: TraceEvent, span: Optional[_Span] = None) -> None:
+        """Append a finished event: the parent of `span`'s finished
+        children, and a child of the span enclosing it."""
+        events = self._events
+        i = len(events)
+        events.append(ev)
+        if span is None:
+            up = self._open[-1] if self._open else None
+        else:
+            for k in span._kids:
+                events[k].parent = i
+            up = span._up
+        if up is not None:
+            up._kids.append(i)
 
     # --- spans ------------------------------------------------------------
     @staticmethod
@@ -132,12 +230,25 @@ class Tracer:
                      track if track is not None else self.default_track(name),
                      args)
 
+    def device_span(self, name: str, cat: str = "device",
+                    track: Optional[str] = None, *, device=None, **args):
+        """A span whose duration is the card's time from its enter to its
+        exit: CUDA events on `device`'s current stream (the host clock
+        where `device` is None or not a CUDA device).  Its start, ``ts``,
+        is the host's; it never synchronises."""
+        if not self.enabled:
+            return NOOP_SPAN
+        return _DeviceSpan(
+            self, name, cat,
+            track if track is not None else self.default_track(name), args,
+            None if device is None else torch.device(device))
+
     def instant(self, name: str, track: Optional[str] = None,
                 **args) -> None:
         """Point event (e.g. a jit-cache miss, a lease change)."""
         if not self.enabled:
             return
-        self.events.append(TraceEvent(
+        self._append(TraceEvent(
             name=name, ph="i",
             track=track if track is not None else self.default_track(name),
             cat="host", ts=self._clock() - self._epoch, depth=self._depth,
@@ -158,7 +269,7 @@ class Tracer:
         while the device computes."""
         if not self.enabled:
             return
-        self.events.append(TraceEvent(
+        self._append(TraceEvent(
             name=name, ph="X",
             track=track if track is not None else self.default_track(name),
             cat=cat, ts=t0 - self._epoch, dur=max(t1 - t0, 0.0),
@@ -191,8 +302,11 @@ class Tracer:
         return list(seen)
 
     def clear(self) -> None:
-        self.events.clear()
-        self._depth = 0
+        """Drop every event, and the spans still open (they record nothing
+        when they close)."""
+        self._events.clear()
+        self._pending.clear()
+        self._open = []
         self._epoch = self._clock()
 
     # --- export -----------------------------------------------------------
@@ -223,6 +337,8 @@ class Tracer:
                 ev["s"] = "t"  # instant scope: thread
             if e.error:
                 ev["args"]["error"] = True
+            if e.parent is not None:
+                ev["args"]["parent"] = e.parent
             events.append(ev)
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
@@ -252,20 +368,20 @@ class ScopedTracer(Tracer):
 
     # shared mutable state lives on the parent (clear() resets epoch there)
     @property
-    def events(self) -> List[TraceEvent]:
-        return self.parent.events
+    def _events(self) -> List[TraceEvent]:
+        return self.parent._events
+
+    @property
+    def _pending(self) -> List:
+        return self.parent._pending
+
+    @property
+    def _open(self) -> List[_Span]:
+        return self.parent._open
 
     @property
     def _epoch(self) -> float:
         return self.parent._epoch
-
-    @property
-    def _depth(self) -> int:
-        return self.parent._depth
-
-    @_depth.setter
-    def _depth(self, v: int) -> None:
-        self.parent._depth = v
 
     def span(self, name: str, cat: str = "host",
              track: Optional[str] = None, **args):
@@ -306,6 +422,70 @@ class ScopedTracer(Tracer):
 #: Shared disabled tracer: the default for every instrumented component, so
 #: "no tracer configured" and "tracing off" are the same zero-cost path.
 NULL_TRACER = Tracer(enabled=False, name="null")
+
+
+class ProgramTracer(Tracer):
+    """A tracer that records exactly while a `torch.profiler` session
+    records (`torch.autograd.profiler._is_profiler_enabled`, a module flag:
+    off, a span costs that one check and returns `NOOP_SPAN`).  Each new
+    session, seen as the flag rising at a span, drops the previous
+    session's events, so `events` holds the newest session only.  While it
+    records, each pass of Python's garbage collector is a ``python.gc``
+    span (arg ``generation``) under whatever span it interrupts.  A
+    session's end is seen by a span or by a read of `events` while the
+    flag is down."""
+
+    def __init__(self, name: str = "program"):
+        self._live = False  # a span has seen the current session
+        self._gc_span: Optional[_Span] = None
+        self._gc_hooked = False
+        super().__init__(name=name)
+
+    @property
+    def enabled(self) -> bool:
+        if not _profiler._is_profiler_enabled:
+            self._live = False
+            return False
+        if not self._live:
+            self._new_session()
+        return True
+
+    @enabled.setter
+    def enabled(self, value: bool) -> None:  # `Tracer.__init__` sets True
+        if not value:
+            raise ValueError("a ProgramTracer follows the profiler; use "
+                             "NULL_TRACER for a tracer that is always off")
+
+    @property
+    def events(self) -> List[TraceEvent]:
+        """As `Tracer.events`; read after a session has ended, it also
+        marks that end, so the next session starts afresh even where no
+        span ran between the two."""
+        if not _profiler._is_profiler_enabled:
+            self._live = False
+        return Tracer.events.fget(self)
+
+    def _new_session(self) -> None:
+        self.clear()
+        self._live = True
+        if not self._gc_hooked:
+            gc.callbacks.append(self._on_gc)
+            self._gc_hooked = True
+
+    def _on_gc(self, phase: str, info: Dict[str, int]) -> None:
+        if phase == "start":
+            if self._live and _profiler._is_profiler_enabled:
+                self._gc_span = _Span(self, "python.gc", "host", "python",
+                                      {"generation": info["generation"]})
+                self._gc_span.__enter__()
+        elif self._gc_span is not None:
+            span, self._gc_span = self._gc_span, None
+            span.__exit__(None, None, None)
+
+
+#: The training path's tracer: `core.UniTaskEngine`, `core.CoCoASolver`,
+#: `launch.train.scheduled_batch` and `launch.steps` record into it.
+PROGRAM_TRACER = ProgramTracer()
 
 
 def validate_chrome_trace(obj: Any,

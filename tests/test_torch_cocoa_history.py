@@ -31,6 +31,7 @@ GAP_ATOL allows 16."""
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -117,6 +118,86 @@ def test_port_history_on_the_cpu_holds_the_fixture(arithmetic, monkeypatch):
     got = history(T, make_svm_data, device="cpu")
     assert gap_excess(got, want) <= 0
 
+
+# the traced path: `CoCoASolver` and `UniTaskEngine` record into the
+# program tracer while a profiler records, and change nothing they compute
+TRACED = dict(n=4_000, features=28, chunk_size=250, lam=1e-2, iters=8)
+LEAVES_COVER = 0.9  # of each iteration's span, by its leaf spans
+
+
+def _traced_history(ks, traced):
+    """Every iteration's K, gap, alpha, w and samples_processed, each
+    iteration under a CPU profiler or not; and each traced iteration's
+    program spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.core as T
+    from repro_torch.data import make_svm_data
+    from repro_torch.obs import PROGRAM_TRACER
+    c = TRACED
+    x, y = make_svm_data(c["n"], c["features"], seed=3)
+    store = T.ChunkStore({"x": x, "y": y}, chunk_size=c["chunk_size"])
+    a = T.Assignment(store.n_chunks, ks[0], np.random.default_rng(0))
+    solver = T.CoCoASolver(store, lam=c["lam"], seed=5, device="cpu")
+    # K follows `ks` by iteration, as the benchmark's worker schedules do
+    # (chunks and their alpha move at each change)
+    eng = T.UniTaskEngine(
+        store, a, [T.ElasticScalingPolicy(
+            lambda t: ks[eng.iteration % len(ks)])],
+        seed=5, balance_processing=False)
+    out, sessions = [], []
+    for _ in range(c["iters"]):
+        if traced:  # a session an iteration; reading it, while off, ends it
+            with profile(activities=[ProfilerActivity.CPU]):
+                eng.run(1, solver.step, solver.metric)
+            sessions.append(list(PROGRAM_TRACER.events))
+        else:
+            eng.run(1, solver.step, solver.metric)
+        h = eng.history[-1]
+        out.append((h.n_workers, h.metric, store.state["alpha"].copy(),
+                    solver.w.clone(), eng.samples_processed))
+    return out, sessions, torch
+
+
+@pytest.mark.parametrize("ks", [[4, 4, 2, 2, 4], [8, 2, 8, 4]])
+def test_traced_cocoa_is_the_untraced_one_bit_for_bit(ks, monkeypatch):
+    from repro_torch.obs import PROGRAM_TRACER
+    # spans timed by this thread's CPU clock: on a busy machine, a
+    # preemption between two spans does not read as uncovered time
+    monkeypatch.setattr(PROGRAM_TRACER, "_clock", time.thread_time)
+    plain, _, torch = _traced_history(ks, traced=False)
+    traced, sessions, _ = _traced_history(ks, traced=True)
+    for (k0, g0, a0, w0, s0), (k1, g1, a1, w1, s1) in zip(plain, traced):
+        assert (k0, g0, s0) == (k1, g1, s1)
+        assert np.array_equal(a0, a1) and torch.equal(w0, w1)
+    assert [k for k, *_ in plain] == [ks[i % len(ks)]
+                                      for i in range(TRACED["iters"])]
+    # each iteration's session: its phases, the leaves covering it
+    for t, evs in enumerate(sessions):
+        kids = {}
+        for i, e in enumerate(evs):
+            if e.name != "python.gc":
+                kids.setdefault(e.parent, []).append(i)
+        (it,) = [i for i, e in enumerate(evs)
+                 if e.name == "engine.iteration"]
+        assert evs[it].args == {"it": t}
+        (scd,) = [e for e in evs if e.name == "cocoa.scd_pass"]
+        assert scd.args["K"] == plain[t][0]
+
+        def leaves(i):
+            return [j for k in kids.get(i, []) for j in (leaves(k) or [k])]
+        phases = leaves(it)
+        assert [evs[j].name for j in phases] == [
+            "engine.schedule", "cocoa.pools", "cocoa.to_device",
+            "cocoa.gather", "cocoa.scd_pass", "cocoa.merge",
+            "cocoa.da_to_host", "cocoa.alpha_scatter", "cocoa.to_device",
+            "cocoa.gap_to_host"]
+        # the collector's passes are leaves too, where no phase holds them
+        gcs = [e.dur for e in evs if e.name == "python.gc"
+               and e.parent is not None and e.parent not in phases]
+        assert sum(evs[j].dur for j in phases) + sum(gcs) >= \
+            LEAVES_COVER * evs[it].dur
 
 if __name__ == "__main__":
     write_fixture()
