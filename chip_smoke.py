@@ -273,6 +273,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               against the plain version at 2e-5; then its time, its plain
               version's, its bound and scaled_dot_product_attention's, in
               bf16 and in fp32.
+7b. flash_train — the training step's attention at danube.train.seq4k's
+              shape (B=12, S=4096, KV=8, G=4, hd=80, bf16, causal, window
+              4096): the forward that writes the log-sum-exp and the
+              backward kernel against their plain versions (two batch
+              rows; dq/dk/dv within 2^-7 of their largest element, lse
+              1e-4), the backward bit-equal across two calls, one launch
+              each; then their times, bounds and the plain backward's.
 8. lm_train — the LM trainer `launch.train.train` on h2o-danube-1.8b at
               the 100m preset: 20 steps, workers 4 -> 2 at step 4,
               rebalancing, 2 of 4 workers at twice the per-sample time.
@@ -280,9 +287,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (bf16, sgdm, remat) on batches of 8 x 4096 tokens from
               ChunkBatchPipeline: 2 steps, K 4 -> 2 at step 1, suspended
               to the host after step 1, the first at K 2, and resumed
-              (the state must come back bit for bit); then, under
-              deterministic algorithms, a suspended run against an
-              uninterrupted one (bit-equal).
+              (the state must come back bit for bit); every step's 24
+              layers on the flash route (48 tensor-core forwards, 24
+              backwards); then, under deterministic algorithms, a
+              suspended run against an uninterrupted one (bit-equal).
 10. timing  — each kernel, its plain version, its bound and its library
               yardstick at the main path's shapes, the wide SCD kernel at
               K=16, M=4,096 and F in {128, 256, 2000} beside its cost
@@ -298,6 +306,7 @@ a checkout of the repository, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -452,6 +461,9 @@ FLASH_CASES = [(2, 128, 2, 2, 64, 0, True), (1, 256, 1, 4, 32, 0, True),
                (1, 1024, 8, 4, 80, 256, False), (2, 8, 2, 1, 32, 0, True),
                (1, 256, 2, 4, 40, 0, True)]
 FLASH_PATH = dict(B=4, S=4096)  # with h2o-danube-1.8b's KV, G, hd, window
+# the training step's attention (danube.train.seq4k's micro-batch): the
+# forward that writes the log-sum-exp and the backward kernel
+FLASH_TRAIN = dict(B=12, S=4096, iters=5)
 # LM training (phases lm_train and lm_elastic)
 LM_TRAIN = dict(scale="100m", train_steps=20, elastic="4:2", rebalance=True,
                 hetero="2.0x2", workers=4, seed=0)
@@ -1669,9 +1681,11 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
     if (launches, launches_tc) != (1, 1):
         fail(f"ops.flash_attention launched {launches} kernels, "
              f"{launches_tc} on the tensor cores (want 1 and 1)")
-    with torch.no_grad():
-        want = attn.blocked_attention(cfg, q5.reshape(B, S, HP, hd), k4, v4,
-                                      window=win)
+    with torch.no_grad():  # the query-blocked path (bf16 on the card
+        # takes the flash route itself)
+        want = attn._blocked_attention(cfg, q5.reshape(B, S, HP, hd), k4,
+                                       v4, causal=True, window=win,
+                                       q_block=512)
     # blocked_attention rounds P to bf16 before PV, the kernel keeps it
     # fp32: held at the JAX bf16 tolerance, |a - b| <= 2e-2 (1 + |b|)
     tol = TOL["bfloat16"]
@@ -1757,6 +1771,112 @@ def flash_phase(torch, np, F, cfg, flash_attention, flash_attention_plain):
            "float32": f32}
     emit({"phase": "flash", **res})
     del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_bwd_work(np, B, S, H, KV, hd, window, causal):
+    """(bytes, flops) of one backward call: q, out, dout and dq (B H S hd),
+    k, v, dk and dv (B KV S hd) in bf16 and the fp32 log-sum-exp, each once;
+    8*hd flops per visible (query, key) pair (dP = dO V^T, dV = P^T dO,
+    dQ = dS K, dK = dS^T Q; the scores recomputed are not counted)."""
+    _, flops = flash_work(np, B, S, H, KV, hd, window, causal, 2)
+    nbytes = (4 * B * H * S * hd + 4 * B * KV * S * hd) * 2 + B * H * S * 4
+    return nbytes, 2 * flops
+
+
+def flash_train_phase(torch, np, cfg):
+    """The training step's attention at danube.train.seq4k's shape
+    (FLASH_TRAIN, h2o-danube-1.8b's heads, causal, window 4096, bf16): the
+    forward that also writes the log-sum-exp (held to the plain scores'
+    logsumexp) and the backward kernel, held to its plain version on the
+    fp32-cast inputs (two batch rows, dq/dk/dv within 2^-7 of their largest
+    element), bit-equal across two calls, one launch a call; then their
+    times beside their bounds and the plain backward's."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    KV, G, hd = cfg.kv_heads(), cfg.num_heads // cfg.kv_heads(), \
+        cfg.head_dim_()
+    B, S, iters = FLASH_TRAIN["B"], FLASH_TRAIN["S"], FLASH_TRAIN["iters"]
+    win = cfg.sliding_window
+    kw = dict(causal=True, window=win, group_size=G)
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    q, k, v = flash_inputs(torch, gen, B, S, KV, G, hd, torch.bfloat16)
+    do = torch.randn(q.shape, device=DEVICE, generator=gen).to(q.dtype)
+    n0 = flash_attention.launches_tc, flash_attention_bwd.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    launches = (flash_attention.launches_tc - n0[0],
+                flash_attention_bwd.launches - n0[1])
+    if launches != (1, 2):
+        fail(f"flash_train: {launches[0]} tensor-core forward and "
+             f"{launches[1]} backward launches (want 1 and 2)")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        fail("flash_train: two backward calls on the same inputs differ")
+    del again
+    errs = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for b in (0, B - 1):  # the plain version a batch row at a time
+        qs, ks = (slice(b * KV * G, (b + 1) * KV * G),
+                  slice(b * KV, (b + 1) * KV))
+        _, want_lse = flash_attention_plain(
+            q[qs].float(), k[ks].float(), v[ks].float(), return_lse=True,
+            **kw)
+        errs["lse"] = max(errs["lse"],
+                          float((lse[qs] - want_lse).abs().max()))
+        want = flash_attention_bwd_plain(
+            q[qs].float(), k[ks].float(), v[ks].float(), out[qs].float(),
+            want_lse, do[qs].float(), **kw)
+        for name, g, w in zip(("dq", "dk", "dv"),
+                              (grads[0][qs], grads[1][ks], grads[2][ks]),
+                              want):
+            e = float((g.float() - w).abs().max() / w.abs().max())
+            errs[name] = max(errs[name], e)
+        del want, want_lse
+        torch.cuda.empty_cache()
+    if not all(math.isfinite(e) for e in errs.values()) \
+            or errs["lse"] > 1e-4 \
+            or max(errs[n] for n in ("dq", "dk", "dv")) > 2.0 ** -7:
+        fail(f"flash_train: the kernels against their plain versions {errs}")
+    del grads
+    torch.cuda.empty_cache()
+
+    def fwd():
+        flash_attention(q, k, v, return_lse=True, **kw)
+
+    def bwd():
+        flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+    def plain_bwd():
+        for b in range(B):
+            qs, ks = (slice(b * KV * G, (b + 1) * KV * G),
+                      slice(b * KV, (b + 1) * KV))
+            flash_attention_bwd_plain(q[qs], k[ks], v[ks], out[qs], lse[qs],
+                                      do[qs], **kw)
+
+    f1, b1 = cuda_ms(torch, fwd, iters), cuda_ms(torch, bwd, iters)
+    plain = cuda_ms(torch, plain_bwd)
+    f2, b2 = cuda_ms(torch, fwd, iters), cuda_ms(torch, bwd, iters)
+    _, f_flops = flash_work(np, B, S, KV * G, KV, hd, win, True, 2)
+    b_bytes, b_flops = flash_bwd_work(np, B, S, KV * G, KV, hd, win, True)
+    res = {"shape": {"B": B, "S": S, "KV": KV, "G": G, "hd": hd,
+                     "window": win, "causal": True, "dtype": "bfloat16"},
+           "launches_tc_fwd": launches[0], "launches_bwd": launches[1],
+           "deterministic": True, "rel_err_vs_plain": errs,
+           "fwd_lse_ms_runs": [f1, f2],
+           "fwd_bound_ms": f_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+           "bwd_ms_runs": [b1, b2],
+           "bwd_bound_ms": max(b_bytes / HBM_BYTES_PER_S,
+                               b_flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+           "bwd_bound_by": "bytes" if b_bytes / HBM_BYTES_PER_S
+           >= b_flops / PEAK_FLOPS["bfloat16"] else "operations",
+           "bwd_flops": b_flops,
+           "bwd_achieved_tflops": b_flops / min(b1, b2) / 1e9,
+           "bwd_plain_ms": plain}
+    emit({"phase": "flash_train", **res})
+    del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return res
 
@@ -1852,6 +1972,8 @@ def lm_elastic_phase(torch, np):
     step (a state that has just been scaled in) and resumed; then a suspended run against an uninterrupted one under
     deterministic algorithms."""
     from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.launch.elastic import ElasticTrainer
     from repro_torch.models import model as M
     c = LM_ELASTIC
@@ -1865,13 +1987,24 @@ def lm_elastic_phase(torch, np):
     rows = []
     for it, (k, b) in enumerate(batches):
         torch.cuda.synchronize()
+        n0 = flash_attention.launches_tc, flash_attention_bwd.launches
         t0 = time.perf_counter()
         m = trainer.train_step(b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        # every layer's attention on the flash route: a forward and remat's
+        # recomputation on the tensor cores, one backward
+        flash = (flash_attention.launches_tc - n0[0],
+                 flash_attention_bwd.launches - n0[1])
+        if flash != (2 * cfg.num_layers, cfg.num_layers):
+            fail(f"lm_elastic: step {it} launched {flash[0]} tensor-core "
+                 f"flash forwards and {flash[1]} backwards (want "
+                 f"{2 * cfg.num_layers} and {cfg.num_layers})")
         rows.append({"step": it, "K": k, "loss": m["loss"],
                      "grad_norm": m["grad_norm"], "step_s": dt,
-                     "tokens_per_s": c["batch"] * c["seq"] / dt})
+                     "tokens_per_s": c["batch"] * c["seq"] / dt,
+                     "flash_tc_fwd_launches": flash[0],
+                     "flash_bwd_launches": flash[1]})
         if it == c["suspend_after"]:
             before = state_on_host(trainer, M)
             t0 = time.perf_counter()
@@ -3521,12 +3654,40 @@ def zero_counts(counted):
                 setattr(k, attr, 0)
 
 
+def flash_route_only(counted, what):
+    """Fail unless the kernels launched since `zero_counts(counted)` are
+    the flash route's alone (blocked_attention's bf16 self-attention on
+    the grouped layout), every forward on the tensor cores."""
+    launches = {name: k.launches for name, k in counted.items()}
+    flash = counted["flash_attention"]
+    if any(n for name, n in launches.items() if name != "flash_attention") \
+            or flash.launches != flash.launches_tc:
+        fail(f"{what}: kernels launched off the flash route: {launches}, "
+             f"{flash.launches_tc} flash launches on the tensor cores")
+    return launches
+
+
+@contextlib.contextmanager
+def blocked_attention_only():
+    """blocked_attention on its query-blocked path whatever its inputs, as
+    on meta tensors (which never take the flash route)."""
+    from repro_torch.models import attention as attn
+    route = attn.flash_route
+    attn.flash_route = lambda *args: False
+    try:
+        yield
+    finally:
+        attn.flash_route = route
+
+
 def families_phase(torch, M, get_config, steps_mod, counted):
     """The ssm, audio and vlm models at published widths (fp32 gates,
-    bf16 prefill, decode and training) and jamba's mamba mixer.  No
-    kernel of the port lies on this path (the scans, the WKV recurrence
-    and cross-attention are plain PyTorch, as the JAX package leaves them
-    to XLA): every kernel's count is zeroed before and read after."""
+    bf16 prefill, decode and training) and jamba's mamba mixer.  The only
+    kernel of the port on this path is the flash route's forward (the
+    vlm's bf16 self-attention prefill: grouped heads, 512 tokens); the
+    scans, the WKV recurrence and cross-attention are plain PyTorch, as
+    the JAX package leaves them to XLA: every kernel's count is zeroed
+    before and read after."""
     zero_counts(counted)
     t_phase = time.perf_counter()
     runs = {}
@@ -3556,10 +3717,7 @@ def families_phase(torch, M, get_config, steps_mod, counted):
     mixer = mamba_mixer_gate(torch, get_config)
     mixer["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    launches = {name: k.launches for name, k in counted.items()}
-    if any(launches.values()):
-        fail(f"families: kernels launched on a path that has none: "
-             f"{launches}")
+    launches = flash_route_only(counted, "families")
     emit({"phase": "families", "tolerance": FAMILY_TOL,
           "vlm_cross_gate": FAMILY_CROSS_GATE, "runs": runs,
           "mamba_mixer": mixer, "kernel_launches": launches,
@@ -3584,8 +3742,12 @@ def dryrun_phase(torch, counted):
     bound (the roofline of the op counter's unfused bytes and flops,
     which include every cast and copy eager PyTorch makes) and the floor
     (the larger of the argument bytes read once and the model flops).
-    The steps are the flat-cache serve step and the train step: no
-    kernel of the port lies on this path (counts zeroed, read as 0)."""
+    The meta trace runs blocked_attention's query-blocked path, so the
+    parity check runs the card's step on it too (`blocked_attention_only`);
+    the timed step runs the program as it is.  The steps are the
+    flat-cache serve step and the train step: no kernel of the port lies
+    on this path but the flash route, which the train step's attention
+    takes (counts zeroed, then read)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch import dryrun as planner
     from repro_torch.launch import steps as steps_mod
@@ -3624,7 +3786,7 @@ def dryrun_phase(torch, counted):
         step = steps_mod.build_step(cfg, spec)
         counter = OpCost()
         counter.hold(args)
-        with counter:
+        with blocked_attention_only(), counter:
             out = step(*args)
         torch.cuda.synchronize()
         if counter.flops != rec["cost"]["flops"]:
@@ -3674,10 +3836,7 @@ def dryrun_phase(torch, counted):
             "ms_over_floor": ms / floor[floor_by],
             "trace_s": rec["trace_s"],
             "seconds": time.perf_counter() - t0})
-    launches = {name: k.launches for name, k in counted.items()}
-    if any(launches.values()):
-        fail(f"dryrun: kernels launched on a path that has none: "
-             f"{launches}")
+    launches = flash_route_only(counted, "dryrun")
     emit({"phase": "dryrun", "card": card_line(), "pairs": rows,
           "kernel_launches": launches,
           "seconds": time.perf_counter() - t_phase})
@@ -4402,6 +4561,7 @@ def main() -> None:
                         flash_attention_plain)
     flash_err = {k: max(e, flash["vs_plain_max_abs_err"][k])
                  for k, e in flash_err.items()}
+    flash_train_phase(torch, np, cfg)
     lm_train_phase(torch)
     lm_elastic_phase(torch, np)
 

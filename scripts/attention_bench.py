@@ -17,6 +17,11 @@ parent commit unpacked under `build/`:
 Shapes (h2o-danube-1.8b: KV=8, G=4, hd=80, window 4096):
 - flash: `flash_attention` at B=4, S=4096, causal; the yardstick is
   `scaled_dot_product_attention(is_causal=True, enable_gqa=True)`;
+- flash training (where the tree has the backward): `chip_smoke.py`'s
+  `flash_train` phase at danube.train.seq4k's B=12, S=4096: the forward
+  that writes the log-sum-exp and `flash_attention_bwd`, each held to its
+  plain version and timed beside its bound (one JSON line, `"phase":
+  "flash_train"`);
 - paged chunk: a 256-token prefill chunk per row (B=4, QG=1024) over the
   engine's page pool (page_size 16, 128 pages a row); the yardstick is a
   gather plus SDPA (`chip_smoke.library_call`);
@@ -106,6 +111,13 @@ def main() -> None:
         failed.append("flash one-ulp check")
     del q, k, v
     torch.cuda.empty_cache()
+
+    # the training step's attention (B=12): the forward that writes the
+    # log-sum-exp and the backward kernel, where the tree has them
+    import repro_torch.kernels.flash_attention as fa_mod
+    if hasattr(fa_mod, "flash_attention_bwd"):
+        from repro_torch.configs import get_config
+        cs.flash_train_phase(torch, np, get_config("h2o-danube-1.8b"))
 
     # paged chunk, decode and verify spans over the engine's pool
     ps, P = 16, 128

@@ -47,6 +47,7 @@ namespace attn_mma {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int KEYS = 64;  // keys per step
 constexpr int NT = KEYS / 8;  // score n-tiles per step
 constexpr int ROW_ALL = 1 << 30;  // beyond every key position
@@ -132,6 +133,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -309,6 +321,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 64, fp32, += unless !accumulate) = A (64 x 16) B (16 x 64),
+// both in shared memory and K-major (the flash backward's score products)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 template <int N, int TRANS_B>
@@ -526,6 +563,19 @@ struct WarpgroupRows {
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
+  }
+
+  // each row's log-sum-exp of its scaled scores, natural log, to r0 (row
+  // g) and r1 (row g + 8) (null: not stored)
+  __device__ __forceinline__ void store_lse(float* r0, float* r1,
+                                            int lane) const {
+    float* row[2] = {r0, r1};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float lt = quad_sum(l[i]);
+      if (row[i] != nullptr && (lane & 3) == 0)
+        *row[i] = (m[i] + log2f(lt)) * LN2;
+    }
   }
 
   // O / l in bf16 to rows r0 (g) and r1 (g + 8) (null: not stored); a row

@@ -54,6 +54,41 @@
 //     first, so the short causal tiles fill the tail.
 //   - everything else (fp32, and bf16 with another hd) runs the kernel
 //     described above: fp32 on the CUDA cores.
+// The tensor-core kernel can also write each row's log-sum-exp of its
+// scaled scores (an epilogue store, skipped when its pointer is null) for
+// the backward.
+//
+// The backward (flash_attention_bwd_launch) replaces no TPU kernel: the
+// Pallas flash kernel has no VJP, and the JAX package differentiates its
+// plain blocked_attention.  It is the gradient of the tensor-core forward,
+// for the training step's attention: dq, dk, dv for bf16 q/k/v with hd 32,
+// 64, 80 or 128, causal and/or window, GQA read from the compact KV heads,
+// S a multiple of 128.  Bound: its operations, 8 * hd flops per visible
+// (query, key) pair (dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) over
+// q, k, v, O, dO and the gradients read or written once.  Design:
+//   - P is recomputed from the forward's log-sum-exp, P = exp2(s * scale *
+//     log2(e) - lse * log2(e)): no score block ever reaches device memory,
+//     and no running max is needed.  Only steps that cut a causal or window
+//     edge are masked; steps no row of a tile can see are skipped.
+//   - Two passes, so nothing is summed across blocks and every gradient is
+//     written once by one thread in a fixed order (no float atomics: two
+//     calls are bit-equal).  The dQ pass (one block per kv head and tile of
+//     128 query rows, position-major as the forward's) also writes D =
+//     rowsum(dO o O); the dK/dV pass (one block per kv head and 128 keys,
+//     two warpgroups of 64) walks the query steps that see its keys, all G
+//     q heads of the group in turn, so the group's sum stays in fp32
+//     registers.  Each pass recomputes S and dP: 18 * hd flops a pair
+//     against the bound's 8 (with the hi/lo pairs below).
+//   - Precision no lower than the blocked path it replaces: S, dP and every
+//     product accumulate in fp32; P enters dV = P^T dO in bf16 (the blocked
+//     path rounds P to bf16 there too); dS = P (dP - D) enters dQ = dS K and
+//     dK = dS^T Q as a hi/lo pair of bf16 operands (~16 bits, the forward's
+//     P.V device); only the final stores are bf16.
+//   - The dK/dV pass reads K and V of its keys once (TMA) and holds them in
+//     shared memory as the A operands of S^T = K Q^T and dP^T = V dO^T;
+//     each step's Q, dO, LSE and D arrive by TMA and bulk copies through a
+//     3-slot ring; the dQ pass keeps Q and dO in registers and streams K
+//     and V through the forward's ring.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -348,7 +383,8 @@ constexpr int TC_STAGES = 3;  // K/V ring depth: TMA runs two steps ahead
 template <int HD>
 __global__ void __launch_bounds__(TC_WARPS * 32, HD <= 80 ? 2 : 1)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                          __nv_bfloat16* __restrict__ out, Shape s,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, Shape s,
                           int n_tiles,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap) {
@@ -375,9 +411,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // row r: position p0 + r / G of q head kvh * G + r % G
-  auto row_off = [&](int r) {
-    return ((size_t)(kvh * G + r % G) * S + p0 + r / G) * HD;
+  auto row_idx = [&](int r) {
+    return (size_t)(kvh * G + r % G) * S + p0 + r / G;
   };
+  auto row_off = [&](int r) { return row_idx(r) * HD; };
   copy_tile<TC_ROWS, CPR>(q_s, q, [&](int r, int ch) {
     return r < nr ? q + row_off(r) + ch * 8 : nullptr;
   }, tid, NTH);
@@ -454,6 +491,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int ra = warp * 16 + (lane >> 2), rb = ra + 8;
   rows.store(ra < nr ? out + row_off(ra) : nullptr,
              rb < nr ? out + row_off(rb) : nullptr, lane);
+  if (lse != nullptr)
+    rows.store_lse(ra < nr ? lse + row_idx(ra) : nullptr,
+                   rb < nr ? lse + row_idx(rb) : nullptr, lane);
 }
 
 // cuTensorMapEncodeTiled is a CUDA driver API function: looked up at run
@@ -497,7 +537,7 @@ bool kv_map(CUtensorMap* m, const void* base, long long rows, int hd) {
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              int BHkv, Shape s, cudaStream_t stream) {
+              float* lse, int BHkv, Shape s, cudaStream_t stream) {
   s.tp = TC_ROWS / s.G;
   const long long n_tiles = (s.S + s.tp - 1) / s.tp;
   if (n_tiles * BHkv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -515,7 +555,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)(n_tiles * BHkv), TC_WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-      s, (int)n_tiles, kmap, vmap);
+      lse, s, (int)n_tiles, kmap, vmap);
   return (int)cudaGetLastError();
 }
 
@@ -523,33 +563,549 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 // configs' and scale presets' head dims), and 16-byte aligned q, k, v and
 // out; -1 if it does not take the call
 int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
-                 int BHkv, const Shape& s, cudaStream_t stream) {
+                 float* lse, int BHkv, const Shape& s, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
     return -1;
   switch (s.hd) {
-    case 32: return launch_tc<32>(q, k, v, out, BHkv, s, stream);
-    case 64: return launch_tc<64>(q, k, v, out, BHkv, s, stream);
-    case 80: return launch_tc<80>(q, k, v, out, BHkv, s, stream);
-    case 128: return launch_tc<128>(q, k, v, out, BHkv, s, stream);
+    case 32: return launch_tc<32>(q, k, v, out, lse, BHkv, s, stream);
+    case 64: return launch_tc<64>(q, k, v, out, lse, BHkv, s, stream);
+    case 80: return launch_tc<80>(q, k, v, out, lse, BHkv, s, stream);
+    case 128: return launch_tc<128>(q, k, v, out, lse, BHkv, s, stream);
     default: return -1;
   }
 }
 
+// ---- the backward, bf16 on the tensor cores ----------------------------
+
+constexpr int BWD_KT = 2 * attn_mma::KEYS;  // keys per dK/dV block
+
+// One step of the dQ kernel: this warpgroup's 64 rows against KEYS keys
+// whose K and V tiles sit in shared memory as TMA boxes (32-byte swizzle).
+// P = exp2(s * scale_log2 - lse2) from the forward's log-sum-exp (0 where a
+// key is masked), dP = dO V^T, dS = P (dP - D), and dQ += dS K with dS as a
+// hi/lo pair of bf16 operands.  Rows and keys as in WarpgroupRows.
+template <int HD, bool MASK>
+__device__ __forceinline__ void dq_step(
+    float (&acc)[HD / 2], const uint32_t (&qf)[HD / 16][4],
+    const uint32_t (&dof)[HD / 16][4], const attn_mma::bf16* kt,
+    const attn_mma::bf16* vt, int kb, const int (&lo)[2],
+    const int (&hi)[2], const float (&lse2)[2], const float (&dd)[2],
+    float scale_log2, int lane) {
+  using namespace attn_mma;
+  constexpr int KS = HD / 16;
+  const uint64_t k_km = smem_desc(kt, 16, 256, 3);  // B of Q K^T
+  const uint64_t v_km = smem_desc(vt, 16, 256, 3);  // B of dO V^T
+  const uint64_t k_mn = smem_desc(kt, KEYS * 32, 256, 3);  // B of dS K
+  float sc[NT * 4], dp[NT * 4];
+  fence_regs(sc);
+  fence_regs(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_rs<KEYS, 0>(sc, qf[ks], k_km + ks * 2 * KEYS, ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_rs<KEYS, 0>(dp, dof[ks], v_km + ks * 2 * KEYS, ks > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(sc);
+  fence_regs(dp);
+  const int t2 = 2 * (lane & 3);
+  uint32_t dh[NT / 2][4], dl[NT / 2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float p = exp2_approx(fmaf(sc[4 * j + e], scale_log2, -lse2[i]));
+      if (MASK) {
+        const int key = kb + j * 8 + t2 + (e & 1);
+        if (key < lo[i] || key >= hi[i]) p = 0.f;
+      }
+      ds[e] = p * (dp[4 * j + e] - dd[i]);
+    }
+    split_bf16(ds[0], ds[1], dh[j >> 1][(j & 1) * 2],
+               dl[j >> 1][(j & 1) * 2]);
+    split_bf16(ds[2], ds[3], dh[j >> 1][(j & 1) * 2 + 1],
+               dl[j >> 1][(j & 1) * 2 + 1]);
+  }
+  fence_regs(acc);
+  fence_regs(dh);
+  fence_regs(dl);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    wgmma_rs<HD, 1>(acc, dh[kk], k_mn + kk * 32, 1);
+    wgmma_rs<HD, 1>(acc, dl[kk], k_mn + kk * 32, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// dQ, and D = rowsum(dO o O) for the dK/dV kernel: one block per (kv head,
+// tile of query positions), its 128 rows position-major as the forward's,
+// Q and dO in registers, K and V through the forward's TMA ring
+template <int HD>
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+flash_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ out,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Shape s,
+                              int n_tiles,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap) {
+  using namespace attn_mma;
+  constexpr int CPR = HD / 8;
+  constexpr int KS = HD / 16, NO = HD / 8;
+  constexpr int NTH = TC_WARPS * 32;
+  constexpr int STEP = attn_mma::KEYS;
+  constexpr int TILE = STEP * HD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // TC_ROWS x HD
+  bf16* do_s = q_s + TC_ROWS * HD;                // TC_ROWS x HD
+  bf16* kv_s = do_s + TC_ROWS * HD;  // TC_STAGES x (K tile, V tile)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + TC_STAGES * 2 * TILE);
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  auto empty = [&](int st) { return smem_u32(bars + TC_STAGES + st); };
+  const int G = s.G, S = s.S;
+  const int BHkv = gridDim.x / n_tiles;
+  const int kvh = blockIdx.x % BHkv;
+  const int p0 = (n_tiles - 1 - blockIdx.x / BHkv) * s.tp;
+  const int n_pos = min(s.tp, S - p0);
+  const int nr = n_pos * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // row r: position p0 + r / G of q head kvh * G + r % G
+  auto row_idx = [&](int r) {
+    return (size_t)(kvh * G + r % G) * S + p0 + r / G;
+  };
+  copy_tile<TC_ROWS, CPR>(q_s, q, [&](int r, int ch) {
+    return r < nr ? q + row_idx(r) * HD + ch * 8 : nullptr;
+  }, tid, NTH);
+  copy_tile<TC_ROWS, CPR>(do_s, dout, [&](int r, int ch) {
+    return r < nr ? dout + row_idx(r) * HD + ch * 8 : nullptr;
+  }, tid, NTH);
+  cp_async_commit();
+  const int k_lo = s.window > 0 ? max(0, p0 - s.window + 1) : 0;
+  const int k_end = s.causal ? p0 + n_pos : S;
+  const int n_steps = (k_end - k_lo + STEP - 1) / STEP;
+  auto stage = [&](int i) {
+    const int st = i % TC_STAGES;
+    bf16* kd = kv_s + (size_t)st * 2 * TILE;
+    const int row = kvh * S + k_lo + i * STEP;
+    mbar_expect_tx(full(st), 2 * TILE * (int)sizeof(bf16));
+    tma_load_3d(kd, &kmap, 0, row, 0, full(st));
+    tma_load_3d(kd + TILE, &vmap, 0, row, 0, full(st));
+  };
+  if (tid == 0) {
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), TC_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(n_steps, TC_STAGES - 1); ++i) stage(i);
+  }
+
+  // this thread's rows g and g + 8 of its warp's 16: the keys they see
+  // (lo <= k < hi), their log-sum-exp (log2 domain) and D, written out too
+  auto lo_of = [&](int r) {
+    return s.window > 0 ? p0 + r / G - s.window + 1 : 0;
+  };
+  auto hi_of = [&](int r) { return s.causal ? p0 + r / G + 1 : S; };
+  const int t2 = 2 * (lane & 3);
+  int lo[2], hi[2];
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    const bool valid = r < nr;
+    lo[i] = valid ? lo_of(r) : ROW_ALL;
+    hi[i] = valid ? hi_of(r) : -ROW_ALL;
+    float d = 0.f;
+    if (valid) {
+      const bf16* o_r = out + row_idx(r) * HD;
+      const bf16* do_r = dout + row_idx(r) * HD;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(o_r + n * 8 + t2));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(do_r + n * 8 + t2));
+        d = fmaf(a.x, b.x, fmaf(a.y, b.y, d));
+      }
+    }
+    d = quad_sum(d);
+    dd[i] = d;
+    lse2[i] = valid ? lse[row_idx(r)] * LOG2E : 0.f;
+    if (valid && (lane & 3) == 0) delta[row_idx(r)] = d;
+  }
+  const int wg0 = (warp >> 2) * 64;
+  const int wg1 = min(wg0 + 64, nr) - 1;
+  const bool any = wg1 >= wg0;
+  const int lo_min = any ? lo_of(wg0) : ROW_ALL;
+  const int lo_max = any ? lo_of(wg1) : ROW_ALL;
+  const int hi_min = any ? hi_of(wg0) : -ROW_ALL;
+  const int hi_max = any ? hi_of(wg1) : -ROW_ALL;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // Q and dO staged, barriers initialised
+  uint32_t qf[KS][4], dof[KS][4];
+  {
+    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldsm_x4(qf[ks], q_s + tile_off(r, 2 * ks + (lane >> 4), TC_ROWS));
+      ldsm_x4(dof[ks], do_s + tile_off(r, 2 * ks + (lane >> 4), TC_ROWS));
+    }
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) acc[n] = 0.f;
+  const float scale_log2 = s.sm_scale * LOG2E;
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % TC_STAGES;
+    if (tid == 0 && i + TC_STAGES - 1 < n_steps) {
+      const int nx = i + TC_STAGES - 1;
+      if (i > 0)
+        mbar_wait(empty(nx % TC_STAGES), ((i - 1) / TC_STAGES) & 1);
+      stage(nx);
+    }
+    mbar_wait(full(st), (i / TC_STAGES) & 1);
+    const int kb = k_lo + i * STEP;
+    const bf16* kd = kv_s + (size_t)st * 2 * TILE;
+    if (max(lo_min, kb) < min(hi_max, kb + STEP)) {
+      if (lo_max > kb || hi_min < kb + STEP)
+        dq_step<HD, true>(acc, qf, dof, kd, kd + TILE, kb, lo, hi, lse2, dd,
+                          scale_log2, lane);
+      else
+        dq_step<HD, false>(acc, qf, dof, kd, kd + TILE, kb, lo, hi, lse2,
+                           dd, scale_log2, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + 8 * i;
+    if (r >= nr) continue;
+    bf16* row = dq + row_idx(r) * HD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + t2) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * s.sm_scale,
+                                acc[4 * n + 2 * i + 1] * s.sm_scale);
+  }
+}
+
+// One step of the dK/dV kernel: this warpgroup's 64 keys (K and V tiles,
+// the A operands, in shared memory) against STEP query rows of one q head
+// (Q and dO tiles, LSE and D).  Transposed scores S^T = K Q^T and
+// dP^T = V dO^T; P^T = exp2(S^T * scale_log2 - lse2) (0 where masked);
+// dV += bf16(P^T) dO; dK += (dS^T hi + lo) Q with dS^T = P^T (dP^T - D).
+template <int HD, bool MASK>
+__device__ __forceinline__ void dkv_step(
+    float (&dk)[HD / 2], float (&dv)[HD / 2], uint64_t a_k, uint64_t a_v,
+    const attn_mma::bf16* qt, const attn_mma::bf16* dot, const float* lse_s,
+    const float* d_s, int qb, const int (&key)[2], const Shape s,
+    float scale_log2, int lane) {
+  using namespace attn_mma;
+  constexpr int KS = HD / 16;
+  const uint64_t q_km = smem_desc(qt, 16, 256, 3);
+  const uint64_t do_km = smem_desc(dot, 16, 256, 3);
+  const uint64_t q_mn = smem_desc(qt, KEYS * 32, 256, 3);
+  const uint64_t do_mn = smem_desc(dot, KEYS * 32, 256, 3);
+  float st[NT * 4], dpt[NT * 4];
+  fence_regs(st);
+  fence_regs(dpt);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_ss_n64(st, a_k + ks * 2 * KEYS, q_km + ks * 2 * KEYS, ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_ss_n64(dpt, a_v + ks * 2 * KEYS, do_km + ks * 2 * KEYS, ks > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(st);
+  fence_regs(dpt);
+  const int t2 = 2 * (lane & 3);
+  uint32_t pb[NT / 2][4], dh[NT / 2][4], dl[NT / 2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = j * 8 + t2;  // this thread's columns c and c + 1
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(d_s + c);
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1, cc = e & 1;
+      const float lc = (cc ? l2.y : l2.x) * LOG2E;
+      float pe = exp2_approx(fmaf(st[4 * j + e], scale_log2, -lc));
+      if (MASK) {
+        const int d = qb + c + cc - key[i];
+        if ((s.causal && d < 0) || (s.window > 0 && d >= s.window)) pe = 0.f;
+      }
+      p[e] = pe;
+      ds[e] = pe * (dpt[4 * j + e] - (cc ? d2.y : d2.x));
+    }
+    const int kk = j >> 1, h = (j & 1) * 2;
+    pb[kk][h] = as_u32(__floats2bfloat162_rn(p[0], p[1]));
+    pb[kk][h + 1] = as_u32(__floats2bfloat162_rn(p[2], p[3]));
+    split_bf16(ds[0], ds[1], dh[kk][h], dl[kk][h]);
+    split_bf16(ds[2], ds[3], dh[kk][h + 1], dl[kk][h + 1]);
+  }
+  fence_regs(dk);
+  fence_regs(dv);
+  fence_regs(pb);
+  fence_regs(dh);
+  fence_regs(dl);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    wgmma_rs<HD, 1>(dv, pb[kk], do_mn + kk * 32, 1);
+    wgmma_rs<HD, 1>(dk, dh[kk], q_mn + kk * 32, 1);
+    wgmma_rs<HD, 1>(dk, dl[kk], q_mn + kk * 32, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(dk);
+  fence_regs(dv);
+}
+
+// dK and dV: one block per (kv head, BWD_KT keys), each warpgroup owning 64
+// of them with their dK and dV in registers over every query step that
+// sees a key of the block: STEP positions of one q head of the group at a
+// time, position-major (a position's G heads in turn), Q, dO, LSE and D of
+// the step arriving through a TMA ring as in the forward
+template <int HD>
+__global__ void __launch_bounds__(TC_WARPS * 32, 1)
+flash_attention_bwd_dkv_kernel(const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, Shape s,
+                               int n_tiles,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap domap) {
+  using namespace attn_mma;
+  constexpr int NO = HD / 8;
+  constexpr int STEP = attn_mma::KEYS;  // query positions per step
+  constexpr int TILE = STEP * HD;       // elements of one 64-row tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // the warpgroups' K tiles
+  bf16* v_s = k_s + 2 * TILE;                     // and V tiles
+  bf16* qd_s = v_s + 2 * TILE;  // TC_STAGES x (Q tile, dO tile)
+  float* ld_s = reinterpret_cast<float*>(qd_s + TC_STAGES * 2 * TILE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ld_s + TC_STAGES * 2 * STEP);
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  auto empty = [&](int st) { return smem_u32(bars + TC_STAGES + st); };
+  const uint32_t kv_bar = smem_u32(bars + 2 * TC_STAGES);
+  const int G = s.G, S = s.S;
+  const int BHkv = gridDim.x / n_tiles;
+  const int kvh = blockIdx.x % BHkv;
+  const int kb0 = (blockIdx.x / BHkv) * BWD_KT;  // the earliest keys first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the query positions that see some key of the block, in whole steps
+  const int q_first = s.causal ? kb0 : 0;
+  const int q_end =
+      s.window > 0 ? min(S, (kb0 + BWD_KT - 1 + s.window + STEP - 1) /
+                                STEP * STEP)
+                   : S;
+  const int n_steps = (q_end - q_first) / STEP * G;
+  auto stage = [&](int i) {
+    const int st = i % TC_STAGES;
+    bf16* qd = qd_s + (size_t)st * 2 * TILE;
+    float* ld = ld_s + st * 2 * STEP;
+    const int row = (kvh * G + i % G) * S + q_first + (i / G) * STEP;
+    mbar_expect_tx(full(st),
+                   2 * TILE * (int)sizeof(bf16) + 2 * STEP * (int)sizeof(float));
+    tma_load_3d(qd, &qmap, 0, row, 0, full(st));
+    tma_load_3d(qd + TILE, &domap, 0, row, 0, full(st));
+    bulk_load(ld, lse + row, STEP * (int)sizeof(float), full(st));
+    bulk_load(ld + STEP, delta + row, STEP * (int)sizeof(float), full(st));
+  };
+  if (tid == 0) {
+    for (int st = 0; st < TC_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), TC_WARPS);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(kv_bar, 4 * TILE * (int)sizeof(bf16));
+    for (int w = 0; w < 2; ++w) {
+      const int row = kvh * S + kb0 + w * STEP;
+      tma_load_3d(k_s + w * TILE, &kmap, 0, row, 0, kv_bar);
+      tma_load_3d(v_s + w * TILE, &vmap, 0, row, 0, kv_bar);
+    }
+    for (int i = 0; i < min(n_steps, TC_STAGES - 1); ++i) stage(i);
+  }
+  __syncthreads();  // barriers initialised
+  const int wg = warp >> 2;
+  const int kw = kb0 + wg * STEP;  // the warpgroup's first key
+  int key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key[i] = kw + (warp & 3) * 16 + (lane >> 2) + 8 * i;
+  const uint64_t a_k = smem_desc(k_s + wg * TILE, 16, 256, 3);
+  const uint64_t a_v = smem_desc(v_s + wg * TILE, 16, 256, 3);
+  float dkr[HD / 2], dvr[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) dkr[n] = dvr[n] = 0.f;
+  const float scale_log2 = s.sm_scale * LOG2E;
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % TC_STAGES;
+    if (tid == 0 && i + TC_STAGES - 1 < n_steps) {
+      const int nx = i + TC_STAGES - 1;
+      if (i > 0)
+        mbar_wait(empty(nx % TC_STAGES), ((i - 1) / TC_STAGES) & 1);
+      stage(nx);
+    }
+    mbar_wait(full(st), (i / TC_STAGES) & 1);
+    const int qb = q_first + (i / G) * STEP;
+    // some (position, key) pair of the step is visible; every one is
+    const bool sees = (!s.causal || qb + STEP - 1 >= kw) &&
+                      (s.window == 0 || qb - (kw + STEP - 1) < s.window);
+    const bool all = (!s.causal || qb >= kw + STEP - 1) &&
+                     (s.window == 0 || qb + STEP - 1 - kw < s.window);
+    if (sees) {
+      const bf16* qt = qd_s + (size_t)st * 2 * TILE;
+      const float* ld = ld_s + st * 2 * STEP;
+      if (all)
+        dkv_step<HD, false>(dkr, dvr, a_k, a_v, qt, qt + TILE, ld, ld + STEP,
+                            qb, key, s, scale_log2, lane);
+      else
+        dkv_step<HD, true>(dkr, dvr, a_k, a_v, qt, qt + TILE, ld, ld + STEP,
+                           qb, key, s, scale_log2, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t off = ((size_t)kvh * S + key[i]) * HD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + t2) =
+          __floats2bfloat162_rn(dkr[4 * n + 2 * i] * s.sm_scale,
+                                dkr[4 * n + 2 * i + 1] * s.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + t2) =
+          __floats2bfloat162_rn(dvr[4 * n + 2 * i], dvr[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int BHkv, Shape s, cudaStream_t stream) {
+  using attn_mma::KEYS;
+  s.tp = TC_ROWS / s.G;
+  const long long n_tiles = (s.S + s.tp - 1) / s.tp;
+  const long long n_ktiles = s.S / BWD_KT;
+  if (n_tiles * BHkv > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)BHkv * s.S;
+  CUtensorMap kmap, vmap, qmap, domap;
+  if (!kv_map(&kmap, k, rows, HD) || !kv_map(&vmap, v, rows, HD) ||
+      !kv_map(&qmap, q, rows * s.G, HD) ||
+      !kv_map(&domap, dout, rows * s.G, HD))
+    return (int)cudaErrorInvalidValue;
+  typedef __nv_bfloat16 bf;
+  // dQ and D first: the dK/dV kernel reads D
+  const size_t smem_dq = (size_t)(2 * TC_ROWS + 2 * TC_STAGES * KEYS) * HD *
+                             sizeof(bf) +
+                         2 * TC_STAGES * sizeof(uint64_t);
+  auto kdq = flash_attention_bwd_dq_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  if (err != cudaSuccess) return (int)err;
+  kdq<<<(unsigned)(n_tiles * BHkv), TC_WARPS * 32, smem_dq, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(out),
+      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), s,
+      (int)n_tiles, kmap, vmap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem_dkv =
+      (size_t)(4 + 2 * TC_STAGES) * KEYS * HD * sizeof(bf) +
+      2 * TC_STAGES * KEYS * sizeof(float) +
+      (2 * TC_STAGES + 1) * sizeof(uint64_t);
+  auto kdkv = flash_attention_bwd_dkv_kernel<HD>;
+  err = cudaFuncSetAttribute(
+      kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+  if (err != cudaSuccess) return (int)err;
+  kdkv<<<(unsigned)(n_ktiles * BHkv), TC_WARPS * 32, smem_dkv, stream>>>(
+      lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), s,
+      (int)n_ktiles, kmap, vmap, qmap, domap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The backward of the tensor-core forward: dq, dk, dv (bf16, shaped as q,
+// k, v) from q, k, v, its output `out`, its log-sum-exp `lse` (fp32,
+// (BHkv * G, S)) and dout; `delta` (fp32, (BHkv * G, S)) is scratch that
+// gets D = rowsum(dout o out).  Two launches on `stream`: dQ (and D), then
+// dK and dV.  Needs bf16, hd 32, 64, 80 or 128, S a multiple of 128,
+// G <= 64 and 16-byte aligned tensors.  Returns a cudaError_t
+// (0 = launched).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int BHkv, int S, int hd, int G, int causal, int window,
+    float sm_scale, void* stream) {
+  if (BHkv <= 0 || S <= 0 || S % BWD_KT || G <= 0 || G > ROWS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[10] = {q, k, v, out, dout, lse, delta, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  Shape s;
+  s.S = S;
+  s.hd = hd;
+  s.G = G;
+  s.tp = 0;
+  s.window = window;
+  s.causal = causal != 0;
+  s.sm_scale = sm_scale;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return launch_bwd<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, BHkv,
+                            s, st);
+    case 64:
+      return launch_bwd<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, BHkv,
+                            s, st);
+    case 80:
+      return launch_bwd<80>(q, k, v, out, dout, lse, delta, dq, dk, dv, BHkv,
+                            s, st);
+    case 128:
+      return launch_bwd<128>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                             BHkv, s, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched)
 // and sets *variant to the kernel it launched: 1 = the tensor-core kernel
 // (bf16, hd 32, 64, 80 or 128, 16-byte aligned q, k, v and out),
 // 0 = the CUDA-core kernel (every other call).  Needs hd <= 128 with
-// 16-byte K/V rows and G <= 64.
+// 16-byte K/V rows and G <= 64.  A non-null `lse` (fp32, (BHkv * G, S))
+// gets each row's log-sum-exp of its scaled scores (natural log), for the
+// backward; only the tensor-core kernel writes it, so a call it does not
+// take is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int BHkv,
-                                      int S, int hd, int G, int causal,
-                                      int window, float sm_scale, int dtype,
-                                      void* stream, int* variant) {
+                                      const void* v, void* out, float* lse,
+                                      int BHkv, int S, int hd, int G,
+                                      int causal, int window, float sm_scale,
+                                      int dtype, void* stream, int* variant) {
   *variant = 0;
+  if (dtype == 0 && lse != nullptr) return (int)cudaErrorInvalidValue;
   if (BHkv <= 0 || BHkv > 65535 || S <= 0 || hd <= 0 || hd > MAX_HD ||
       G <= 0 || G > ROWS || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -565,10 +1121,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, out, BHkv, s, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  const int err = launch_tc_hd(q, k, v, out, BHkv, s, st);
+  const int err = launch_tc_hd(q, k, v, out, lse, BHkv, s, st);
   if (err >= 0) {
     *variant = 1;
     return err;
   }
+  if (lse != nullptr) return (int)cudaErrorInvalidValue;
   return launch<__nv_bfloat16>(q, k, v, out, BHkv, s, st);
 }

@@ -20,6 +20,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels import flash_attention as fa
+from ..obs import NOOP_SPAN, PROGRAM_TRACER
 from .layers import ParamDef, head_out, head_proj, rms_norm, rope
 
 NEG_INF = -1e30
@@ -135,6 +137,74 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return torch.where(ok, zero, NEG_INF)
 
 
+def flash_route(device_type: str, dtype: torch.dtype,
+                layout: Tuple[str, int, int], S: int, Sk: int,
+                hd: int) -> bool:
+    """Whether `blocked_attention` runs on the flash kernels: CUDA, bf16,
+    the grouped head layout (q head h uses kv head h // g_pad) with
+    g_pad <= 64, self-attention (Sk == S), a tensor-core head dim and S a
+    multiple of the backward's tile."""
+    kind, _, g_pad = layout
+    return (device_type == "cuda" and dtype == torch.bfloat16
+            and kind == "grouped" and g_pad <= 64 and Sk == S
+            and hd in fa.TC_HEAD_DIMS and S % fa.BWD_TILE == 0)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward (which also writes each row's log-sum-exp) and its
+    backward kernel, on the kernels' layout: q (B*KV*G, S, hd), k and v
+    (B*KV, S, hd).  Each pass is a ``train.attention`` device span of
+    `obs.PROGRAM_TRACER` (arg ``phase``; it records only under a
+    profiler), remat's recomputation a forward one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, group_size):
+        with PROGRAM_TRACER.device_span("train.attention", device=q.device,
+                                        phase="forward"):
+            out, lse = fa.flash_attention(
+                q, k, v, causal=causal, window=window,
+                group_size=group_size, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, group_size=group_size)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        with PROGRAM_TRACER.device_span("train.attention", device=q.device,
+                                        phase="backward"):
+            dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_grouped_attention(cfg: ModelConfig, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """`blocked_attention`'s flash route (on the CPU: the kernels' plain
+    versions), for the grouped layout.  q: (B, S, H_pad, hd); k, v:
+    (B, S, KV, hd).  While autograd records, `_FlashAttention` (the
+    backward kernel); otherwise the forward kernel alone.  Returns
+    (B, S, H_pad, hd) with padded heads zeroed."""
+    B, S, HP, hd = q.shape
+    KV = k.shape[2]
+    g = HP // KV
+    qf = q.reshape(B, S, KV, g, hd).permute(0, 2, 3, 1, 4).reshape(
+        B * KV * g, S, hd)
+    kf, vf = (t.transpose(1, 2).reshape(B * KV, S, hd) for t in (k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        of = _FlashAttention.apply(qf, kf, vf, causal, window, g)
+    else:
+        of = fa.flash_attention(qf, kf, vf, causal=causal, window=window,
+                                group_size=g)
+    out = of.reshape(B, KV, g, S, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, S, HP, hd)
+    _, hmask = head_maps(cfg, q.device)
+    return out * hmask[None, None, :, None].to(out.dtype)
+
+
 def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, *, causal: bool = True,
                       window: int = 0, q_block: int = 512) -> torch.Tensor:
@@ -143,9 +213,34 @@ def blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     bidirectional encoder).  While autograd records, each query
     block is recomputed in backward (the JAX package's `@jax.checkpoint
     one_block`), so no block's fp32 scores and probabilities outlive it.
+    Inputs that `flash_route` admits take `flash_grouped_attention`
+    instead: the same function up to rounding (P keeps ~16 bits before
+    P.V, not bf16's 8), with no score block in device memory.
+
+    While autograd records, a ``train.attention`` device span of
+    `obs.PROGRAM_TRACER` (arg ``phase``) times attention: on the flash
+    route its forward and its backward; here its forward only (and remat's
+    recomputation), since autograd runs this path's backward outside it.
 
     q: (B, S, H_pad, hd); k, v: (B, Sk, KV, hd) compact.
     Returns (B, S, H_pad, hd) with padded heads zeroed."""
+    B, S, HP, hd = q.shape
+    if k.dtype == v.dtype == q.dtype and flash_route(
+            q.device.type, q.dtype, head_layout(cfg), S, k.shape[1], hd):
+        return flash_grouped_attention(cfg, q, k, v, causal=causal,
+                                       window=window)
+    span = (PROGRAM_TRACER.device_span("train.attention", device=q.device,
+                                       phase="forward")
+            if torch.is_grad_enabled() else NOOP_SPAN)
+    with span:
+        return _blocked_attention(cfg, q, k, v, causal=causal,
+                                  window=window, q_block=q_block)
+
+
+def _blocked_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, *, causal: bool, window: int,
+                       q_block: int) -> torch.Tensor:
+    """`blocked_attention`'s query-blocked path, whatever the inputs."""
     B, S, HP, hd = q.shape
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)

@@ -34,6 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.chunk_reduce import (weighted_merge,
                                               weighted_merge_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.launch.elastic import ElasticTrainer
 from repro_torch.models import model as M
@@ -746,6 +748,151 @@ def test_flash_model_layout_wrapper_on_the_card(cuda):
     want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
                                block_q=64, block_k=64)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+# (B, S, KV, G, hd, window, causal) for the flash backward: h2o-danube's
+# heads (G 4, hd 80) at one tile (S 128), with its window of 4096 and with
+# a window shorter than S, G 1 and G 8, hd 128 bidirectional with a window,
+# grok-1's G 6 (tiles of 21 positions, 126 rows) and hd 32
+BWD_CASES = [(1, 128, 2, 4, 80, 0, True), (2, 512, 2, 4, 80, 4096, True),
+             (1, 512, 2, 4, 80, 100, True), (2, 256, 2, 1, 64, 0, True),
+             (1, 256, 2, 8, 64, 0, True), (1, 384, 2, 2, 128, 70, False),
+             (1, 256, 2, 6, 128, 0, True), (1, 256, 1, 4, 32, 0, True)]
+
+
+def _bwd_inputs(case, seed):
+    """bf16 q, k, v, the tensor-core forward's output and log-sum-exp, and
+    an output gradient, on the card."""
+    B, S, KV, G, hd, win, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(n, S, hd, device="cuda", generator=gen).to(
+        torch.bfloat16) for n in (B * KV * G, B * KV, B * KV, B * KV * G))
+    out, lse = flash_attention(q, k, v, causal=causal, window=win,
+                               group_size=G, return_lse=True)
+    return q, k, v, out, lse, do, dict(causal=causal, window=win,
+                                       group_size=G)
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
+    """The backward kernel against its plain version on the fp32-cast
+    inputs: dq, dk and dv within 2^-7 of their largest element (bf16
+    outputs hold 2^-8; P enters dV in bf16, as the blocked path's does),
+    and the forward's log-sum-exp within 1e-4 of the plain scores'."""
+    q, k, v, out, lse, do, kw = _bwd_inputs(case, sum(case[:5]))
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    _, want_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                        return_lse=True, **kw)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     out.float(), want_lse, do.float(), **kw)
+    for name, g, w, ref in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+        err = _rel_err(g, w)
+        print(f"{case} d{name}: max abs err / max abs {err:.2e}")
+        assert err <= 2.0 ** -7, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[6]])
+def test_flash_attention_bwd_kernel_is_deterministic(cuda, case):
+    """Two calls on the same inputs give bit-equal gradients (no float
+    atomics: every output element is summed by one thread in one order)."""
+    q, k, v, out, lse, do, kw = _bwd_inputs(case, 3)
+    a = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    b = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_at_the_cell_shape(cuda):
+    """h2o-danube-1.8b's training shape, B=12, S=4096, KV=8, G=4, hd=80,
+    causal, window 4096: the kernel against its plain version, one batch
+    row at a time for the plain version's memory."""
+    B, S, KV, G, hd = 12, 4096, 8, 4, 80
+    q, k, v, out, lse, do, kw = _bwd_inputs((B, S, KV, G, hd, 4096, True), 9)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for b in (0, B - 1):
+        qs, ks = slice(b * KV * G, (b + 1) * KV * G), slice(b * KV,
+                                                            (b + 1) * KV)
+        want = flash_attention_bwd_plain(
+            q[qs].float(), k[ks].float(), v[ks].float(), out[qs].float(),
+            lse[qs], do[qs].float(), **kw)
+        for name, g, w in zip("qkv", (got[0][qs], got[1][ks], got[2][ks]),
+                              want):
+            err = _rel_err(g, w)
+            print(f"row {b} d{name}: max abs err / max abs {err:.2e}")
+            assert err <= 2.0 ** -7, (name, err)
+        del want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", [("h2o-danube-1.8b", 0),
+                                         ("h2o-danube-1.8b", 100),
+                                         ("grok-1-314b", 0)])
+def test_blocked_attention_flash_route_matches_the_blocked_path(
+        cuda, arch, window):
+    """blocked_attention on bf16 CUDA inputs takes the flash route (one
+    forward on the tensor cores, one backward launch) and its output and
+    gradients match the query-blocked path's in bf16 within 2^-6 of each
+    one's largest element: the two paths round differently (the blocked
+    path's P is bf16 before P.V and its dP is a bf16 product)."""
+    from repro_torch.models import attention as attn
+    cfg = get_config(arch)
+    kind, hp, g_pad = attn.head_layout(cfg)
+    assert kind == "grouped"
+    B, S, KV, hd = 2, 256, cfg.kv_heads(), cfg.head_dim_()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=gen).to(
+        torch.bfloat16).requires_grad_() for n in (hp, KV, KV))
+    do = torch.randn(B, S, hp, hd, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    n0 = (flash_attention.launches_tc, flash_attention_bwd.launches)
+    got = attn.blocked_attention(cfg, q, k, v, window=window)
+    g_got = torch.autograd.grad(got, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_tc, flash_attention_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    want = attn._blocked_attention(cfg, q, k, v, causal=True, window=window,
+                                   q_block=128)
+    g_want = torch.autograd.grad(want, (q, k, v), do)
+    assert (flash_attention.launches_tc, flash_attention_bwd.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (got, *g_got),
+                          (want, *g_want)):
+        err = _rel_err(g, w)
+        print(f"{arch} window {window} {name}: max abs err / max abs "
+              f"{err:.2e}")
+        assert err <= 2.0 ** -6, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_route_keeps_fp32_on_the_blocked_path(cuda):
+    """fp32 on the card stays on the query-blocked path: no flash launch."""
+    from repro_torch.models import attention as attn
+    cfg = get_config("h2o-danube-1.8b")
+    _, hp, _ = attn.head_layout(cfg)
+    q = torch.randn(1, 128, hp, 80, device="cuda", requires_grad=True)
+    k = torch.randn(1, 128, 8, 80, device="cuda")
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    out = attn.blocked_attention(cfg, q, k, k, window=4096)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == n0
 
 
 @pytest.mark.cuda

@@ -219,9 +219,11 @@ def test_traced_train_step_is_the_untraced_one_bit_for_bit(accum):
     assert all(torch.equal(plain[k], traced[k]) for k in plain)
     # each step's session: the batch's copy (tokens and labels int32,
     # weights float32), a forward, a backward and an optimizer a micro-batch
-    # with accumulation, and the step's optimizer
-    want = [("train.to_device", 2 * 4 * 16 * 4 + 4 * 4)] + [
-        ("train.forward", None), ("train.backward", None),
-        ("train.optimizer", None)] * accum + (
+    # with accumulation, and the step's optimizer; inside the forward each
+    # layer's attention, and inside the backward remat's recomputation of it
+    attn = [("train.attention", None)] * cfg.num_layers
+    want = [("train.to_device", 2 * 4 * 16 * 4 + 4 * 4)] + (
+        attn + [("train.forward", None)] + attn + [
+            ("train.backward", None), ("train.optimizer", None)]) * accum + (
             [("train.optimizer", None)] if accum > 1 else [])
     assert spans == [want, want]
